@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources have a plain C interface. ``nvcc`` compiles them into one shared
+library at first use, keyed by a hash of the sources and flags, under
+``build/kernels/`` of the checkout (listed in ``.gitignore``); ``ctypes``
+loads it. Nothing here runs at import time, and building the command line
+needs no CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libte_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    """The ``.cu`` translation units, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def nvcc_command(out: Path, nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the library unless this version of the sources is built.
+    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside it as ``build.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = nvcc_command(tmp, find_nvcc())
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    (so.parent / "build.log").write_text(
+        f"{' '.join(cmd)}\nseconds {time.perf_counter() - t0:.1f}\n"
+        f"{res.stdout}{res.stderr}")
+    os.replace(tmp, so)          # atomic: a concurrent build loses nothing
+    return so
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set argtypes/restype of every entry point: each pointer and the
+    stream are ``c_void_p`` (a plain ``int`` would be cut to 32 bits)."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for dt in ("f32", "f64"):
+        fwd = getattr(lib, f"te_attn_fwd_{dt}")
+        fwd.argtypes = [P, P, I, I, I, I, F, P]
+        fwd.restype = I
+        rev = getattr(lib, f"te_attn_rev_{dt}")
+        rev.argtypes = [P] * 11 + [I, I, I, I, F, P]
+        rev.restype = I
+        roll = getattr(lib, f"te_rollout_{dt}")
+        roll.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        roll.restype = I
+    lib.te_error_string.argtypes = [I]
+    lib.te_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, once per process."""
+    global _lib
+    if _lib is None:
+        _lib = declare(ctypes.CDLL(str(build())))
+    return _lib
