@@ -1,7 +1,11 @@
 """Where the device time goes in the PyTorch port's ViT-B/16
-``transformer_attribution`` (exact FP32, B=8), on one CUDA card.
+``transformer_attribution`` (B=8), on one CUDA card.
 
-    python3 experiments/torch_profile_vit.py [--batches 4] [--out DIR]
+    python3 experiments/torch_profile_vit.py [--precision float32|production|bfloat16]
+                                             [--batches 4] [--out DIR]
+
+``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
+exact FP32; production and bfloat16 run the block megakernels).
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -28,7 +32,10 @@ sys.path.insert(0, ROOT)
 
 def group(name: str) -> str:
     low = name.lower()
-    if "te::" in name or name.startswith(("attn_", "rollout_", "head_mean")):
+    if "te::gemm_kernel" in name:
+        return "port GEMM core (tensor cores)"
+    if "te::" in name or name.startswith(("attn_", "rollout_", "head_mean",
+                                           "blk_", "gemm_", "ln_", "add_")):
         return "port kernels"
     if "gemm" in low or "cutlass" in low or "sm90_xmma" in low:
         return "GEMM (cuBLAS)"
@@ -63,6 +70,8 @@ def profile(fn, batches: int, trace: str):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--precision", default="float32",
+                    choices=["float32", "production", "bfloat16"])
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
     args = ap.parse_args()
@@ -71,7 +80,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from transformer_explainability_torch.explain.generator import (
-        explain_batch)
+        explain_batch, precision_kwargs)
     from transformer_explainability_torch.models.vit import (
         VIT_BASE_16_224 as cfg, VisionTransformer, init_params)
     from transformer_explainability_torch.ops import kernels as K
@@ -89,13 +98,16 @@ def main():
     imgs = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
     idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
     os.makedirs(args.out, exist_ok=True)
+    prec = precision_kwargs(args.precision)
     for label, ops in (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS)):
         wall, by_name, by_group = profile(
-            lambda: explain_batch(model, imgs, idx, ops=ops), args.batches,
-            os.path.join(args.out, f"trace_vit_{label}.json"))
+            lambda: explain_batch(model, imgs, idx, ops=ops, **prec),
+            args.batches, os.path.join(
+                args.out, f"trace_vit_{args.precision}_{label}.json"))
         busy = sum(by_name.values()) / 1e6
         per = wall / args.batches
-        print(f"[{card}] {label} path: {per * 1e3:.2f} ms/batch of 8 under "
+        print(f"[{card}] {args.precision} {label} path: {per * 1e3:.2f} "
+              f"ms/batch of 8 under "
               f"the profiler, device busy {busy / wall:.1%}")
         for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
             print(f"  {g:24s} {us / 1e3 / args.batches:9.3f} ms/batch "

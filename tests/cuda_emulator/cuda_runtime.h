@@ -8,12 +8,17 @@
 // buffer serves them all); __syncthreads and __syncwarp are barriers;
 // __shfl_xor_sync exchanges through a per-warp slot array between two warp
 // barriers. A thread that returns early drops out of both barriers, as a
-// finished CUDA thread no longer takes part in __syncthreads.
+// finished CUDA thread no longer takes part in __syncthreads. The bf16
+// tensor-core product (mma.sync m16n8k16) is a warp-collective exchange of
+// the lanes' fragment registers through per-warp slots, and the bf16
+// conversions are plain round-to-nearest-even bit arithmetic.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
 #include <math.h>
 #include <memory>
 #include <stdexcept>
@@ -24,6 +29,9 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned int x, y, z, w; };
+struct alignas(8) uint2 { unsigned int x, y; };
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
@@ -37,6 +45,7 @@ typedef void* cudaStream_t;
 #define __restrict__
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
+#define __launch_bounds__(...)
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -48,6 +57,7 @@ struct BlockCtx {
   std::barrier<>* block_bar;
   std::vector<std::unique_ptr<std::barrier<>>>* warp_bars;
   std::vector<double>* slots;
+  std::vector<uint32_t>* frags;   // 6 fragment registers per lane
 };
 inline thread_local BlockCtx ctx;
 }  // namespace emu
@@ -65,6 +75,50 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   T r = static_cast<T>(s[w * 32 + (l ^ lane_mask)]);
   __syncwarp();
   return r;
+}
+
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+
+inline float te_emu_bf2f(uint16_t u) {
+  const uint32_t bits = static_cast<uint32_t>(u) << 16;
+  float f;
+  std::memcpy(&f, &bits, sizeof f);
+  return f;
+}
+inline uint16_t te_emu_f2bf(float x) {     // round to nearest even (no NaNs)
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for one warp: every
+// lane publishes its A (4 registers) and B (2 registers) fragments, then
+// computes its own four accumulators from the whole tile.
+inline void te_emu_mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                  const uint32_t (&b)[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  uint32_t* s = emu::ctx.frags->data() + static_cast<std::size_t>(w) * 32 * 6;
+  for (int i = 0; i < 4; ++i) s[l * 6 + i] = a[i];
+  s[l * 6 + 4] = b[0];
+  s[l * 6 + 5] = b[1];
+  __syncwarp();
+  auto half = [](uint32_t reg, int k) {
+    return te_emu_bf2f(static_cast<uint16_t>(reg >> (16 * (k & 1))));
+  };
+  const int g = l >> 2, t4 = l & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t4 + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const int ka = (k & 7) >> 1;
+      const float av = half(s[((row & 7) * 4 + ka) * 6 + (row >> 3) + 2 * (k >> 3)], k);
+      const float bv = half(s[(col * 4 + ka) * 6 + 4 + (k >> 3)], k);
+      acc += av * bv;
+    }
+    d[i] = acc;
+  }
+  __syncwarp();
 }
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
@@ -105,6 +159,7 @@ struct Launch {
             warp_bars.emplace_back(
                 new std::barrier<>(std::min(32u, nthreads - 32 * w)));
           std::vector<double> slots(nwarps * 32);
+          std::vector<uint32_t> frags(nwarps * 32 * 6);
           std::vector<std::thread> threads;
           for (unsigned t = 0; t < nthreads; ++t) {
             threads.emplace_back([&, t]() {
@@ -113,7 +168,7 @@ struct Launch {
               blockIdx = dim3(bx, by, bz);
               blockDim = block;
               gridDim = grid;
-              ctx = BlockCtx{&bar, &warp_bars, &slots};
+              ctx = BlockCtx{&bar, &warp_bars, &slots, &frags};
               kernel(args...);
               warp_bars[t / 32]->arrive_and_drop();
               bar.arrive_and_drop();

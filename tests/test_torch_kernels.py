@@ -164,10 +164,13 @@ def test_import_and_nvcc_command_need_no_cuda(tmp_path):
         import transformer_explainability_torch as te
         from transformer_explainability_torch.ops import _build, kernels
         from pathlib import Path
-        cmd = _build.nvcc_command(Path("out.so"))
-        assert "arch=compute_90a,code=sm_90a" in cmd, cmd
-        assert all(s.endswith(".cu") for s in cmd[-3:]), cmd
-        assert len(_build.sources()) >= 3
+        cmds = _build.compile_commands(Path("obj"))
+        assert len(cmds) == len(_build.sources()) >= 5
+        for cmd in cmds:
+            assert "arch=compute_90a,code=sm_90a" in cmd, cmd
+            assert cmd[-1].endswith(".cu") and "-c" in cmd, cmd
+        link = _build.link_command(Path("out.so"), ["a.o", "b.o"])
+        assert "-shared" in link and link[-2:] == ["a.o", "b.o"], link
         assert _build.library_path().parent.parent == _build.BUILD_ROOT
         print("ok", len(_build.source_hash()))
     """)

@@ -113,7 +113,8 @@ def test_unported_options_raise():
             ex.explain(img, **kw)
     with pytest.raises(ValueError):
         ex.explain(img, method="nonsense")
-    for kw in (dict(variant="lrp"), dict(matmul_precision="bfloat16"),
+    for kw in (dict(variant="lrp"),
+               dict(matmul_precision="bfloat16", relprop_precision="float32"),
                dict(attn_precision="float32")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Explainer(sd, cfg, device="cpu", **kw)

@@ -10,6 +10,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
 
 // The launch syntax sits behind a macro so that the sources also compile as
 // plain C++ (host-side syntax checks without nvcc).
@@ -53,6 +57,52 @@ __device__ __forceinline__ T warp_max(T v) {
     v = w > v ? w : v;
   }
   return v;
+}
+
+// bf16 values travel as their raw 16 bits (uint16_t). The conversions and
+// the tensor-core product sit behind these small functions so that the
+// sources also compile as plain C++ against tests/cuda_emulator, which
+// gives each a plain counterpart.
+__device__ __forceinline__ uint16_t f2bf(float x) {   // round to nearest even
+#ifdef __CUDACC__
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+#else
+  return te_emu_f2bf(x);
+#endif
+}
+
+__device__ __forceinline__ float bf2f(uint16_t u) {
+#ifdef __CUDACC__
+  return __uint_as_float((uint32_t)u << 16);
+#else
+  return te_emu_bf2f(u);
+#endif
+}
+
+// x rounded to bf16 and back (the operand of a one-pass bf16 product)
+__device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
+
+// Arithmetic the compiler may not contract into an FMA: the anchors that a
+// forward and a reverse kernel both form (LayerNorm outputs, GELU) must come
+// out bitwise equal in both.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+
+// D += A·B on the tensor cores: one m16n8k16 tile, bf16 operands packed two
+// to a register in the PTX fragment layout, float32 accumulators. A
+// warp-collective operation: all 32 lanes call it together.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+#ifdef __CUDACC__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#else
+  te_emu_mma_bf16_16816(d, a, b);
+#endif
 }
 
 // Largest shared-memory block the current device grants after opt-in

@@ -1,2 +1,3 @@
 from transformer_explainability_torch.explain.generator import (  # noqa: F401
-    Explainer, explain_batch, make_explain_fn)
+    PRECISION_PRESETS, Explainer, explain_batch, make_explain_fn,
+    precision_kwargs)

@@ -1,23 +1,30 @@
 """Explanation entry points of the port: ``transformer_attribution`` on ViT.
 
 Port of ``transformer_explainability_tpu/explain/generator.py`` for the
-method ``transformer_attribution`` (and its alias ``grad``) at exact FP32:
+method ``transformer_attribution`` (and its alias ``grad``) under the
+precision presets ``float32`` (exact FP32), ``production`` and ``bfloat16``
+(:data:`PRECISION_PRESETS`, :func:`precision_kwargs`):
 
     1. :func:`..models.vit.forward_collect` — forward with the attention
-       core in the ``attn_fwd_core`` kernel, saving three anchors per block;
+       core in the ``attn_fwd_core`` kernel (float32), or whole blocks in the
+       ``block_fwd_core`` megakernel with the rich anchors (the presets);
     2. :func:`..models.vit.reverse_pass` — class gradient and LRP relevance
-       together, block by block, with the ``attn_rev_core`` kernel emitting
-       each block's head-mean ``(grad ⊙ cam)⁺`` map;
+       together, block by block, in ``attn_rev_core`` (float32) or the
+       ``block_rev_core`` megakernel, each block emitting its head-mean
+       ``(grad ⊙ cam)⁺`` map;
     3. the ``rollout_from_grad_cam`` kernel chains the maps; the heatmap is
        the CLS row over the patch tokens.
+
+In every preset the embedding, the final norm and the head are exact
+products in the parameters' dtype (float32 on a card needs TF32 off).
 
 The JAX package jit-compiles one program per configuration and pads
 batches to power-of-two buckets; here PyTorch runs eagerly, the batch is
 the leading dimension, and any batch size runs as it is.
 
-Other methods, the ``lrp`` variant, α ≠ 1, precisions other than float32
-and ``with_diagnostics`` raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Other methods, the ``lrp`` variant, α ≠ 1, the precision combinations the
+kernels do not run and ``with_diagnostics`` raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from transformer_explainability_torch.models import vit as vit_mod
 from transformer_explainability_torch.models.vit import ViTConfig
 from transformer_explainability_torch.ops import kernels as K
+from transformer_explainability_torch.ops import precision as prec
 
 Tensor = torch.Tensor
 
@@ -36,6 +44,32 @@ METHODS = ("transformer_attribution", "grad")
 # the JAX package's other ViT methods (generator.METHODS)
 NOT_PORTED_METHODS = ("rollout", "full", "last_layer", "last_layer_attn",
                       "second_layer", "attn_gradcam", "rollout_attn")
+
+# Named precision presets (JAX generator.PRECISION_PRESETS). "float32" is
+# exact FP32; "production" and "bfloat16" run the block megakernels with
+# "tensorfloat32" meaning the bf16×3 split and "bfloat16" one bf16 pass, as
+# the JAX package defines them (ops/precision.py).
+PRECISION_PRESETS = {
+    "float32": dict(matmul_precision="float32"),
+    "production": dict(matmul_precision="tensorfloat32",
+                       relprop_precision="bfloat16",
+                       attn_precision="float32",
+                       mlp_precision="bfloat16"),
+    "bfloat16": dict(matmul_precision="bfloat16"),
+}
+
+
+def precision_kwargs(preset: str) -> dict:
+    """A named preset (or the raw ``"tensorfloat32"``) -> the precision
+    keyword arguments of :class:`Explainer` / :func:`make_explain_fn` (JAX
+    ``generator.precision_kwargs``)."""
+    if preset in PRECISION_PRESETS:
+        return dict(PRECISION_PRESETS[preset])
+    if preset == "tensorfloat32":
+        return dict(matmul_precision=preset)
+    raise ValueError(f"unknown precision preset {preset!r}; "
+                     f"available: {sorted(PRECISION_PRESETS)}")
+
 
 PREPROCESS_MEAN = (0.5, 0.5, 0.5)
 PREPROCESS_STD = (0.5, 0.5, 0.5)
@@ -78,15 +112,44 @@ def check_supported(method: str = "transformer_attribution",
     if alpha != 1.0:
         raise NotImplementedError("alpha != 1 is not ported yet (ROADMAP A3, "
                                   "the non-kernel reverse)")
-    if matmul_precision != "float32" or any(
-            p is not None for p in (relprop_precision, attn_precision,
-                                    mlp_precision)):
-        raise NotImplementedError("only exact float32 is ported; the other "
-                                  "precisions are ROADMAP A4 (presets) and "
-                                  "B2+B3 (megakernels)")
+    check_precision(matmul_precision, relprop_precision, attn_precision,
+                    mlp_precision)
     if with_diagnostics:
         raise NotImplementedError("with_diagnostics is not ported yet "
                                   "(ROADMAP A4)")
+
+
+def check_precision(matmul_precision: str = "float32",
+                    relprop_precision: Optional[str] = None,
+                    attn_precision: Optional[str] = None,
+                    mlp_precision: Optional[str] = None) -> None:
+    """The JAX gates of the kernel path (generator.py, vit.py): float32
+    runs the B4/B5 path with no islands; bfloat16 / tensorfloat32 run the
+    block megakernels when no weight-consuming island exceeds the base, the
+    rule products are bfloat16 and the attention's are float32 or
+    bfloat16."""
+    for p in (matmul_precision, relprop_precision, attn_precision,
+              mlp_precision):
+        if p is not None and p not in prec.MODES:
+            raise ValueError(f"unknown precision {p!r}; available: "
+                             f"{list(prec.MODES)}")
+    islands = (relprop_precision, attn_precision, mlp_precision)
+    if matmul_precision == "float32":
+        if any(p is not None for p in islands):
+            raise NotImplementedError("precision islands on the float32 "
+                                      "base are not ported yet (ROADMAP A4)")
+        return
+    if prec.islands_exceed_base(matmul_precision, relprop_precision,
+                                mlp_precision):
+        raise NotImplementedError(
+            "a rule or MLP precision above the base takes the non-kernel "
+            "path, not ported yet (ROADMAP A4)")
+    rule = prec.mxu_name(relprop_precision, matmul_precision)
+    attn = prec.mxu_name(attn_precision, matmul_precision)
+    if rule != "bfloat16" or attn == "tensorfloat32":
+        raise NotImplementedError(
+            "tensorfloat32 rule or attention products have no block-kernel "
+            "instantiation yet (ROADMAP B, raw tensorfloat32)")
 
 
 def _check_fp32_matmul(device: torch.device, dtype: torch.dtype) -> None:
@@ -103,18 +166,28 @@ def _check_fp32_matmul(device: torch.device, dtype: torch.dtype) -> None:
 def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
                   indices: Tensor, start_layer: int = 0,
                   method: str = "transformer_attribution",
-                  ops: K.AttnOps = K.KERNEL_OPS) -> Tensor:
+                  ops: K.AttnOps = K.KERNEL_OPS,
+                  matmul_precision: str = "float32",
+                  relprop_precision: Optional[str] = None,
+                  attn_precision: Optional[str] = None,
+                  mlp_precision: Optional[str] = None) -> Tensor:
     """Batched ``transformer_attribution`` (JAX ``generator.explain_single``
     vmapped): ``images (B, C, H, W)`` in the model's dtype and device,
     ``indices (B,)`` int64 with −1 for the argmax class. Returns the CLS-row
     relevance over the patches, ``(B, num_patches)``. ``ops`` selects the
-    kernels (default) or, for a reference run, their plain versions."""
-    check_supported(method)
+    kernels (default) or, for a reference run, their plain versions; the
+    precision arguments are those of :data:`PRECISION_PRESETS`."""
+    precision = dict(matmul_precision=matmul_precision,
+                     attn_precision=attn_precision,
+                     mlp_precision=mlp_precision)
+    check_supported(method, relprop_precision=relprop_precision, **precision)
     cfg = model.cfg
     _check_fp32_matmul(images.device, images.dtype)
-    logits, res = vit_mod.forward_collect(model, images, ops)
+    logits, res = vit_mod.forward_collect(model, images, ops, **precision)
     onehot = _one_hot_index(logits, indices, cfg.num_classes)
-    _, gc = vit_mod.reverse_pass(model, res, onehot, ops=ops)
+    _, gc = vit_mod.reverse_pass(model, res, onehot, ops=ops,
+                                 relprop_precision=relprop_precision,
+                                 **precision)
     joint = ops.rollout_from_grad_cam(gc, start_layer)
     return joint[:, 0, cfg.num_prefix_tokens:]
 
@@ -148,6 +221,10 @@ def make_explain_fn(cfg: ViTConfig, device,
         raise ValueError(f"unknown preprocess {preprocess!r} "
                          "(None or 'uint8')")
     device = _resolve_device(device)
+    precision = dict(matmul_precision=matmul_precision,
+                     relprop_precision=relprop_precision,
+                     attn_precision=attn_precision,
+                     mlp_precision=mlp_precision)
 
     def fn(model: vit_mod.VisionTransformer, images, indices) -> Tensor:
         if model.cfg != cfg:
@@ -159,7 +236,7 @@ def make_explain_fn(cfg: ViTConfig, device,
         images = images.to(dtype)
         idx = torch.as_tensor(indices, device=device).to(torch.int64)
         return explain_batch(model, images, idx.reshape(images.shape[0]),
-                             start_layer, method)
+                             start_layer, method, **precision)
 
     return fn
 
@@ -168,16 +245,19 @@ class Explainer:
     """Convenience wrapper around a model built from ``params`` (a timm-named
     state dict, e.g. from :func:`..models.vit.init_params` or
     :func:`..params.convert.vit_params_from_jax`) on ``device``, in the
-    params' dtype (JAX ``generator.Explainer``)."""
+    params' dtype (JAX ``generator.Explainer``). The precision arguments
+    are those of :data:`PRECISION_PRESETS`, e.g.
+    ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``."""
 
     def __init__(self, params: Mapping[str, Tensor], cfg: ViTConfig, device,
                  variant: str = "ours", matmul_precision: str = "float32",
                  relprop_precision=None, attn_precision=None,
                  mlp_precision=None):
-        check_supported(variant=variant, matmul_precision=matmul_precision,
-                        relprop_precision=relprop_precision,
-                        attn_precision=attn_precision,
-                        mlp_precision=mlp_precision)
+        self.precision = dict(matmul_precision=matmul_precision,
+                              relprop_precision=relprop_precision,
+                              attn_precision=attn_precision,
+                              mlp_precision=mlp_precision)
+        check_supported(variant=variant, **self.precision)
         self.device = _resolve_device(device)
         self.cfg = cfg
         dtype = params["cls_token"].dtype
@@ -199,7 +279,7 @@ class Explainer:
         if indices is None:
             indices = torch.full((B,), -1, dtype=torch.int64)
         fn = make_explain_fn(self.cfg, self.device, method, start_layer,
-                             alpha)
+                             alpha, **self.precision)
         return fn(self.model, images, indices)
 
     # the reference Baselines API surface

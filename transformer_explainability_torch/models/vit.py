@@ -1,19 +1,27 @@
-"""Explainable Vision Transformer in PyTorch: the exact-FP32 kernel path.
+"""Explainable Vision Transformer in PyTorch: the fused-kernel paths.
 
 Port of ``transformer_explainability_tpu/models/vit.py`` restricted to the
-fused-kernel branch that ``transformer_attribution`` takes at
-``matmul_precision="float32"``:
+fused-kernel branches that ``transformer_attribution`` takes
+(``use_attn_kernel=True``):
 
-  * :func:`forward_collect` is the JAX ``step_lite`` forward: LayerNorm and
-    the Linear products in PyTorch, the attention core in
-    :func:`..ops.kernels.attn_fwd_core`. Per block it saves the three anchors
-    the reverse pass needs (block input, post-attention midpoint, merged
-    attention output).
-  * :func:`reverse_pass` is the JAX fused reverse scan (``kstep``, plain MLP
-    arm): the class gradient and the LRP relevance advance together block by
-    block, the attention core runs in :func:`..ops.kernels.attn_rev_core`,
-    and each block yields its head-mean ``(grad ⊙ cam)⁺`` map. The gradients
-    are written by hand; autograd is not used.
+  * ``matmul_precision="float32"`` (exact FP32): :func:`forward_collect` is
+    the JAX ``step_lite`` forward (LayerNorm and the Linear products in
+    PyTorch, the attention core in :func:`..ops.kernels.attn_fwd_core`) and
+    :func:`reverse_pass` the JAX ``kstep`` reverse with the plain MLP arm and
+    :func:`..ops.kernels.attn_rev_core`. Per block three anchors are saved
+    (block input, post-attention midpoint, merged attention output).
+  * ``matmul_precision`` ``"bfloat16"`` or ``"tensorfloat32"`` (the
+    ``production`` and ``bfloat16`` presets): the whole-block megakernels,
+    JAX ``step_fused_rich`` (:func:`..ops.kernels.block_fwd_core`, saving
+    the rich anchors qkv_pre, proj_pre, dots, probs, fc1_pre, fc2_pre too)
+    and ``kstep_block`` (:func:`..ops.kernels.block_rev_core` from the six
+    saved anchors). The block weights are prepared once per model and mode
+    (:meth:`VisionTransformer.block_params`).
+
+In both, the class gradient and the LRP relevance advance together block by
+block and each block yields its head-mean ``(grad ⊙ cam)⁺`` map; the
+gradients are written by hand, autograd is not used. The embedding, the
+final norm and the head stay exact products in the parameters' dtype.
 
 The module holds parameters under timm's names (``blocks.{i}.attn.qkv``,
 ``blocks.{i}.mlp.fc1``, ...), so the state dicts of
@@ -25,14 +33,16 @@ float32 on a GPU they need TF32 off (checked by the explain entry points).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from transformer_explainability_torch.ops import kernels as K
+from transformer_explainability_torch.ops import precision as prec
 from transformer_explainability_torch.ops import relprop as rp
+from transformer_explainability_torch.ops import block_math as bm
+from transformer_explainability_torch.ops.block_math import BlockParams
 
 Tensor = torch.Tensor
 
@@ -136,6 +146,30 @@ class VisionTransformer(nn.Module):
     def forward(self, img: Tensor) -> Tensor:
         return forward_collect(self, img)[0]
 
+    def block_params(self, i: int, mode: str) -> BlockParams:
+        """Block ``i``'s parameters for the megakernels, its four weights
+        prepared for ``mode`` (JAX ``prepare_block_weights``). The split is
+        made once per model and mode and kept; it is made again only when a
+        weight tensor is replaced or changed in place."""
+        blk = self.blocks[i]
+        lins = (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
+        key = tuple((lin.weight.data_ptr(), lin.weight._version)
+                    for lin in lins)
+        cache = self.__dict__.setdefault("_prepared", {})
+        if cache.get((i, mode), (None,))[0] != key:
+            cache[(i, mode)] = (key, tuple(prec.prepare_weight(lin.weight,
+                                                               mode)
+                                           for lin in lins))
+        qkv_bias = blk.attn.qkv.bias
+        if qkv_bias is None:
+            qkv_bias = torch.zeros(3 * self.cfg.embed_dim,
+                                   dtype=blk.attn.proj.bias.dtype,
+                                   device=blk.attn.proj.bias.device)
+        return BlockParams(blk.norm1.weight, blk.norm1.bias, blk.norm2.weight,
+                           blk.norm2.bias, qkv_bias, blk.attn.proj.bias,
+                           blk.mlp.fc1.bias, blk.mlp.fc2.bias,
+                           *cache[(i, mode)][1])
+
 
 def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32) -> Dict[str, Tensor]:
@@ -185,9 +219,7 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
 
 def _layernorm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
     """JAX ``vit._layernorm``: (x − μ) · rsqrt(var + eps) · γ + β."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = (x - mu).square().mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + ln.eps) * ln.weight + ln.bias
+    return bm.ln_fwd(x, ln.weight, ln.bias, ln.eps)[0]
 
 
 def _pre(x: Tensor, lin: nn.Linear) -> Tensor:
@@ -211,6 +243,14 @@ class Residuals(NamedTuple):
     x_final: Tensor         # last block output (B, n, D)
     xn: Tensor              # final norm output (B, n, D)
     cls: Tensor             # pooled CLS (B, D), the head's input
+    # rich anchors, per block (megakernel path only): pre-bias products and
+    # the per-head attention dots (pre-scale) and probs, (B, h·n, n)
+    qkv_pres: Optional[List[Tensor]] = None    # (B, n, 3D)
+    proj_pres: Optional[List[Tensor]] = None   # (B, n, D)
+    dots: Optional[List[Tensor]] = None
+    probs: Optional[List[Tensor]] = None
+    fc1_pres: Optional[List[Tensor]] = None    # (B, n, M)
+    fc2_pres: Optional[List[Tensor]] = None    # (B, n, D)
 
 
 def embed(model: VisionTransformer, img: Tensor) -> Tuple[Tensor, Tensor]:
@@ -226,15 +266,34 @@ def embed(model: VisionTransformer, img: Tensor) -> Tuple[Tensor, Tensor]:
     return cat_x, cat_x + model.pos_embed
 
 
+def megakernel_base(matmul_precision: str) -> bool:
+    """True if ``matmul_precision`` takes the block megakernels (JAX: the
+    ``bfloat16`` / ``tensorfloat32`` bases of ``forward_collect`` and
+    ``reverse_pass``)."""
+    return matmul_precision in ("bfloat16", "tensorfloat32")
+
+
 def forward_collect(model: VisionTransformer, img: Tensor,
-                    ops: K.AttnOps = K.KERNEL_OPS
+                    ops: K.AttnOps = K.KERNEL_OPS,
+                    matmul_precision: str = "float32",
+                    attn_precision: Optional[str] = None,
+                    mlp_precision: Optional[str] = None
                     ) -> Tuple[Tensor, Residuals]:
     """Forward pass returning logits ``(B, num_classes)`` and the residuals
-    (JAX ``vit.forward_collect``, ``use_attn_kernel=True`` with the
-    ``step_lite`` block). ``img`` is ``(B, C, H, W)``."""
+    (JAX ``vit.forward_collect``, ``use_attn_kernel=True``: the
+    ``step_lite`` block at float32, the rich-anchor megakernel
+    ``step_fused_rich`` at bfloat16 / tensorfloat32). ``img`` is
+    ``(B, C, H, W)``."""
     cfg = model.cfg
     scale = cfg.head_dim ** -0.5
     cat_x, x0 = embed(model, img)
+    if megakernel_base(matmul_precision):
+        if prec.islands_exceed_base(matmul_precision, mlp_precision):
+            raise NotImplementedError("an MLP precision above the base is "
+                                      "not ported yet (ROADMAP A4)")
+        return _forward_blocks(model, cat_x, x0, ops, matmul_precision,
+                               prec.mxu_name(attn_precision, matmul_precision),
+                               mlp_precision and prec.mxu_name(mlp_precision))
     x = x0
     x_ins, x_mids, outs = [], [], []
     for blk in model.blocks:
@@ -249,10 +308,40 @@ def forward_collect(model: VisionTransformer, img: Tensor,
         x_mids.append(x_mid)
         outs.append(out_merged)
         x = x_out
+    return _tail(model, x, Residuals(x0, cat_x, x_ins, x_mids, outs, x,
+                                     None, None))
+
+
+def _tail(model: VisionTransformer, x: Tensor, res: Residuals):
+    """Final norm, CLS pool and head; fills ``x_final``, ``xn`` and ``cls``
+    of ``res``."""
     xn = _layernorm(x, model.norm)
     cls = xn[:, 0]
     logits = _bias(_pre(cls, model.head), model.head)
-    return logits, Residuals(x0, cat_x, x_ins, x_mids, outs, x, xn, cls)
+    return logits, res._replace(x_final=x, xn=xn, cls=cls)
+
+
+def _forward_blocks(model: VisionTransformer, cat_x: Tensor, x0: Tensor,
+                    ops: K.AttnOps, mxu: str, attn_mxu: str,
+                    mlp_mxu: Optional[str]) -> Tuple[Tensor, Residuals]:
+    """The megakernel forward (JAX ``step_fused_rich`` with the MLP
+    anchors): one ``block_fwd_core`` per block."""
+    cfg = model.cfg
+    x = x0
+    keep = {k: [] for k in ("x_ins", "x_mids", "outs", "qkv_pres",
+                            "proj_pres", "dots", "probs", "fc1_pres",
+                            "fc2_pres")}
+    for i in range(cfg.depth):
+        outs = ops.block_fwd_core(
+            x, model.block_params(i, mxu), cfg.num_heads, cfg.head_dim,
+            cfg.block_ln_eps, mxu, attn_mxu, mlp_mxu, save_attn=True,
+            save_mlp=True)
+        keep["x_ins"].append(x)
+        for k, t in zip(list(keep)[1:], outs[1:]):
+            keep[k].append(t)
+        x = outs[0]
+    return _tail(model, x, Residuals(x0, cat_x, x_final=x, xn=None, cls=None,
+                                     **keep))
 
 
 # ---------------------------------------------------------------------------
@@ -261,29 +350,22 @@ def forward_collect(model: VisionTransformer, img: Tensor,
 
 def _layernorm_bwd(g_y: Tensor, x: Tensor, ln: nn.LayerNorm) -> Tensor:
     """Cotangent of LayerNorm w.r.t. its input (JAX ``vit._layernorm_bwd``)."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = (x - mu).square().mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + ln.eps)
-    xhat = (x - mu) * inv
-    gg = g_y * ln.weight
-    return inv * (gg - gg.mean(dim=-1, keepdim=True)
-                  - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
-
-
-def _gelu_grad(x: Tensor) -> Tensor:
-    """d/dx gelu(x), exact erf form: Φ(x) + x·φ(x) (JAX ``vit._gelu_grad``)."""
-    cdf = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
-    pdf = torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
-    return cdf + x * pdf
+    return bm.ln_bwd(g_y, x, *bm.ln_stats(x, ln.eps), ln.weight)
 
 
 def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                  alpha: float = 1.0, variant: str = "ours",
-                 ops: K.AttnOps = K.KERNEL_OPS) -> Tuple[Tensor, Tensor]:
+                 ops: K.AttnOps = K.KERNEL_OPS,
+                 matmul_precision: str = "float32",
+                 relprop_precision: Optional[str] = None,
+                 attn_precision: Optional[str] = None,
+                 mlp_precision: Optional[str] = None
+                 ) -> Tuple[Tensor, Tensor]:
     """The fused gradient + relevance reverse pass (JAX ``vit.reverse_pass``
-    with ``fuse_grad_cam=True, use_attn_kernel=True`` and the plain MLP).
-    Returns ``(R_tokens (B, n, D), gc (B, L, n, n))``: the relevance at the
-    block-0 input and, per block, the head-mean ``(grad ⊙ cam)⁺`` map."""
+    with ``fuse_grad_cam=True, use_attn_kernel=True``: the plain MLP arm at
+    float32, ``kstep_block`` at bfloat16 / tensorfloat32). Returns
+    ``(R_tokens (B, n, D), gc (B, L, n, n))``: the relevance at the block-0
+    input and, per block, the head-mean ``(grad ⊙ cam)⁺`` map."""
     cfg = model.cfg
     scale = cfg.head_dim ** -0.5
     head = model.head
@@ -300,6 +382,28 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
     R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
 
     gcs = [None] * cfg.depth
+    if megakernel_base(matmul_precision):
+        if (prec.islands_exceed_base(matmul_precision, relprop_precision,
+                                     mlp_precision)
+                or variant != "ours" or alpha != 1.0):
+            raise NotImplementedError("the block megakernels run variant "
+                                      "'ours' at alpha 1 with islands at or "
+                                      "below the base (ROADMAP A3, A4)")
+        mxu = matmul_precision
+        attn_mxu = prec.mxu_name(attn_precision, mxu)
+        rule_mxu = prec.mxu_name(relprop_precision, mxu)
+        mlp_mxu = mlp_precision and prec.mxu_name(mlp_precision)
+        for li in reversed(range(cfg.depth)):
+            saved = None
+            if res.qkv_pres is not None:
+                saved = (res.qkv_pres[li], res.proj_pres[li], res.dots[li],
+                         res.probs[li], res.fc1_pres[li], res.fc2_pres[li])
+            g, R, gcs[li] = ops.block_rev_core(
+                res.x_ins[li], res.x_mids[li], res.outs[li], g, R,
+                model.block_params(li, mxu), cfg.num_heads, cfg.head_dim,
+                cfg.block_ln_eps, mxu, attn_mxu, rule_mxu, mlp_mxu, saved)
+        return R, torch.stack(gcs, dim=1)
+
     for li in reversed(range(cfg.depth)):
         blk = model.blocks[li]
         x_in, x_mid, out_merged = res.x_ins[li], res.x_mids[li], res.outs[li]
@@ -320,7 +424,7 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
         mlp_out = _bias(fc2_pre, fc2)
 
         # backward, MLP half
-        g_h1 = (g @ fc2.weight) * _gelu_grad(h1)
+        g_h1 = (g @ fc2.weight) * bm.gelu_grad(h1)
         g_mid = g + _layernorm_bwd(g_h1 @ fc1.weight, x_mid, blk.norm2)
 
         # relevance, MLP half: add2 split, fc2 and fc1 rules, clone
@@ -348,5 +452,6 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
 
 __all__ = [
     "ViTConfig", "VIT_BASE_16_224", "VisionTransformer", "init_params",
-    "Residuals", "embed", "forward_collect", "reverse_pass",
+    "Residuals", "embed", "megakernel_base", "forward_collect",
+    "reverse_pass",
 ]

@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface. ``nvcc`` compiles them into one shared
-library at first use, keyed by a hash of the sources and flags, under
-``build/kernels/`` of the checkout (listed in ``.gitignore``); ``ctypes``
-loads it. Nothing here runs at import time, and building the command line
+The sources have a plain C interface. At first use ``nvcc`` compiles each
+``.cu`` into an object, all in parallel, and links them into one shared
+library, keyed by a hash of the sources and flags, under ``build/kernels/``
+of the checkout (listed in ``.gitignore``); ``ctypes`` loads it. Nothing here runs at import time, and building the command line
 needs no CUDA.
 """
 
@@ -21,8 +21,9 @@ from typing import List, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libte_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -50,8 +51,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_commands(obj_dir: Path, nvcc: str = "nvcc") -> List[List[str]]:
+    """One ``nvcc -c`` per source, each into ``obj_dir/<stem>.o``."""
+    return [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / f"{src.stem}.o"),
+             str(src)] for src in sources()]
+
+
+def link_command(out: Path, objs: List[str], nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *ARCH, "-shared", "-o", str(out), *objs]
 
 
 def library_path() -> Path:
@@ -59,24 +66,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this version of the sources is built.
-    The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside it as ``build.log``."""
+    """Compile the library unless this version of the sources is built:
+    every source at once in its own ``nvcc``, then one link. The
+    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept beside it as ``build.log``."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp, find_nvcc())
+    tmp = so.parent / f"tmp.{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
+    cmds = compile_commands(tmp, nvcc)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = []
+    for cmd, proc, out in zip(cmds, procs, outs):
+        log.append(f"{' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    lib_tmp = tmp / LIB_NAME
+    cmd = link_command(lib_tmp, [c[c.index("-o") + 1] for c in cmds], nvcc)
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
+        raise RuntimeError(f"nvcc link failed with code {res.returncode}:\n"
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     (so.parent / "build.log").write_text(
-        f"{' '.join(cmd)}\nseconds {time.perf_counter() - t0:.1f}\n"
-        f"{res.stdout}{res.stderr}")
-    os.replace(tmp, so)          # atomic: a concurrent build loses nothing
+        f"seconds {time.perf_counter() - t0:.1f}\n" + "\n".join(log))
+    os.replace(lib_tmp, so)      # atomic: a concurrent build loses nothing
+    shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 
@@ -94,6 +116,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         roll = getattr(lib, f"te_rollout_{dt}")
         roll.argtypes = [P, P, P, P, I, I, I, I, I, P]
         roll.restype = I
+    lib.te_block_fwd_f32.argtypes = [P] * 28 + [I] * 5 + [F, I, I, I, P]
+    lib.te_block_fwd_f32.restype = I
+    lib.te_block_rev_f32.argtypes = [P] * 32 + [I] * 5 + [F] + [I] * 5 + [P]
+    lib.te_block_rev_f32.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib
