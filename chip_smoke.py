@@ -9,22 +9,29 @@ result line):
   2. build: nvcc compiles the kernels from csrc/ (one process per source,
      in parallel; timed);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the ViT-B/16 main-path shapes and at a ragged small shape: the
-     exact-FP32 kernels in float64 (rtol 1e-9, atol 1e-12) and float32, the
-     block megakernels (float32 only) in each preset's product modes, all
-     float32 results by the rule below against the float64 plain version;
+     at the main-path shapes and at a ragged small shape: the exact-FP32
+     ViT kernels in float64 (rtol 1e-9, atol 1e-12) and float32, the ViT
+     block megakernels and the BERT layer kernels (float32 only; BERT-base
+     at B=8, S=512 with each sample's mask cut at another length) in each
+     preset's product modes, all float32 results by the rule below against
+     the float64 plain version;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
-     explain three batches of 8 images (random weights from a seeded
-     generator); output shape, finiteness, bitwise repeatability, launch
-     counts per batch, and the per-sample Pearson correlation against the
-     port's plain path of the same preset in float64 on the same card
-     (exact FP32: >= 0.999 every sample; production: median >= 0.999 and
-     min no lower than the plain float32 production path's min - 0.01);
-     the production path's corr against the exact float64 path is printed;
+     explain three batches of 8 images, and ``BertExplainer(params,
+     BERT_BASE_UNCASED, ...)`` in both presets three batches of 8 padded
+     sequences at S=512 (random weights from a seeded generator); output
+     shape, finiteness, bitwise repeatability, launch counts per batch, and
+     the per-sample Pearson correlation (BERT: over each sample's tokens)
+     against the port's plain path of the same preset in float64 on the
+     same card (exact FP32: >= 0.999 every sample; production: median >=
+     0.999 and, for ViT, min no lower than the plain float32 production
+     path's min - 0.01, for BERT no more samples below 0.99 than the plain
+     float32 production path + 1); the production paths' corr against the
+     exact float64 path is printed;
   5. times: each kernel beside its plain version, and explanations/s at B=8
-     for the exact-FP32 and the production paths, kernels and plain.
+     for the exact-FP32 and the production paths, kernels and plain (BERT
+     at S=512 and S=128).
 
 It imports no JAX. The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -52,6 +59,7 @@ F32_FLOOR = 1e-6
 F64_RTOL, F64_ATOL = 1e-9, 1e-12
 MIN_CORR = 0.999
 PROD_MIN_SLACK = 0.01
+TAIL_CORR = 0.99
 TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
 
 
@@ -102,8 +110,12 @@ def main() -> int:
         explain_batch, precision_kwargs)
     from transformer_explainability_torch.models.vit import (
         VIT_BASE_16_224, VisionTransformer, init_params)
-    from transformer_explainability_torch.explain import Explainer
+    from transformer_explainability_torch.explain import (BertExplainer,
+                                                          Explainer)
+    from transformer_explainability_torch.explain import bert_generator as bg
+    from transformer_explainability_torch.models import bert as bert_mod
     from transformer_explainability_torch.ops import _build
+    from transformer_explainability_torch.ops import bert_math as bmath
     from transformer_explainability_torch.ops import block_math as bm
     from transformer_explainability_torch.ops import kernels as K
     from transformer_explainability_torch.ops import precision as prec
@@ -132,17 +144,22 @@ def main() -> int:
           f" (0 if cached)")
     log = so.parent / "build.log"
     if log.exists():
-        # one line per kernel: registers and spills (-Xptxas -v)
-        entry, spill = None, ""
+        # registers and spills per kernel (-Xptxas -v): a summary line, and
+        # a line for each kernel that spills
+        entry, spill, regs = None, "", []
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line and entry:
-                regs = line.split("Used")[1].split(",")[0].strip()
-                print(f"  ptxas {entry[:72]}: {regs}; {spill}")
+                regs.append(int(line.split("Used")[1].split()[0]))
+                if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
+                    print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
+                          f"{spill}")
                 entry = None
+        print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers; the others spill nothing")
 
     # 3. kernels against their plain versions --------------------------------
     cfg = VIT_BASE_16_224
@@ -297,6 +314,107 @@ def main() -> int:
             del p64, p32, x, g_out, R, k32, f64, f32, r64, r32
     torch.cuda.empty_cache()
 
+    # BERT layer kernels, in the same two presets' product modes, at the
+    # BERT-base main shape and a ragged one; each sample's mask is cut at
+    # another length
+    bcfg = bert_mod.BERT_BASE_UNCASED
+    bert_shapes = {"main": (8, 512, bcfg.num_heads, bcfg.head_dim,
+                            bcfg.intermediate_size),
+                   "ragged": (2, 29, 3, 8, 96)}
+
+    def bert_case(b, S, hh, dd, inter, base):
+        D = hh * dd
+
+        def w(o, i):
+            return randn(o, i, dtype=torch.float64) / i ** 0.5
+
+        def vec(k, centre=0.0):
+            return centre + 0.1 * randn(k, dtype=torch.float64)
+
+        ws = [prec.prepare_weight(t, base)
+              for t in (w(3 * D, D), w(D, D), w(inter, D), w(D, inter))]
+        vecs = [vec(D, 1.0), vec(D), vec(D, 1.0), vec(D), vec(3 * D),
+                vec(D), vec(inter), vec(D)]
+        lengths = S - (S // b) * torch.arange(b, device=dev)
+        keep = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+        mask = (1.0 - keep.double()) * bcfg.mask_value
+        return (bmath.BertLayerParams(*vecs, *ws),
+                bmath.BertLayerParams(*[v.float() for v in vecs], *ws),
+                randn(b, S, D, dtype=torch.float64), mask)
+
+    def counted(kern, *args, **kw):
+        before = kern.launches
+        out = kern(*args, **kw)
+        torch.cuda.synchronize()
+        require(kern.launches == before + 1,
+                f"{kern.__name__}: launch count did not rise")
+        return out
+
+    def check_all(name, preset, sname, shp, outs_k, outs_32, outs_64, names):
+        for i, nm in enumerate(names):
+            e = f32_rule(f"{name}[{nm}] {preset} {sname} {shp}", outs_k[i],
+                         outs_32[i], outs_64[i])
+            if sname == "main":
+                errs[name] = max(errs.get(name, 0.0), e)
+
+    bert_inputs = {}
+    eps = bcfg.layer_norm_eps
+    for preset, (mxu, attn, rule, mlp) in block_modes.items():
+        for sname, shp in bert_shapes.items():
+            b, S, hh, dd, inter = shp
+            p64, p32, x, mask = bert_case(*shp, mxu)
+            x32, m32 = x.float(), mask.float()
+            fargs = (hh, dd, eps, mxu, attn, mlp)
+            k32 = counted(K.bert_layer_fwd_core, x32, m32, p32, *fargs,
+                          save_attn=True)
+            f64 = bmath.bert_layer_fwd_core_plain(x, mask, p64, *fargs,
+                                                  save_attn=True)
+            f32 = bmath.bert_layer_fwd_core_plain(x32, m32, p32, *fargs,
+                                                  save_attn=True)
+            check_all("bert_layer_fwd_core", preset, sname, shp, k32, f32,
+                      f64, ["out", "att_ln", "qkv_pre", "ctx", "dense_nb"])
+            # the reverse sub-blocks from the float64 forward's own anchors
+            g_out, R = (randn(b, S, hh * dd, dtype=torch.float64)
+                        for _ in range(2))
+            o64 = (f64[1], g_out, R)
+            o32 = tuple(t.float() for t in o64)
+            oargs = (eps, mxu, rule, mlp)
+            k32 = counted(K.bert_out_rev_core, *o32, p32, *oargs)
+            r64 = bmath.bert_out_rev_core_plain(*o64, p64, *oargs)
+            r32 = bmath.bert_out_rev_core_plain(*o32, p32, *oargs)
+            check_all("bert_out_rev_core", preset, sname, shp, k32, r32, r64,
+                      ["g_attln", "R_att"])
+            a64 = (x, r64[0], r64[1], mask)
+            a32 = tuple(t.float() for t in a64)
+            s64, s32 = f64[2:], tuple(t.float() for t in f64[2:])
+            aargs = (hh, dd, eps, mxu, attn, rule)
+            k32 = counted(K.bert_attn_rev_core, *a32, p32, *aargs, saved=s32)
+            r64 = bmath.bert_attn_rev_core_plain(*a64, p64, *aargs, saved=s64)
+            r32 = bmath.bert_attn_rev_core_plain(*a32, p32, *aargs, saved=s32)
+            check_all("bert_attn_rev_core", preset, sname, shp, k32, r32, r64,
+                      ["g_in", "R_in", "gc"])
+            if preset == "production" and sname == "main":
+                bert_inputs = dict(p32=p32, x=x32, m=m32, o32=o32, a32=a32,
+                                   s32=s32, fargs=fargs, oargs=oargs,
+                                   aargs=aargs)
+            del p64, p32, x, mask, k32, f64, f32, r64, r32
+    # the rollout at BERT-base's length: one chain step (start_layer 11, the
+    # BERT default) and the whole chain, row-normalised
+    cams = rollout_inputs(8, bcfg.num_layers, 512, torch.float64)
+    for start in (bcfg.num_layers - 1, 0):
+        k64 = counted(K.rollout_from_grad_cam, cams, start, True)
+        k32 = counted(K.rollout_from_grad_cam, cams.float(), start, True)
+        p64 = K.rollout_plain(cams, start, True)
+        e64 = (k64 - p64).abs().max().item()
+        require(torch.allclose(k64, p64, rtol=F64_RTOL, atol=F64_ATOL),
+                f"rollout_from_grad_cam n=512 start {start}: float64 kernel "
+                f"differs from plain by {e64:.3e}")
+        f32_rule(f"rollout_from_grad_cam n=512 start {start} (f64 max|k-p|="
+                 f"{e64:.3e})", k32, K.rollout_plain(cams.float(), start,
+                                                     True), p64)
+    del cams, k64, k32, p64
+    torch.cuda.empty_cache()
+
     # 4. the slice ----------------------------------------------------------
     data = np.load(os.path.join(ROOT, "experiments/data/fidelity_truth.npz"))
     imgs_all, idx_all = data["imgs"], data["idx"].astype(np.int64)
@@ -313,24 +431,24 @@ def main() -> int:
         idx[[1, 5]] = -1                  # argmax class
         batches.append((imgs_all[rows], idx))
 
-    def drive(explainer, per_batch, label):
+    def drive(explain, batches, shape, per_batch, label):
         """Explain the three batches twice each (counts set to 0 before,
         read after); returns the heatmaps and the counts."""
         K.reset_launch_counts()
         heats = []
-        for k, (imgs, idx) in enumerate(batches):
+        for k, batch in enumerate(batches):
             c0 = K.launch_counts()
-            heat = explainer.explain(imgs, idx)
+            heat = explain(*batch)
             torch.cuda.synchronize()
             c1 = K.launch_counts()
             rose = {w: c1[w] - c0[w] for w in c1}
             require(rose == per_batch,
                     f"{label} batch {k}: launch counts rose by {rose}")
-            require(tuple(heat.shape) == (8, cfg.num_patches),
+            require(tuple(heat.shape) == shape,
                     f"{label} batch {k}: shape {tuple(heat.shape)}")
             require(torch.isfinite(heat).all().item(),
                     f"{label} batch {k}: non-finite")
-            again = explainer.explain(imgs, idx)
+            again = explain(*batch)
             require(torch.equal(heat, again),
                     f"{label} batch {k}: not bitwise repeatable")
             heats.append(heat)
@@ -339,14 +457,16 @@ def main() -> int:
         return heats, counts
 
     none = {w: 0 for w in K.launch_counts()}
-    heats, launches = drive(ex, {**none, "attn_fwd_core": L,
-                                 "attn_rev_core": L,
-                                 "rollout_from_grad_cam": 1}, "float32")
+    vit_shape = (8, cfg.num_patches)
+    heats, launches = drive(ex.explain, batches, vit_shape,
+                            {**none, "attn_fwd_core": L, "attn_rev_core": L,
+                             "rollout_from_grad_cam": 1}, "float32")
     prod = precision_kwargs("production")
     ex_prod = Explainer(params, cfg, device="cuda", **prod)
     heats_prod, launches_prod = drive(
-        ex_prod, {**none, "block_fwd_core": L, "block_rev_core": L,
-                  "rollout_from_grad_cam": 1}, "production")
+        ex_prod.explain, batches, vit_shape,
+        {**none, "block_fwd_core": L, "block_rev_core": L,
+         "rollout_from_grad_cam": 1}, "production")
 
     def corr(x, y):
         a = x.double() - x.double().mean(dim=1, keepdim=True)
@@ -394,6 +514,110 @@ def main() -> int:
     require(p_corrs.min() >= p_plain_corrs.min() - PROD_MIN_SLACK,
             f"production min corr {p_corrs.min():.6f} below the plain f32 "
             f"path's {p_plain_corrs.min():.6f} - {PROD_MIN_SLACK}")
+    del model64
+    torch.cuda.empty_cache()
+
+    # BERT-base, both presets: three batches of 8 at S=512, each sample
+    # padded to its own length, two argmax indices per batch
+    bparams = bert_mod.init_params(bcfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    rng = np.random.RandomState(7)
+    bert_batches = []
+    for k in range(3):
+        lengths = rng.randint(64, 513, size=8)
+        lengths[0] = 512
+        valid = np.arange(512)[None, :] < lengths[:, None]
+        ids = np.where(valid, rng.randint(1000, bcfg.vocab_size,
+                                          size=(8, 512)), 0)
+        ids[:, 0] = 101                                  # [CLS]
+        idx = rng.randint(0, bcfg.num_labels, size=8)
+        idx[[1, 5]] = -1
+        bert_batches.append((ids, valid.astype(np.float32), idx))
+    bex = BertExplainer(bparams, bcfg, device="cuda")
+    bex_prod = BertExplainer(bparams, bcfg, device="cuda", **prod)
+    BL = bcfg.num_layers
+    bert_shape = (8, 512)
+    bheats, blaunches = drive(bex.explain, bert_batches, bert_shape,
+                              {**none, "rollout_from_grad_cam": 1},
+                              "bert float32")
+    bheats_prod, blaunches_prod = drive(
+        bex_prod.explain, bert_batches, bert_shape,
+        {**none, "bert_layer_fwd_core": BL, "bert_out_rev_core": BL,
+         "bert_attn_rev_core": BL, "rollout_from_grad_cam": 1},
+        "bert production")
+
+    def token_corr(x, y, valid):
+        """Per-sample Pearson corr over each sample's tokens."""
+        out = []
+        for a, b, v in zip(x.double(), y.double(), valid):
+            a, b = a[v], b[v]
+            a, b = a - a.mean(), b - b.mean()
+            out.append(((a * b).sum() / (a.norm() * b.norm())).item())
+        return out
+
+    bmodel64 = bert_mod.BertForSequenceClassification(bcfg, device=dev,
+                                                      dtype=torch.float64)
+    bmodel64.load_state_dict({k: v.double() if v.is_floating_point() else v
+                              for k, v in bparams.items()})
+    bmodel64.requires_grad_(False)
+    bc, bc_plain, bpc, bpc_plain, bp_exact = [], [], [], [], []
+    for (ids, valid, idx), heat, heat_p in zip(bert_batches, bheats,
+                                               bheats_prod):
+        ids_t = torch.as_tensor(ids, device=dev)
+        m_t = torch.as_tensor(valid, device=dev)
+        idx_t = torch.as_tensor(idx, device=dev)
+        v_t = m_t.bool()
+        ref = bg.explain_batch(bmodel64, ids_t, m_t, idx_t,
+                               ops=K.BERT_PLAIN_OPS)
+        plain32 = bg.explain_batch(bex.model, ids_t, m_t, idx_t,
+                                   ops=K.BERT_PLAIN_OPS)
+        bc += token_corr(heat, ref, v_t)
+        bc_plain += token_corr(plain32, ref, v_t)
+        ref_p = bg.explain_batch(bmodel64, ids_t, m_t, idx_t,
+                                 ops=K.BERT_PLAIN_OPS, **prod)
+        plain32_p = bg.explain_batch(bex_prod.model, ids_t, m_t, idx_t,
+                                     ops=K.BERT_PLAIN_OPS, **prod)
+        bpc += token_corr(heat_p, ref_p, v_t)
+        bpc_plain += token_corr(plain32_p, ref_p, v_t)
+        bp_exact += token_corr(heat_p, ref, v_t)
+    del bmodel64
+    torch.cuda.empty_cache()
+    bc, bc_plain = np.asarray(bc), np.asarray(bc_plain)
+    bpc, bpc_plain, bp_exact = (np.asarray(a) for a in (bpc, bpc_plain,
+                                                        bp_exact))
+    fmt = lambda a: np.array2string(a, precision=6, max_line_width=1000)
+    print(f"bert float32 slice corr vs plain f64 on the card: min "
+          f"{bc.min():.6f} median {np.median(bc):.6f} over {len(bc)} samples "
+          f"(plain f32 path: min {bc_plain.min():.6f} median "
+          f"{np.median(bc_plain):.6f}); per sample {fmt(bc)}")
+    require(bc.min() >= MIN_CORR, f"bert float32 per-sample corr "
+            f"{bc.min():.6f} below {MIN_CORR}")
+    print(f"bert production slice corr vs plain production f64 on the card: "
+          f"min {bpc.min():.6f} median {np.median(bpc):.6f} (plain f32 "
+          f"production path: min {bpc_plain.min():.6f} median "
+          f"{np.median(bpc_plain):.6f}); per sample {fmt(bpc)}")
+    print(f"bert production slice corr vs exact f64 (float32 preset, plain) "
+          f"on the card, not gated: min {bp_exact.min():.6f} median "
+          f"{np.median(bp_exact):.6f} mean {bp_exact.mean():.6f}; per sample "
+          f"{fmt(bp_exact)}")
+    require(np.median(bpc) >= MIN_CORR,
+            f"bert production median corr {np.median(bpc):.6f} below "
+            f"{MIN_CORR}")
+    # BERT production's answer is ill-conditioned on a few random-weight
+    # samples for any float32 implementation: one bf16 rounding that falls
+    # the other way (float32 vs float64 operands) moves a near-zero add-rule
+    # denominator, and the sample's map with it. The kernel and the plain
+    # float32 path each land on such samples, different ones, so their
+    # minima are two draws (PERF.md §6, PR 3). The tail is gated by count:
+    # no more samples below TAIL_CORR than the plain float32 path + 1.
+    k_tail = int((bpc < TAIL_CORR).sum())
+    p_tail = int((bpc_plain < TAIL_CORR).sum())
+    print(f"bert production samples below {TAIL_CORR}: kernel path {k_tail}, "
+          f"plain f32 path {p_tail}; min {bpc.min():.6f} vs the plain f32 "
+          f"path's {bpc_plain.min():.6f} (not gated)")
+    require(k_tail <= p_tail + 1,
+            f"bert production: {k_tail} samples below {TAIL_CORR}, the plain "
+            f"f32 path {p_tail}")
 
     # 5. times ---------------------------------------------------------------
     times = {}
@@ -460,18 +684,70 @@ def main() -> int:
           f"plain path {rp_plain:.2f} expl/s, batch working memory "
           f"{peak_p:.3f} GiB {tag}")
 
+    bi = bert_inputs
+    times["bert_layer_fwd_core"] = (
+        time_ms(lambda: K.bert_layer_fwd_core(bi["x"], bi["m"], bi["p32"],
+                                              *bi["fargs"], save_attn=True)),
+        time_ms(lambda: bmath.bert_layer_fwd_core_plain(
+            bi["x"], bi["m"], bi["p32"], *bi["fargs"], save_attn=True)))
+    times["bert_out_rev_core"] = (
+        time_ms(lambda: K.bert_out_rev_core(*bi["o32"], bi["p32"],
+                                            *bi["oargs"])),
+        time_ms(lambda: bmath.bert_out_rev_core_plain(*bi["o32"], bi["p32"],
+                                                      *bi["oargs"])))
+    times["bert_attn_rev_core"] = (
+        time_ms(lambda: K.bert_attn_rev_core(*bi["a32"], bi["p32"],
+                                             *bi["aargs"], saved=bi["s32"])),
+        time_ms(lambda: bmath.bert_attn_rev_core_plain(
+            *bi["a32"], bi["p32"], *bi["aargs"], saved=bi["s32"])))
+    for name in ("bert_layer_fwd_core", "bert_out_rev_core",
+                 "bert_attn_rev_core"):
+        print(f"time {name} {bert_shapes['main']} f32 production modes: "
+              f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
+              f"ms {tag}")
+    del bert_inputs, bi
+    torch.cuda.empty_cache()
+
+    def bert_rate(S, ops, nb=20, **kw):
+        ids, valid, idx = bert_batches[0]
+        args = (torch.as_tensor(ids[:, :S], device=dev),
+                torch.as_tensor(valid[:, :S], device=dev),
+                torch.as_tensor(idx, device=dev))
+        for _ in range(3):
+            bg.explain_batch(bex.model, *args, ops=ops, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(nb):
+            bg.explain_batch(bex.model, *args, ops=ops, **kw)
+        torch.cuda.synchronize()
+        return nb * 8 / (time.perf_counter() - t)
+
+    for S in (512, 128):
+        for label, kw in (("float32", {}), ("production", prod)):
+            r1 = bert_rate(S, K.BERT_KERNEL_OPS, **kw)
+            r0 = bert_rate(S, K.BERT_PLAIN_OPS, **kw)
+            r2 = bert_rate(S, K.BERT_KERNEL_OPS, **kw)
+            print(f"e2e transformer_attribution BERT-base {label} B=8 S={S}, "
+                  f"20-batch windows: kernel path {r1:.2f} / {r2:.2f} "
+                  f"expl/s, plain path {r0:.2f} expl/s {tag}")
+
     sources = {"attn_fwd_core": "attn_fwd.cu", "attn_rev_core": "attn_rev.cu",
                "rollout_from_grad_cam": "rollout.cu",
                "block_fwd_core": "block_fwd.cu",
-               "block_rev_core": "block_rev.cu"}
+               "block_rev_core": "block_rev.cu",
+               "bert_layer_fwd_core": "bert_fwd.cu",
+               "bert_out_rev_core": "bert_out_rev.cu",
+               "bert_attn_rev_core": "bert_attn_rev.cu"}
     tpu_lines = {"attn_fwd_core": 391, "attn_rev_core": 415,
                  "rollout_from_grad_cam": 49, "block_fwd_core": 1378,
-                 "block_rev_core": 1223}
+                 "block_rev_core": 1223, "bert_layer_fwd_core": 2335,
+                 "bert_out_rev_core": 2011, "bert_attn_rev_core": 2163}
+    slices = (launches, launches_prod, blaunches, blaunches_prod)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",
          "replaces": f"{TPU_KERNELS}:{tpu_lines[name]}",
-         "launches": launches[name] + launches_prod[name],
+         "launches": sum(c[name] for c in slices),
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name in sources]}))

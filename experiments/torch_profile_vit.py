@@ -1,11 +1,14 @@
-"""Where the device time goes in the PyTorch port's ViT-B/16
-``transformer_attribution`` (B=8), on one CUDA card.
+"""Where the device time goes in the PyTorch port's ``transformer_attribution``
+on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
 
-    python3 experiments/torch_profile_vit.py [--precision float32|production|bfloat16]
+    python3 experiments/torch_profile_vit.py [--model vit|bert] [--seq 512]
+                                             [--precision float32|production|bfloat16]
                                              [--batches 4] [--out DIR]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
-exact FP32; production and bfloat16 run the block megakernels).
+exact FP32; production and bfloat16 run the block megakernels, or for BERT
+the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
+padded to its own length, seeded.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -35,7 +38,8 @@ def group(name: str) -> str:
     if "te::gemm_kernel" in name:
         return "port GEMM core (tensor cores)"
     if "te::" in name or name.startswith(("attn_", "rollout_", "head_mean",
-                                           "blk_", "gemm_", "ln_", "add_")):
+                                           "blk_", "gemm_", "ln_", "add_",
+                                           "bert_", "bias_add", "mask_")):
         return "port kernels"
     if "gemm" in low or "cutlass" in low or "sm90_xmma" in low:
         return "GEMM (cuBLAS)"
@@ -68,8 +72,49 @@ def profile(fn, batches: int, trace: str):
     return wall, by_name, by_group
 
 
+def vit_case(dev):
+    """(explain_batch, model, inputs) of ViT-B/16 at B=8."""
+    from transformer_explainability_torch.explain.generator import (
+        explain_batch)
+    from transformer_explainability_torch.models.vit import (
+        VIT_BASE_16_224 as cfg, VisionTransformer, init_params)
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(0), device=dev)
+    model = VisionTransformer(cfg, device=dev)
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    imgs = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
+    idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
+    return explain_batch, model, (imgs, idx)
+
+
+def bert_case(dev, S):
+    """(explain_batch, model, inputs) of BERT-base at B=8, length S, each
+    sample padded to its own length."""
+    from transformer_explainability_torch.explain.bert_generator import (
+        explain_batch)
+    from transformer_explainability_torch.models.bert import (
+        BERT_BASE_UNCASED as cfg, BertForSequenceClassification, init_params)
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(0), device=dev)
+    model = BertForSequenceClassification(cfg, device=dev)
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lengths = torch.randint(S // 8, S + 1, (8,), generator=gen, device=dev)
+    lengths[0] = S
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None]).float()
+    ids = torch.randint(1000, cfg.vocab_size, (8, S), generator=gen,
+                        device=dev) * mask.long()
+    idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
+    return explain_batch, model, (ids, mask, idx)
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="vit", choices=["vit", "bert"])
+    ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "production", "bfloat16"])
     ap.add_argument("--batches", type=int, default=4)
@@ -80,34 +125,32 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from transformer_explainability_torch.explain.generator import (
-        explain_batch, precision_kwargs)
-    from transformer_explainability_torch.models.vit import (
-        VIT_BASE_16_224 as cfg, VisionTransformer, init_params)
+        precision_kwargs)
     from transformer_explainability_torch.ops import kernels as K
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    params = init_params(cfg, generator=torch.Generator(device=dev)
-                         .manual_seed(0), device=dev)
-    model = VisionTransformer(cfg, device=dev)
-    model.load_state_dict(params)
-    model.requires_grad_(False)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    imgs = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
-    idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
+    if args.model == "vit":
+        explain, model, inputs = vit_case(dev)
+        tables = (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS))
+        what = "vit"
+    else:
+        explain, model, inputs = bert_case(dev, args.seq)
+        tables = (("kernel", K.BERT_KERNEL_OPS), ("plain", K.BERT_PLAIN_OPS))
+        what = f"bert_s{args.seq}"
     os.makedirs(args.out, exist_ok=True)
     prec = precision_kwargs(args.precision)
-    for label, ops in (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS)):
+    for label, ops in tables:
         wall, by_name, by_group = profile(
-            lambda: explain_batch(model, imgs, idx, ops=ops, **prec),
+            lambda: explain(model, *inputs, ops=ops, **prec),
             args.batches, os.path.join(
-                args.out, f"trace_vit_{args.precision}_{label}.json"))
+                args.out, f"trace_{what}_{args.precision}_{label}.json"))
         busy = sum(by_name.values()) / 1e6
         per = wall / args.batches
-        print(f"[{card}] {args.precision} {label} path: {per * 1e3:.2f} "
-              f"ms/batch of 8 under "
+        print(f"[{card}] {what} {args.precision} {label} path: "
+              f"{per * 1e3:.2f} ms/batch of 8 under "
               f"the profiler, device busy {busy / wall:.1%}")
         for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
             print(f"  {g:24s} {us / 1e3 / args.batches:9.3f} ms/batch "

@@ -6,12 +6,13 @@ as plain C++ with g++ (threads for CUDA threads, barriers for
 host launchers the wrappers call, through ``ctypes``, on CPU tensors. Each
 kernel is held to its plain PyTorch version: float64 at rtol 1e-9 /
 atol 1e-12, float32 (forward only; the reverse's safe-divide chains make
-float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels
-(float32 only) are held to their plain versions in float64 by the rule of
-``chip_smoke.py``: the kernel's distance to the float64 plain result is at
-most 10 × the plain float32 version's plus 1e-6 of the output's magnitude.
-This checks the kernels' indexing, tiling, masking of ragged edges and reductions; timing, the
-memory model and the compiler of the card are only checked on the card
+float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels and the
+BERT layer kernels (float32 only) are held to their plain versions in
+float64 by the rule of ``chip_smoke.py``: the kernel's distance to the
+float64 plain result is at most 10 × the plain float32 version's plus 1e-6
+of the output's magnitude. This checks the kernels' indexing, tiling,
+masking of ragged edges and padded attention masks, and reductions; timing,
+the memory model and the compiler of the card are only checked on the card
 (``chip_smoke.py``).
 """
 
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from transformer_explainability_torch.ops import _build
+from transformer_explainability_torch.ops import bert_math as bmath
 from transformer_explainability_torch.ops import block_math as bm
 from transformer_explainability_torch.ops import kernels as K
 from transformer_explainability_torch.ops import precision as P
@@ -184,5 +186,107 @@ def test_block_rev_kernel_matches_plain(lib, shape, preset):
                                      rule, mlp, saved=saved64)
     want32 = bm.block_rev_core_plain(*args32, p32, h, hd, EPS, mxu, attn,
                                      rule, mlp, saved=saved32)
+    for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
+        _f32_rule(k, p, q, name)
+
+
+# ---------------------------------------------------------------------------
+# BERT layer kernels B7 / B8 / B9 (float32 kernels against float64 plain
+# versions, masked samples)
+# ---------------------------------------------------------------------------
+
+BERT_EPS = 1e-12
+# (B, S, h, hd, I); S=70 takes several row tiles
+BERT_SHAPES = [(2, 13, 2, 8, 32), (1, 21, 4, 6, 48), (2, 70, 2, 8, 16)]
+
+
+def _bert_case(seed, b, S, h, hd, inter, base):
+    """Random layer parameters (float64 and float32, one shared set of
+    prepared bf16 weights), an input x (B, S, D) and additive masks whose
+    padded tails differ per sample."""
+    rng = np.random.RandomState(seed)
+    D = h * hd
+
+    def w(o, i):
+        return torch.from_numpy(rng.randn(o, i) / np.sqrt(i))
+
+    def vec(k, centre=0.0):
+        return torch.from_numpy(centre + 0.1 * rng.randn(k))
+
+    weights = [P.prepare_weight(t, base)
+               for t in (w(3 * D, D), w(D, D), w(inter, D), w(D, inter))]
+    vecs = [vec(D, 1.0), vec(D), vec(D, 1.0), vec(D), vec(3 * D), vec(D),
+            vec(inter), vec(D)]
+    p64 = bmath.BertLayerParams(*vecs, *weights)
+    p32 = bmath.BertLayerParams(*[v.float() for v in vecs], *weights)
+    x = torch.from_numpy(rng.randn(b, S, D))
+    keep = np.arange(S)[None, :] < (S - 4 * np.arange(b))[:, None]
+    mask = torch.from_numpy((1.0 - keep) * -10000.0)
+    return p64, p32, x, mask
+
+
+@pytest.mark.parametrize("shape", BERT_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_fwd_kernel_matches_plain(lib, shape, preset):
+    b, S, h, hd, inter = shape
+    mxu, attn, _, mlp = PRESETS[preset]
+    p64, p32, x, mask = _bert_case(30, b, S, h, hd, inter, mxu)
+    flags = K._block_modes("bert_layer_fwd_core", p32, mxu=mxu,
+                           mlp=mlp or mxu, attn_bf16=attn)
+    got = K._launch_bert_fwd(lib, x.float(), mask.float(), p32, h, hd,
+                             BERT_EPS, flags, None)
+    args = (h, hd, BERT_EPS, mxu, attn, mlp)
+    want64 = bmath.bert_layer_fwd_core_plain(x, mask, p64, *args,
+                                             save_attn=True)
+    want32 = bmath.bert_layer_fwd_core_plain(x.float(), mask.float(), p32,
+                                             *args, save_attn=True)
+    for k, p, q, name in zip(got, want32, want64, ["out", "att_ln", "qkv_pre",
+                                                   "ctx", "dense_nb"]):
+        assert k.shape == q.shape, name
+        _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("shape", BERT_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_out_rev_kernel_matches_plain(lib, shape, preset):
+    b, S, h, hd, inter = shape
+    mxu, attn, rule, mlp = PRESETS[preset]
+    p64, p32, x, mask = _bert_case(31, b, S, h, hd, inter, mxu)
+    att_ln = bmath.bert_layer_fwd_core_plain(x, mask, p64, h, hd, BERT_EPS,
+                                             mxu, attn, mlp)[1]
+    rng = np.random.RandomState(32)
+    g_out, R = (torch.from_numpy(rng.randn(*x.shape)) for _ in range(2))
+    a64 = (att_ln, g_out, R)
+    a32 = tuple(t.float() for t in a64)
+    flags = K._block_modes("bert_out_rev_core", p32, mlp=mlp or mxu,
+                           rule=rule)
+    got = K._launch_bert_out_rev(lib, *a32, p32, BERT_EPS, flags, None)
+    want64 = bmath.bert_out_rev_core_plain(*a64, p64, BERT_EPS, mxu, rule,
+                                           mlp)
+    want32 = bmath.bert_out_rev_core_plain(*a32, p32, BERT_EPS, mxu, rule,
+                                           mlp)
+    for k, p, q, name in zip(got, want32, want64, ["g_attln", "R_att"]):
+        _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("shape", BERT_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_attn_rev_kernel_matches_plain(lib, shape, preset):
+    b, S, h, hd, inter = shape
+    mxu, attn, rule, mlp = PRESETS[preset]
+    p64, p32, x, mask = _bert_case(33, b, S, h, hd, inter, mxu)
+    fwd = bmath.bert_layer_fwd_core_plain(x, mask, p64, h, hd, BERT_EPS, mxu,
+                                          attn, mlp, save_attn=True)
+    rng = np.random.RandomState(34)
+    g_attln, R_att = (torch.from_numpy(rng.randn(*x.shape)) for _ in range(2))
+    a64, s64 = (x, g_attln, R_att, mask), fwd[2:]
+    a32, s32 = tuple(t.float() for t in a64), tuple(t.float() for t in s64)
+    flags = K._block_modes("bert_attn_rev_core", p32, mxu=mxu, rule=rule,
+                           attn_bf16=attn, rule_bf16=rule)
+    got = K._launch_bert_attn_rev(lib, *a32, s32, p32, h, hd, BERT_EPS,
+                                  flags, None)
+    args = (h, hd, BERT_EPS, mxu, attn, rule)
+    want64 = bmath.bert_attn_rev_core_plain(*a64, p64, *args, saved=s64)
+    want32 = bmath.bert_attn_rev_core_plain(*a32, p32, *args, saved=s32)
     for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
         _f32_rule(k, p, q, name)

@@ -26,36 +26,6 @@
 
 namespace te {
 
-// qkv GEMM: qkv_pre, and qkv = qkv_pre + bqkv for the attention core
-struct EpiQkv {
-  float* pre; float* biased; const float* bias; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
-    const size_t o = (size_t)r * N + c;
-    pre[o] = a;
-    biased[o] = a + bias[c];
-  }
-};
-
-// proj / fc2 GEMMs: the pre-bias product, and out = res + (pre + bias)
-struct EpiResidual {
-  float* pre; float* out; const float* res; const float* bias; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
-    const size_t o = (size_t)r * N + c;
-    pre[o] = a;
-    out[o] = res[o] + (a + bias[c]);
-  }
-};
-
-// fc1 GEMM: fc1_pre, and hg = gelu(fc1_pre + b1) for the fc2 GEMM
-struct EpiGelu {
-  float* pre; float* hg; const float* bias; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
-    const size_t o = (size_t)r * N + c;
-    pre[o] = a;
-    hg[o] = gelu(a + bias[c]);
-  }
-};
-
 // One block per (row tile, head, sample); K and V of the head (rounded as
 // the products take them) in shared memory; one warp per query row.
 template <bool RA>

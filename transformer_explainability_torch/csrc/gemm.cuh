@@ -331,7 +331,8 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
         add_rn(mul_rn(mul_rn(xr[c] - mu, inv), s[c]), b[c]);
 }
 
-// out = g_res + LayerNorm backward of g (JAX _block_rev_math's LN tails)
+// out = g_res + LayerNorm backward of g (JAX _block_rev_math's LN tails);
+// a null g_res adds nothing
 static __global__ void __launch_bounds__(kRowWarps * kWarp)
 ln_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
               const float* __restrict__ s, const float* __restrict__ g_res,
@@ -352,7 +353,8 @@ ln_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int c = lane; c < D; c += kWarp) {
     const float gg = g[o + c] * s[c];
     const float xhat = (x[o + c] - mu) * inv;
-    out[o + c] = g_res[o + c] + inv * (gg - m1 - xhat * m2);
+    const float r = g_res ? g_res[o + c] : 0.f;
+    out[o + c] = r + inv * (gg - m1 - xhat * m2);
   }
 }
 
@@ -370,6 +372,38 @@ inline int ln_bwd(const float* g, const float* x, const float* s,
             kRowWarps * kWarp, 0, stream)(g, x, s, g_res, out, rows, D, eps);
   return (int)cudaGetLastError();
 }
+
+// The forward GEMM epilogues (block_fwd.cu, bert_fwd.cu; the reverse
+// kernels repeat the forward with them, bitwise).
+// qkv GEMM: qkv_pre, and qkv = qkv_pre + bqkv for the attention core
+struct EpiQkv {
+  float* pre; float* biased; const float* bias; int N;
+  __device__ void operator()(int r, int c, float a, float) const {
+    const size_t o = (size_t)r * N + c;
+    pre[o] = a;
+    biased[o] = a + bias[c];
+  }
+};
+
+// proj / fc2 GEMMs: the pre-bias product, and out = res + (pre + bias)
+struct EpiResidual {
+  float* pre; float* out; const float* res; const float* bias; int N;
+  __device__ void operator()(int r, int c, float a, float) const {
+    const size_t o = (size_t)r * N + c;
+    pre[o] = a;
+    out[o] = res[o] + (a + bias[c]);
+  }
+};
+
+// fc1 GEMM: fc1_pre, and hg = gelu(fc1_pre + b1) for the fc2 GEMM
+struct EpiGelu {
+  float* pre; float* hg; const float* bias; int N;
+  __device__ void operator()(int r, int c, float a, float) const {
+    const size_t o = (size_t)r * N + c;
+    pre[o] = a;
+    hg[o] = gelu(a + bias[c]);
+  }
+};
 
 // One block's parameters: LayerNorm scales and biases and Linear biases in
 // float32, the four weights as bf16 (hi, lo) planes in the nn.Linear layout

@@ -120,6 +120,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.te_block_fwd_f32.restype = I
     lib.te_block_rev_f32.argtypes = [P] * 32 + [I] * 5 + [F] + [I] * 5 + [P]
     lib.te_block_rev_f32.restype = I
+    lib.te_bert_fwd_f32.argtypes = [P] * 25 + [I] * 5 + [F] + [I] * 3 + [P]
+    lib.te_bert_fwd_f32.restype = I
+    lib.te_bert_out_rev_f32.argtypes = [P] * 23 + [I] * 4 + [F] + [I] * 2 + [P]
+    lib.te_bert_out_rev_f32.restype = I
+    lib.te_bert_attn_rev_f32.argtypes = [P] * 28 + [I] * 4 + [F] + [I] * 4 + [P]
+    lib.te_bert_attn_rev_f32.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib

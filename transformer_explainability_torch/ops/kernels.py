@@ -11,11 +11,16 @@ Port of the Pallas kernels on the ViT ``transformer_attribution`` path of
   ``rollout_from_grad_cam``     ``rollout_from_grad_cam``   ``csrc/rollout.cu``
   ``block_fwd_core``            ``block_fwd_core``          ``csrc/block_fwd.cu``
   ``block_rev_core``            ``block_rev_core``          ``csrc/block_rev.cu``
+  ``bert_layer_fwd_core``       ``bert_layer_fwd_core``     ``csrc/bert_fwd.cu``
+  ``bert_out_rev_core``         ``bert_out_rev_core``       ``csrc/bert_out_rev.cu``
+  ``bert_attn_rev_core``        ``bert_attn_rev_core``      ``csrc/bert_attn_rev.cu``
   ============================  ==========================  ===================
 
-The first three carry the exact-FP32 path; the block megakernels the
+The first three carry the exact-FP32 ViT path; the block megakernels the
 ``bfloat16`` / ``tensorfloat32`` presets (their plain versions are in
-:mod:`.block_math`, their GEMM core is ``csrc/gemm.cuh``).
+:mod:`.block_math`, their GEMM core is ``csrc/gemm.cuh``); the BERT layer
+kernels the BERT presets (plain versions in :mod:`.bert_math`, same GEMM
+core). The rollout serves both models.
 
 Each wrapper checks device, dtype (float32 or float64; the block kernels
 take float32 on the card), shape and contiguity, and raises on anything its kernel does not take. For a CPU
@@ -37,6 +42,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from transformer_explainability_torch.ops import relprop as rp
+from transformer_explainability_torch.ops.bert_math import (
+    BertLayerParams, bert_attn_rev_core_plain, bert_layer_fwd_core_plain,
+    bert_out_rev_core_plain)
 from transformer_explainability_torch.ops.block_math import (
     BlockParams, block_fwd_core_plain, block_rev_core_plain, merge3,
     merge_heads, split_heads)
@@ -184,7 +192,12 @@ _GEMM_MODE = {"bfloat16": 0, "tensorfloat32": 1}
 _ATTN_BF16 = {"float32": 0, "bfloat16": 1}
 
 
-def _block_modes(name: str, p: BlockParams, **modes) -> dict:
+# BlockParams and BertLayerParams share one layout: eight vectors (two
+# LayerNorms' scales and biases, the qkv, attention-output, first and second
+# MLP biases), then the four prepared weights; the helpers below read them
+# by position, as the C entry points' BlockWeights does.
+
+def _block_modes(name: str, p, **modes) -> dict:
     """Map the product modes to the kernels' flags; raise on a mode or a
     weight preparation the kernel does not take."""
     out = {}
@@ -195,23 +208,20 @@ def _block_modes(name: str, p: BlockParams, **modes) -> dict:
                 f"{name}: {key.replace('_bf16', '')} mode {mode!r} has no "
                 f"kernel instantiation (ROADMAP B, raw tensorfloat32)")
         out[key] = table[mode]
-    if p.ln1s.shape[0] % 8 or p.b1.shape[0] % 8:
+    if p[0].shape[0] % 8 or p[6].shape[0] % 8:
         raise ValueError(f"{name}: the kernel needs the embedding and MLP "
                          "widths to be multiples of 8")
-    paired = all(len(w) == 2 for w in (p.wqkv, p.wproj, p.w1, p.w2))
+    paired = all(len(w) == 2 for w in p[8:])
     if any(out.get(k) == 1 for k in ("mxu", "mlp", "rule")) and not paired:
         raise ValueError(f"{name}: a tensorfloat32 product needs weights "
                          "prepared as (hi, lo) pairs")
     return out
 
 
-def _check_block_params(name: str, p: BlockParams, like: Tensor, D: int,
-                        M: int) -> None:
-    vecs = (p.ln1s, p.ln1b, p.ln2s, p.ln2b, p.bqkv, p.bproj, p.b1, p.b2)
-    _check(name, [like, *vecs], [like.shape] + [(D,)] * 4
+def _check_block_params(name: str, p, like: Tensor, D: int, M: int) -> None:
+    _check(name, [like, *p[:8]], [like.shape] + [(D,)] * 4
            + [(3 * D,), (D,), (M,), (D,)])
-    for w, shape in zip((p.wqkv, p.wproj, p.w1, p.w2),
-                        ((3 * D, D), (D, D), (M, D), (D, M))):
+    for w, shape in zip(p[8:], ((3 * D, D), (D, D), (M, D), (D, M))):
         for t in w:
             if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape
                     or not t.is_contiguous() or t.device != like.device):
@@ -219,16 +229,15 @@ def _check_block_params(name: str, p: BlockParams, like: Tensor, D: int,
                                  f"contiguous bf16 {shape} on {like.device}")
 
 
-def _weight_ptrs(p: BlockParams):
+def _weight_ptrs(p):
     ptrs = []
-    for w in (p.wqkv, p.wproj, p.w1, p.w2):
+    for w in p[8:]:
         ptrs += [w[0].data_ptr(), w[1].data_ptr() if len(w) > 1 else None]
     return ptrs
 
 
-def _vec_ptrs(p: BlockParams):
-    return [t.data_ptr() for t in (p.ln1s, p.ln1b, p.ln2s, p.ln2b, p.bqkv,
-                                   p.bproj, p.b1, p.b2)]
+def _vec_ptrs(p):
+    return [t.data_ptr() for t in p[:8]]
 
 
 def _workspace(fn, dims, device) -> Tensor:
@@ -280,6 +289,61 @@ def _launch_block_rev(lib, x_in: Tensor, x_mid: Tensor, out_m: Tensor,
     work = _workspace(fn, dims, x_in.device)
     _raise_on_error("block_rev_core", lib, fn(
         *[t.data_ptr() for t in (x_in, x_mid, out_m, g_out, R, *saved)],
+        *_vec_ptrs(p), *_weight_ptrs(p), g_in.data_ptr(), R_in.data_ptr(),
+        gc.data_ptr(), work.data_ptr(), None, *dims, stream))
+    return g_in, R_in, gc
+
+
+def _bert_mask(name: str, mask: Tensor, like: Tensor) -> None:
+    b, S = like.shape[:2]
+    _check(name, [like, mask], [like.shape, (b, S)])
+
+
+def _launch_bert_fwd(lib, x: Tensor, mask: Tensor, p: BertLayerParams,
+                     num_heads: int, head_dim: int, eps: float, flags: dict,
+                     stream):
+    b, S, D = x.shape
+    kw = dict(dtype=x.dtype, device=x.device)
+    outs = (torch.empty(b, S, D, **kw), torch.empty(b, S, D, **kw),
+            torch.empty(b, S, 3 * D, **kw), torch.empty(b, S, D, **kw),
+            torch.empty(b, S, D, **kw))
+    fn = lib.te_bert_fwd_f32
+    dims = [b, S, num_heads, head_dim, p.b_i.shape[0], float(eps),
+            flags["mxu"], flags["attn_bf16"], flags["mlp"]]
+    work = _workspace(fn, dims, x.device)
+    _raise_on_error("bert_layer_fwd_core", lib, fn(
+        x.data_ptr(), mask.data_ptr(), *_vec_ptrs(p), *_weight_ptrs(p),
+        *[o.data_ptr() for o in outs], work.data_ptr(), None, *dims, stream))
+    return outs
+
+
+def _launch_bert_out_rev(lib, att_ln: Tensor, g_out: Tensor, R: Tensor,
+                         p: BertLayerParams, eps: float, flags: dict, stream):
+    b, S, D = att_ln.shape
+    g_attln, R_att = torch.empty_like(att_ln), torch.empty_like(att_ln)
+    fn = lib.te_bert_out_rev_f32
+    dims = [b, S, D, p.b_i.shape[0], float(eps), flags["mlp"], flags["rule"]]
+    work = _workspace(fn, dims, att_ln.device)
+    _raise_on_error("bert_out_rev_core", lib, fn(
+        att_ln.data_ptr(), g_out.data_ptr(), R.data_ptr(), *_vec_ptrs(p),
+        *_weight_ptrs(p), g_attln.data_ptr(), R_att.data_ptr(),
+        work.data_ptr(), None, *dims, stream))
+    return g_attln, R_att
+
+
+def _launch_bert_attn_rev(lib, x_in: Tensor, g_attln: Tensor, R_att: Tensor,
+                          mask: Tensor, saved, p: BertLayerParams,
+                          num_heads: int, head_dim: int, eps: float,
+                          flags: dict, stream):
+    b, S, D = x_in.shape
+    g_in, R_in = torch.empty_like(x_in), torch.empty_like(x_in)
+    gc = torch.empty(b, S, S, dtype=x_in.dtype, device=x_in.device)
+    fn = lib.te_bert_attn_rev_f32
+    dims = [b, S, num_heads, head_dim, float(eps), flags["mxu"],
+            flags["attn_bf16"], flags["rule_bf16"], flags["rule"]]
+    work = _workspace(fn, dims, x_in.device)
+    _raise_on_error("bert_attn_rev_core", lib, fn(
+        *[t.data_ptr() for t in (x_in, g_attln, R_att, mask, *saved)],
         *_vec_ptrs(p), *_weight_ptrs(p), g_in.data_ptr(), R_in.data_ptr(),
         gc.data_ptr(), work.data_ptr(), None, *dims, stream))
     return g_in, R_in, gc
@@ -429,14 +493,137 @@ def block_rev_core(x_in: Tensor, x_mid: Tensor, out_m: Tensor, g_out: Tensor,
     return outs
 
 
+def _bert_kernel_checks(name: str, x: Tensor, head_dim: int) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32")
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {head_dim} > {MAX_HEAD_DIM} is "
+                         "not supported by the kernel")
+
+
+def bert_layer_fwd_core(x: Tensor, mask: Tensor, p: BertLayerParams,
+                        num_heads: int, head_dim: int, eps: float, mxu: str,
+                        attn_mxu: str, mlp_mxu: Optional[str] = None,
+                        save_attn: bool = False, save_probs: bool = False,
+                        save_mlp: bool = False) -> Tuple[Tensor, ...]:
+    """One whole post-norm BERT layer forward on ``x (B, S, D)`` with the
+    ``(B, S)`` additive ``mask`` (JAX ``pallas_kernels.bert_layer_fwd_core``);
+    returns ``(out, att_ln)`` and the anchors of
+    :func:`.bert_math.bert_layer_fwd_core_plain`. The kernel computes the
+    slim anchors in any case; the fat and MLP anchor forms run plain only."""
+    D = num_heads * head_dim
+    if x.ndim != 3 or x.shape[-1] != D:
+        raise ValueError(f"bert_layer_fwd_core: x must be (B, S, {D}), got "
+                         f"{tuple(x.shape)}")
+    _bert_mask("bert_layer_fwd_core", mask, x)
+    _check_block_params("bert_layer_fwd_core", p, x, D, p.b_i.shape[0])
+    if x.device.type == "cpu":
+        return bert_layer_fwd_core_plain(x, mask, p, num_heads, head_dim, eps,
+                                         mxu, attn_mxu, mlp_mxu, save_attn,
+                                         save_probs, save_mlp)
+    _bert_kernel_checks("bert_layer_fwd_core", x, head_dim)
+    if save_probs or save_mlp:
+        raise NotImplementedError(
+            "bert_layer_fwd_core: the kernel saves the slim anchors; the fat "
+            "(probs) and MLP anchor forms are ROADMAP B (B7 anchor forms)")
+    flags = _block_modes("bert_layer_fwd_core", p, mxu=mxu,
+                         mlp=mlp_mxu or mxu, attn_bf16=attn_mxu)
+    with torch.cuda.device(x.device):
+        outs = _launch_bert_fwd(_lib(), x, mask, p, num_heads, head_dim, eps,
+                                flags, _stream(x))
+    bert_layer_fwd_core.launches += 1
+    return outs[:5 if save_attn else 2]
+
+
+def bert_out_rev_core(att_ln: Tensor, g_out: Tensor, R: Tensor,
+                      p: BertLayerParams, eps: float, mxu: str, rule_mxu: str,
+                      mlp_mxu: Optional[str] = None,
+                      saved_mlp: Optional[Tuple[Tensor, Tensor]] = None
+                      ) -> Tuple[Tensor, Tensor]:
+    """The reverse of a BERT layer's output sub-block (JAX
+    ``pallas_kernels.bert_out_rev_core``): ``(g_attln, R_att)`` as
+    :func:`.bert_math.bert_out_rev_core_plain`. The kernel recomputes the
+    two MLP products (the MLP anchors are off by default)."""
+    D = att_ln.shape[-1] if att_ln.ndim == 3 else -1
+    I = p.b_i.shape[0]
+    _check("bert_out_rev_core", [att_ln, g_out, R], [att_ln.shape] * 3)
+    if att_ln.ndim != 3:
+        raise ValueError("bert_out_rev_core: tensors must be (B, S, D)")
+    _check_block_params("bert_out_rev_core", p, att_ln, D, I)
+    if saved_mlp is not None:
+        b, S = att_ln.shape[:2]
+        _check("bert_out_rev_core", [att_ln, *saved_mlp],
+               [att_ln.shape, (b, S, I), (b, S, D)])
+    if att_ln.device.type == "cpu":
+        return bert_out_rev_core_plain(att_ln, g_out, R, p, eps, mxu,
+                                       rule_mxu, mlp_mxu, saved_mlp)
+    _bert_kernel_checks("bert_out_rev_core", att_ln, 0)
+    if saved_mlp is not None:
+        raise NotImplementedError(
+            "bert_out_rev_core: the kernel recomputes the MLP products; the "
+            "saved-MLP form is ROADMAP B (B8 anchor form)")
+    flags = _block_modes("bert_out_rev_core", p, mlp=mlp_mxu or mxu,
+                         rule=rule_mxu)
+    with torch.cuda.device(att_ln.device):
+        outs = _launch_bert_out_rev(_lib(), att_ln, g_out, R, p, eps, flags,
+                                    _stream(att_ln))
+    bert_out_rev_core.launches += 1
+    return outs
+
+
+def bert_attn_rev_core(x_in: Tensor, g_attln: Tensor, R_att: Tensor,
+                       mask: Tensor, p: BertLayerParams, num_heads: int,
+                       head_dim: int, eps: float, mxu: str, attn_mxu: str,
+                       rule_mxu: str,
+                       saved: Optional[Tuple[Tensor, ...]] = None
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The reverse of a BERT layer's masked attention sub-block (JAX
+    ``pallas_kernels.bert_attn_rev_core``, variant ``ours``, α=1): returns
+    ``(g_in, R_in, gc (B, S, S))`` as
+    :func:`.bert_math.bert_attn_rev_core_plain`. The kernel takes the slim
+    ``saved = (qkv_pre, ctx, dense_nb)`` of :func:`bert_layer_fwd_core`."""
+    D = num_heads * head_dim
+    b, S = x_in.shape[:2] if x_in.ndim == 3 else (-1, -1)
+    _check("bert_attn_rev_core", [x_in, g_attln, R_att], [(b, S, D)] * 3)
+    _bert_mask("bert_attn_rev_core", mask, x_in)
+    _check_block_params("bert_attn_rev_core", p, x_in, D, p.b_i.shape[0])
+    if saved is not None:
+        if len(saved) not in (3, 5):
+            raise ValueError("bert_attn_rev_core: saved holds 3 or 5 anchors")
+        shapes = ([(b, S, 3 * D)] + [(b, num_heads * S, S)] * (len(saved) - 3)
+                  + [(b, S, D)] * 2)
+        _check("bert_attn_rev_core", [x_in, *saved], [x_in.shape] + shapes)
+    if x_in.device.type == "cpu":
+        return bert_attn_rev_core_plain(x_in, g_attln, R_att, mask, p,
+                                        num_heads, head_dim, eps, mxu,
+                                        attn_mxu, rule_mxu, saved)
+    _bert_kernel_checks("bert_attn_rev_core", x_in, head_dim)
+    if saved is None or len(saved) != 3:
+        raise NotImplementedError(
+            "bert_attn_rev_core: the kernel takes the slim saved anchors; the "
+            "recompute and fat-anchor forms are ROADMAP B (B9 anchor forms)")
+    flags = _block_modes("bert_attn_rev_core", p, mxu=mxu, rule=rule_mxu,
+                         attn_bf16=attn_mxu, rule_bf16=rule_mxu)
+    with torch.cuda.device(x_in.device):
+        outs = _launch_bert_attn_rev(_lib(), x_in, g_attln, R_att, mask,
+                                     saved, p, num_heads, head_dim, eps,
+                                     flags, _stream(x_in))
+    bert_attn_rev_core.launches += 1
+    return outs
+
+
 attn_fwd_core.launches = 0
 attn_rev_core.launches = 0
 rollout_from_grad_cam.launches = 0
 block_fwd_core.launches = 0
 block_rev_core.launches = 0
+bert_layer_fwd_core.launches = 0
+bert_out_rev_core.launches = 0
+bert_attn_rev_core.launches = 0
 
 WRAPPERS = (attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
-            block_fwd_core, block_rev_core)
+            block_fwd_core, block_rev_core, bert_layer_fwd_core,
+            bert_out_rev_core, bert_attn_rev_core)
 
 
 def reset_launch_counts() -> None:
@@ -462,3 +649,18 @@ KERNEL_OPS = AttnOps(attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
                      block_fwd_core, block_rev_core)
 PLAIN_OPS = AttnOps(attn_fwd_core_plain, attn_rev_core_plain, rollout_plain,
                     block_fwd_core_plain, block_rev_core_plain)
+
+
+class BertOps(NamedTuple):
+    """The kernel operations the BERT path calls (the same role as
+    :class:`AttnOps`)."""
+    bert_layer_fwd_core: Callable
+    bert_out_rev_core: Callable
+    bert_attn_rev_core: Callable
+    rollout_from_grad_cam: Callable
+
+
+BERT_KERNEL_OPS = BertOps(bert_layer_fwd_core, bert_out_rev_core,
+                          bert_attn_rev_core, rollout_from_grad_cam)
+BERT_PLAIN_OPS = BertOps(bert_layer_fwd_core_plain, bert_out_rev_core_plain,
+                         bert_attn_rev_core_plain, rollout_plain)

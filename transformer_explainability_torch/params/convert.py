@@ -1,9 +1,10 @@
-"""Weight converters into the port's timm-named state dicts.
+"""Weight converters into the port's state dicts (timm names for ViT, Hugging
+Face names for BERT).
 
 Counterpart of ``transformer_explainability_tpu/params/convert.py``
-(``vit_state_dict_from_params``). Takes the JAX parameter pytree with array
-leaves that numpy reads (numpy arrays, or JAX arrays converted by the
-caller) and needs no JAX.
+(``vit_state_dict_from_params``, ``bert_state_dict_from_params``). Takes
+the JAX parameter pytree with array leaves that numpy reads (numpy arrays,
+or JAX arrays converted by the caller) and needs no JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from transformer_explainability_torch.models.bert import BertConfig
 from transformer_explainability_torch.models.vit import ViTConfig
 
 _BLOCK_LEAVES = (
@@ -66,4 +68,49 @@ def vit_params_from_jax(tree: Mapping[str, Any],
     sd["norm.bias"] = _t(tree["norm"]["bias"])
     sd["head.weight"] = _t(np.asarray(tree["head"]["kernel"]).T)
     sd["head.bias"] = _t(tree["head"]["bias"])
+    return sd
+
+
+_BERT_LAYER_LEAVES = (
+    # (HF module under encoder.layer.{i}, pytree module, is a Linear)
+    ("attention.self.query", "q", True),
+    ("attention.self.key", "k", True),
+    ("attention.self.value", "v", True),
+    ("attention.output.dense", "attn_out", True),
+    ("attention.output.LayerNorm", "attn_ln", False),
+    ("intermediate.dense", "inter", True),
+    ("output.dense", "out", True),
+    ("output.LayerNorm", "out_ln", False),
+)
+
+
+def bert_params_from_jax(tree: Mapping[str, Any],
+                         cfg: BertConfig) -> Dict[str, torch.Tensor]:
+    """JAX BERT pytree (``bert.init_params`` layout: per-layer leaves stacked
+    on a leading layer axis, Linear kernels ``(in, out)``) -> the port's
+    state dict in the HF classification layout that JAX
+    ``bert_state_dict_from_params`` exports (``bert.``-prefixed encoder,
+    ``classifier``, weights ``(out, in)``, the ``position_ids`` buffer), on
+    the CPU, in the tree's dtype."""
+    emb, lay = tree["embeddings"], tree["layers"]
+    e = "bert.embeddings."
+    sd = {
+        e + "position_ids": torch.arange(cfg.max_position_embeddings)[None],
+        e + "word_embeddings.weight": _t(emb["word"]),
+        e + "position_embeddings.weight": _t(emb["position"]),
+        e + "token_type_embeddings.weight": _t(emb["token_type"]),
+        e + "LayerNorm.weight": _t(emb["ln"]["scale"]),
+        e + "LayerNorm.bias": _t(emb["ln"]["bias"]),
+        "bert.pooler.dense.weight": _t(np.asarray(tree["pooler"]["kernel"]).T),
+        "bert.pooler.dense.bias": _t(tree["pooler"]["bias"]),
+    }
+    for hf_name, mod, is_linear in _BERT_LAYER_LEAVES:
+        w = np.asarray(lay[mod]["kernel" if is_linear else "scale"])
+        b = np.asarray(lay[mod]["bias"])
+        for i in range(cfg.num_layers):
+            base = f"bert.encoder.layer.{i}.{hf_name}"
+            sd[base + ".weight"] = _t(w[i].T if is_linear else w[i])
+            sd[base + ".bias"] = _t(b[i])
+    sd["classifier.weight"] = _t(np.asarray(tree["classifier"]["kernel"]).T)
+    sd["classifier.bias"] = _t(tree["classifier"]["bias"])
     return sd
