@@ -9,12 +9,14 @@ result line):
   2. build: nvcc compiles the kernels from csrc/ (one process per source,
      in parallel; timed);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the main-path shapes and at a ragged small shape: the exact-FP32
-     ViT kernels in float64 (rtol 1e-9, atol 1e-12) and float32, the ViT
-     block megakernels and the BERT layer kernels (float32 only; BERT-base
-     at B=8, S=512 with each sample's mask cut at another length) in each
-     preset's product modes, all float32 results by the rule below against
-     the float64 plain version;
+     at the main-path shapes and at a ragged small shape: the ViT attention
+     kernels in float64 (rtol 1e-9, atol 1e-12) and float32, in exact FP32
+     and in the tensor-parallel presets' modes (at 12 and 6 heads), the
+     ViT block megakernels, the BERT layer kernels (float32 only; BERT-base
+     at B=8, S=512 with each sample's mask cut at another length) and the
+     tensor-parallel MLP kernels (ViT-B at B=8 with the shard widths of
+     k = 1, 2, 4) in each preset's product modes, all float32 results by
+     the rule below against the float64 plain version;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -28,15 +30,21 @@ result line):
      0.999 and, for ViT, min no lower than the plain float32 production
      path's min - 0.01, for BERT no more samples below 0.99 than the plain
      float32 production path + 1); the production paths' corr against the
-     exact float64 path is printed;
-  5. times: each kernel beside its plain version, and explanations/s at B=8
-     for the exact-FP32 and the production paths, kernels and plain (BERT
-     at S=512 and S=128).
+     exact float64 path is printed; then the tensor-parallel program
+     ``make_tp_explain_fn(VIT_BASE_16_224, ...)`` at k = 1 over a
+     single-rank NCCL process group, in float32 and production, on the
+     same batches by the ViT gates (its corr against the single-device
+     slice is printed);
+  5. times: each kernel beside its plain version and its bound, B4 beside
+     ``scaled_dot_product_attention``, and explanations/s at B=8 for the
+     exact-FP32 and the production paths, kernels and plain (BERT at S=512
+     and S=128; the tensor-parallel program at k = 1).
 
 It imports no JAX. The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it the card's name and power limit, and the one before that
-a JSON object with one entry per kernel.
+a JSON object with one entry per kernel (launches on the main paths, error,
+kernel, plain, bound and library times).
 """
 
 import json
@@ -61,6 +69,11 @@ MIN_CORR = 0.999
 PROD_MIN_SLACK = 0.01
 TAIL_CORR = 0.99
 TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
+# the card's published rates (NVIDIA H100 SXM data sheet, dense, at a 700 W
+# power limit): device memory, bf16 tensor cores, FP32 off the tensor cores
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -96,6 +109,7 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -119,6 +133,9 @@ def main() -> int:
     from transformer_explainability_torch.ops import block_math as bm
     from transformer_explainability_torch.ops import kernels as K
     from transformer_explainability_torch.ops import precision as prec
+    from transformer_explainability_torch.ops import relprop as rp
+    from transformer_explainability_torch.parallel import (
+        make_tp_explain_fn, shard_tp_params)
     import transformer_explainability_torch as te
     require(os.path.dirname(os.path.dirname(os.path.abspath(te.__file__)))
             == ROOT, f"imported the port from {te.__file__}, not from {ROOT}")
@@ -161,9 +178,11 @@ def main() -> int:
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers; the others spill nothing")
 
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 3. kernels against their plain versions --------------------------------
     cfg = VIT_BASE_16_224
     B, n, h, hd, L = 8, cfg.num_tokens, cfg.num_heads, cfg.head_dim, cfg.depth
+    vit_eps = cfg.block_ln_eps
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def randn(*shape, dtype, offset=0.0):
@@ -197,39 +216,43 @@ def main() -> int:
     }
     shapes = {"main": (B, n, h, hd), "ragged": (2, 29, 3, 8)}
     errs = {}
+
+    def check_f64_f32(name, kern, plain, args64, label, main, **modes):
+        """The kernel in float64 (rtol 1e-9 against the plain version) and
+        in float32 (the rule above), both from the same inputs."""
+        args32 = tuple(a.float() if torch.is_tensor(a) else a
+                       for a in args64)
+        before = kern.launches
+        k64, k32 = kern(*args64, **modes), kern(*args32, **modes)
+        torch.cuda.synchronize()
+        require(kern.launches == before + 2,
+                f"{name}: launch count did not rise")
+        p64, p32 = plain(*args64, **modes), plain(*args32, **modes)
+        outs = lambda x: x if isinstance(x, tuple) else (x,)
+        for i, (a64, a32, b64, b32) in enumerate(zip(
+                outs(k64), outs(k32), outs(p64), outs(p32))):
+            require(torch.isfinite(a32).all().item(),
+                    f"{name}[{i}] {label}: non-finite float32 output")
+            e64 = (a64 - b64).abs().max().item()
+            require(torch.allclose(a64, b64, rtol=F64_RTOL, atol=F64_ATOL),
+                    f"{name}[{i}] {label}: float64 kernel differs from "
+                    f"plain by {e64:.3e}")
+            ek = (a32.double() - b64).abs().max().item()
+            ep = (b32.double() - b64).abs().max().item()
+            lim = F32_FACTOR * ep + F32_FLOOR * b64.abs().max().item()
+            e32 = (a32 - b32).abs().max().item()
+            print(f"check {name}[{i}] {label}: f64 max|k-p|={e64:.3e}; "
+                  f"f32 max|k-p|={e32:.3e}, max|k32-p64|={ek:.3e} <= "
+                  f"{lim:.3e} (plain f32 {ep:.3e})")
+            require(ek <= lim, f"{name}[{i}] {label}: float32 kernel error "
+                    f"{ek:.3e} above {lim:.3e}")
+            if main:
+                errs[name] = max(errs.get(name, 0.0), e32)
+
     for name, (make, kern, plain) in cases.items():
         for sname, shp in shapes.items():
-            args64 = make(*shp, torch.float64)
-            args32 = tuple(a.float() if torch.is_tensor(a) else a
-                           for a in args64)
-            before = kern.launches
-            k64, k32 = kern(*args64), kern(*args32)
-            torch.cuda.synchronize()
-            require(kern.launches == before + 2,
-                    f"{name}: launch count did not rise")
-            p64, p32 = plain(*args64), plain(*args32)
-            outs = lambda x: x if isinstance(x, tuple) else (x,)
-            for i, (a64, a32, b64, b32) in enumerate(zip(
-                    outs(k64), outs(k32), outs(p64), outs(p32))):
-                require(torch.isfinite(a32).all().item(),
-                        f"{name}[{i}] {sname}: non-finite float32 output")
-                e64 = (a64 - b64).abs().max().item()
-                require(torch.allclose(a64, b64, rtol=F64_RTOL,
-                                       atol=F64_ATOL),
-                        f"{name}[{i}] {sname}: float64 kernel differs from "
-                        f"plain by {e64:.3e}")
-                ek = (a32.double() - b64).abs().max().item()
-                ep = (b32.double() - b64).abs().max().item()
-                lim = F32_FACTOR * ep + F32_FLOOR * b64.abs().max().item()
-                e32 = (a32 - b32).abs().max().item()
-                print(f"check {name}[{i}] {sname} {tuple(shp)}: f64 "
-                      f"max|k-p|={e64:.3e}; f32 max|k-p|={e32:.3e}, "
-                      f"max|k32-p64|={ek:.3e} <= {lim:.3e} "
-                      f"(plain f32 {ep:.3e})")
-                require(ek <= lim, f"{name}[{i}] {sname}: float32 kernel "
-                        f"error {ek:.3e} above {lim:.3e}")
-                if sname == "main":
-                    errs[name] = max(errs.get(name, 0.0), e32)
+            check_f64_f32(name, kern, plain, make(*shp, torch.float64),
+                          f"{sname} {tuple(shp)}", sname == "main")
 
     def f32_rule(name, k32, p32, p64):
         """float32 kernel vs plain float32, both against plain float64."""
@@ -415,6 +438,74 @@ def main() -> int:
     del cams, k64, k32, p64
     torch.cuda.empty_cache()
 
+    # the tensor-parallel path's kernels: B4 / B5 in the TP presets'
+    # attention and rule modes at h/k = 12 and 6 heads; B10a / B10b at
+    # ViT-B B=8 with the local MLP widths of k = 1, 2, 4 ("main" is k = 1)
+    # and at ragged widths (D=776, M/k=1000: no multiple of a tile), in the
+    # two presets' modes. Each shape is large: a product with bf16 operands
+    # that the kernel computes (LayerNorm and GELU outputs, divides) rounds
+    # a few of them to the neighbouring bf16 value where its float32 value
+    # differs from the float64 one by an ulp. Over a million operands the
+    # plain float32 version does so too and the rule below compares like
+    # with like; over a few ten thousand (D=24, M/k=40 on the card) one such
+    # rounding in the kernel alone fails it
+    tp_attn = {"production": ("float32", "bfloat16"),
+               "bfloat16": ("bfloat16", "bfloat16")}
+    for preset, (attn, rule) in tp_attn.items():
+        for sname, shp in (("h=12", (B, n, h, hd)),
+                           ("h=6", (B, n, h // 2, hd))):
+            label = f"{preset} {sname} {tuple(shp)}"
+            make, kern, plain = cases["attn_fwd_core"]
+            check_f64_f32("attn_fwd_core", kern, plain,
+                          make(*shp, torch.float64), label, False, mxu=attn)
+            make, kern, plain = cases["attn_rev_core"]
+            check_f64_f32("attn_rev_core", kern, plain,
+                          make(*shp, torch.float64), label, False,
+                          attn_mxu=attn, rule_mxu=rule)
+    # (weight preparation, MLP mode, rule mode) of the presets
+    tp_mlp = {"production": ("tensorfloat32", "bfloat16", "bfloat16"),
+              "bfloat16": ("bfloat16", "bfloat16", "bfloat16")}
+    D, M = cfg.embed_dim, cfg.mlp_dim
+    tp_shapes = {"main": (B, n, D, M), "k=2": (B, n, D, M // 2),
+                 "k=4": (B, n, D, M // 4), "ragged": (B, n, 776, 1000)}
+    tp_inputs = {}
+    for preset, (base, mlp, rule) in tp_mlp.items():
+        for sname, (b, nn_, dd, ml) in tp_shapes.items():
+            w1 = prec.prepare_weight(randn(ml, dd, dtype=torch.float64)
+                                     / dd ** 0.5, base)
+            w2 = prec.prepare_weight(randn(dd, ml, dtype=torch.float64)
+                                     / ml ** 0.5, base)
+            vecs = (1.0 + 0.1 * randn(dd, dtype=torch.float64),
+                    0.1 * randn(dd, dtype=torch.float64),
+                    0.1 * randn(ml, dtype=torch.float64))
+            x = randn(b, nn_, dd, dtype=torch.float64, offset=0.5)
+            a64 = (x, randn(b, nn_, dd, dtype=torch.float64), *vecs)
+            a32 = tuple(t.float() for t in a64)
+            shp = (b, nn_, dd, ml)
+            k32 = counted(K.mlp_rev_tp_phase1, *a32, w1, w2, vit_eps, mlp,
+                          rule)
+            p64 = K.mlp_rev_tp_phase1_plain(*a64, w1, w2, vit_eps, mlp, rule)
+            p32 = K.mlp_rev_tp_phase1_plain(*a32, w1, w2, vit_eps, mlp, rule)
+            check_all("mlp_rev_tp_phase1", preset, sname, shp, k32, p32, p64,
+                      ["fc1_pre", "fc2_pre", "axw2", "g_xn2"])
+            # phase 2 from the float64 phase 1's anchor, with the fc2
+            # rule's divide formed as the TP program forms it
+            Sr = rp.safe_divide(randn(b, nn_, dd, dtype=torch.float64),
+                                0.5 * (p64[1] + p64[2]))
+            b64 = (x, Sr, p64[0], *vecs)
+            b32 = tuple(t.float() for t in b64)
+            k32 = counted(K.mlp_rev_tp_phase2, *b32, w1, w2, vit_eps, rule)
+            q64 = K.mlp_rev_tp_phase2_plain(*b64, w1, w2, vit_eps, rule)
+            q32 = K.mlp_rev_tp_phase2_plain(*b32, w1, w2, vit_eps, rule)
+            check_all("mlp_rev_tp_phase2", preset, sname, shp, k32, q32, q64,
+                      ["num_w", "num_a"])
+            if preset == "production" and sname == "main":
+                tp_inputs = dict(a32=a32, b32=b32, w=(w1, w2), mlp=mlp,
+                                 rule=rule)
+            del w1, w2, vecs, x, a64, a32, b64, b32, k32, p64, p32, q64, q32
+    torch.cuda.empty_cache()
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 4. the slice ----------------------------------------------------------
     data = np.load(os.path.join(ROOT, "experiments/data/fidelity_truth.npz"))
     imgs_all, idx_all = data["imgs"], data["idx"].astype(np.int64)
@@ -619,6 +710,61 @@ def main() -> int:
             f"bert production: {k_tail} samples below {TAIL_CORR}, the plain "
             f"f32 path {p_tail}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    # the tensor-parallel ViT program at k = 1 over a single-rank NCCL group
+    # (its all-reduces run, trivially), explaining the same batches with
+    # the same weights, sharded once per preset
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    params64 = {k: v.double() for k, v in params.items()}
+    tp, tp_launches = {}, []
+    single = {"float32": heats, "production": heats_prod}
+    for label, kw in (("float32", {}), ("production", prod)):
+        mode = prec.mxu_name(kw.get("matmul_precision"))
+        sh32 = shard_tp_params(params, cfg, mode=mode)
+        sh64 = shard_tp_params(params64, cfg, mode=mode)
+        fn = make_tp_explain_fn(cfg, device="cuda", pre_sharded=True, **kw)
+        plain_fn = make_tp_explain_fn(cfg, device="cuda", pre_sharded=True,
+                                      ops=K.PLAIN_OPS, **kw)
+        per = {**none, "attn_fwd_core": L, "attn_rev_core": L,
+               "rollout_from_grad_cam": 1}
+        if label == "production":
+            per.update(mlp_rev_tp_phase1=L, mlp_rev_tp_phase2=L)
+        heats_tp, counts = drive(lambda im, ix: fn(sh32, im, ix), batches,
+                                 vit_shape, per, f"tp {label}")
+        tp_launches.append(counts)
+        c_k, c_p, c_single = [], [], []
+        for (imgs, idx), heat, heat_1 in zip(batches, heats_tp,
+                                             single[label]):
+            ref = plain_fn(sh64, imgs, idx)
+            c_k += corr(heat, ref)
+            c_p += corr(plain_fn(sh32, imgs, idx), ref)
+            c_single += corr(heat, heat_1.double())
+        c_k, c_p, c_single = map(np.asarray, (c_k, c_p, c_single))
+        print(f"tp {label} slice corr vs plain tp {label} f64 on the card: "
+              f"min {c_k.min():.6f} median {np.median(c_k):.6f} (plain f32 "
+              f"tp path: min {c_p.min():.6f} median {np.median(c_p):.6f}); "
+              f"per sample {fmt(c_k)}")
+        print(f"tp {label} slice corr vs the single-device {label} kernel "
+              f"path, not gated: min {c_single.min():.6f} median "
+              f"{np.median(c_single):.6f}; per sample {fmt(c_single)}")
+        if label == "float32":
+            require(c_k.min() >= MIN_CORR, f"tp float32 per-sample corr "
+                    f"{c_k.min():.6f} below {MIN_CORR}")
+        else:
+            require(np.median(c_k) >= MIN_CORR, f"tp production median corr"
+                    f" {np.median(c_k):.6f} below {MIN_CORR}")
+            require(c_k.min() >= c_p.min() - PROD_MIN_SLACK,
+                    f"tp production min corr {c_k.min():.6f} below the plain "
+                    f"f32 tp path's {c_p.min():.6f} - {PROD_MIN_SLACK}")
+        tp[label] = (fn, plain_fn, sh32)
+        del sh64
+    del params64
+    torch.cuda.empty_cache()
+
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 5. times ---------------------------------------------------------------
     times = {}
     for name, (make, kern, plain) in cases.items():
@@ -643,7 +789,28 @@ def main() -> int:
         print(f"time {name} {tuple(shapes['main'])} f32 production modes: "
               f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
               f"ms {tag}")
-    del block_inputs, bi
+    ti = tp_inputs
+    tp_args = {"mlp_rev_tp_phase1": (*ti["a32"], *ti["w"], vit_eps,
+                                     ti["mlp"], ti["rule"]),
+               "mlp_rev_tp_phase2": (*ti["b32"], *ti["w"], vit_eps,
+                                     ti["rule"])}
+    for name, args in tp_args.items():
+        times[name] = (time_ms(lambda: getattr(K, name)(*args)),
+                       time_ms(lambda: getattr(K, name + "_plain")(*args)))
+        print(f"time {name} {tp_shapes['main']} f32 production modes: "
+              f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
+              f"ms {tag}")
+    # the library yardstick of B4: one scaled_dot_product_attention call on
+    # the same q, k, v (timed only; the port never calls it)
+    qkv_main = cases["attn_fwd_core"][0](*shapes["main"], torch.float32)[0]
+    q_, k_, v_ = bm.split_heads(qkv_main, h, hd)
+    library = {name: None for name in K.launch_counts()}
+    library["attn_fwd_core"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, scale=hd ** -0.5))
+    print(f"time scaled_dot_product_attention {tuple(shapes['main'])} f32: "
+          f"{library['attn_fwd_core']:.4f} ms {tag}")
+    del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
 
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
     idx_t = torch.as_tensor(batches[0][1], device=dev)
@@ -683,6 +850,25 @@ def main() -> int:
           f"windows: kernel path {rp_kernel:.2f} / {rp_kernel2:.2f} expl/s, "
           f"plain path {rp_plain:.2f} expl/s, batch working memory "
           f"{peak_p:.3f} GiB {tag}")
+
+    def tp_rate(fn, sh, nb=20):
+        for _ in range(3):
+            fn(sh, imgs_t, idx_t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(nb):
+            fn(sh, imgs_t, idx_t)
+        torch.cuda.synchronize()
+        return nb * 8 / (time.perf_counter() - t)
+
+    for label, (fn, plain_fn, sh32) in tp.items():
+        r1, r0, r2 = (tp_rate(fn, sh32), tp_rate(plain_fn, sh32),
+                      tp_rate(fn, sh32))
+        print(f"e2e transformer_attribution ViT-B/16 tensor-parallel k=1 "
+              f"{label} B=8, 20-batch windows: kernel path {r1:.2f} / "
+              f"{r2:.2f} expl/s, plain path {r0:.2f} expl/s {tag}")
+    del tp
+    dist.destroy_process_group()
 
     bi = bert_inputs
     times["bert_layer_fwd_core"] = (
@@ -731,25 +917,89 @@ def main() -> int:
                   f"20-batch windows: kernel path {r1:.2f} / {r2:.2f} "
                   f"expl/s, plain path {r0:.2f} expl/s {tag}")
 
+    # bound_ms: the least time the card could take for each timed call's
+    # work, the larger of its bytes (each input read once, each output
+    # written once) over the memory rate and its products' operations over
+    # the peak rate of their type: bf16 products on the tensor cores, a
+    # bf16x3 product as three bf16 passes, float32 products off the tensor
+    # cores (elementwise work is not counted). Shapes as timed above.
+    def bound(nbytes, bf16=0, bf16x3=0, f32=0):
+        t_mem = nbytes / HBM_BYTES_S
+        t_ops = (bf16 + 3 * bf16x3) / BF16_FLOPS + f32 / FP32_FLOPS
+        return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
+                                          else "operations")
+
+    Dm, Mm, R = cfg.embed_dim, cfg.mlp_dim, B * n
+    att = B * h * n * n * hd        # half the FLOPs of one (n, n, hd) product
+    Sb, Ib = bert_shapes["main"][1], bcfg.intermediate_size
+    Rb, attb = 8 * Sb, 8 * h * Sb * Sb * hd
+    f4 = 4                              # bytes of a float32 activation
+    pair = 4 * 4 * Dm * Dm              # qkv + proj as bf16 (hi, lo) pairs
+    work = {
+        "attn_fwd_core": (f4 * 4 * R * Dm, dict(f32=4 * att)),
+        "attn_rev_core": (f4 * (11 * R * Dm + B * n * n), dict(f32=20 * att)),
+        "rollout_from_grad_cam": (f4 * (L + 1) * B * n * n,
+                                  dict(f32=2 * B * (L - 1) * n ** 3)),
+        "block_fwd_core": (
+            f4 * (9 * Dm + Mm) + pair + 2 * 2 * Mm * Dm
+            + f4 * (R * Dm + 8 * R * Dm + 2 * B * h * n * n + R * Mm),
+            dict(bf16x3=8 * R * Dm * Dm, f32=4 * att, bf16=4 * R * Dm * Mm)),
+        "block_rev_core": (
+            f4 * (9 * Dm + Mm) + pair + 2 * 2 * Mm * Dm
+            + f4 * (10 * R * Dm + 2 * B * h * n * n + R * Mm)
+            + f4 * (2 * R * Dm + B * n * n),
+            dict(bf16=16 * R * Dm * Mm + 24 * R * Dm * Dm + 8 * att,
+                 bf16x3=8 * R * Dm * Dm, f32=8 * att)),
+        "bert_layer_fwd_core": (
+            f4 * (9 * Dm + Ib + Rb * Dm + 8 * Sb) + pair + 2 * 2 * Ib * Dm
+            + f4 * 7 * Rb * Dm,
+            dict(bf16x3=8 * Rb * Dm * Dm, f32=4 * attb,
+                 bf16=4 * Rb * Dm * Ib)),
+        "bert_out_rev_core": (
+            f4 * (9 * Dm + Ib + 3 * Rb * Dm) + 2 * 2 * Ib * Dm
+            + f4 * 2 * Rb * Dm, dict(bf16=20 * Rb * Dm * Ib)),
+        "bert_attn_rev_core": (
+            f4 * (9 * Dm + Ib + 8 * Rb * Dm + 8 * Sb) + pair
+            + f4 * (2 * Rb * Dm + 8 * Sb * Sb),
+            dict(f32=10 * attb, bf16=8 * attb + 24 * Rb * Dm * Dm,
+                 bf16x3=8 * Rb * Dm * Dm)),
+        "mlp_rev_tp_phase1": (
+            f4 * (2 * Dm + Mm + 2 * R * Dm) + 2 * 2 * Mm * Dm
+            + f4 * (R * Mm + 3 * R * Dm), dict(bf16=10 * R * Dm * Mm)),
+        "mlp_rev_tp_phase2": (
+            f4 * (2 * Dm + Mm + 2 * R * Dm + R * Mm) + 2 * 2 * Mm * Dm
+            + f4 * 2 * R * Dm, dict(bf16=10 * R * Dm * Mm)),
+    }
+    bounds = {name: bound(nb, **ops) for name, (nb, ops) in work.items()}
     sources = {"attn_fwd_core": "attn_fwd.cu", "attn_rev_core": "attn_rev.cu",
                "rollout_from_grad_cam": "rollout.cu",
                "block_fwd_core": "block_fwd.cu",
                "block_rev_core": "block_rev.cu",
                "bert_layer_fwd_core": "bert_fwd.cu",
                "bert_out_rev_core": "bert_out_rev.cu",
-               "bert_attn_rev_core": "bert_attn_rev.cu"}
+               "bert_attn_rev_core": "bert_attn_rev.cu",
+               "mlp_rev_tp_phase1": "mlp_rev_tp.cu",
+               "mlp_rev_tp_phase2": "mlp_rev_tp.cu"}
     tpu_lines = {"attn_fwd_core": 391, "attn_rev_core": 415,
                  "rollout_from_grad_cam": 49, "block_fwd_core": 1378,
                  "block_rev_core": 1223, "bert_layer_fwd_core": 2335,
-                 "bert_out_rev_core": 2011, "bert_attn_rev_core": 2163}
-    slices = (launches, launches_prod, blaunches, blaunches_prod)
+                 "bert_out_rev_core": 2011, "bert_attn_rev_core": 2163,
+                 "mlp_rev_tp_phase1": 892, "mlp_rev_tp_phase2": 937}
+    for name in sources:
+        print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
+              f"kernel {times[name][0]:.4f} ms {tag}")
+    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    slices = (launches, launches_prod, blaunches, blaunches_prod,
+              *tp_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",
          "replaces": f"{TPU_KERNELS}:{tpu_lines[name]}",
          "launches": sum(c[name] for c in slices),
          "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library[name]}
         for name in sources]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,22 @@ on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
 
     python3 experiments/torch_profile_vit.py [--model vit|bert] [--seq 512]
                                              [--precision float32|production|bfloat16]
-                                             [--batches 4] [--out DIR]
+                                             [--tp] [--batches 4] [--out DIR]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
 the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
-padded to its own length, seeded.
+padded to its own length, seeded. ``--tp`` profiles the tensor-parallel
+ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
+single-rank NCCL process group instead of the single-device path.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
 device busy share (sum of kernel times over the wall time of the window;
-one stream, so kernels do not overlap), and the device time by group
-(cuBLAS/CUTLASS GEMMs, the port's own kernels, other PyTorch kernels) and by
-kernel name. Writes a Chrome trace per path under ``--out`` (default
+one stream, so kernels do not overlap), the kernels launched per batch and
+the collectives' calls and host time per batch, and the device time by
+group (cuBLAS/CUTLASS GEMMs, the port's own kernels, NCCL, other PyTorch
+kernels) and by kernel name. Writes a Chrome trace per path under ``--out`` (default
 ``build/profiles``, git-ignored). Random weights
 from a seeded generator; needs no JAX.
 """
@@ -41,6 +44,8 @@ def group(name: str) -> str:
                                            "blk_", "gemm_", "ln_", "add_",
                                            "bert_", "bias_add", "mask_")):
         return "port kernels"
+    if "nccl" in low:
+        return "NCCL collectives"
     if "gemm" in low or "cutlass" in low or "sm90_xmma" in low:
         return "GEMM (cuBLAS)"
     return "other PyTorch kernels"
@@ -61,41 +66,82 @@ def profile(fn, batches: int, trace: str):
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace)
     by_name, by_group = defaultdict(float), defaultdict(float)
+    host = defaultdict(float)
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            # host side: the collectives' calls and their CPU time
+            if "allreduce" in evt.key.lower():
+                host["all_reduce calls"] += evt.count / batches
+                host["all_reduce host ms"] += (evt.cpu_time_total / 1e3
+                                               / batches)
+            continue
         # kernel events only: the CPU-side aten ops also carry the device
         # time of the kernels they launched
-        if evt.device_type != DeviceType.CUDA:
-            continue
         dt = evt.self_device_time_total
         by_name[evt.key] += dt
         by_group[group(evt.key)] += dt
-    return wall, by_name, by_group
+        host["kernels launched"] += evt.count / batches
+    return wall, by_name, by_group, host
 
 
-def vit_case(dev):
-    """(explain_batch, model, inputs) of ViT-B/16 at B=8."""
+def vit_case(dev, prec):
+    """(label, explain) of ViT-B/16 at B=8, kernel and plain paths."""
     from transformer_explainability_torch.explain.generator import (
         explain_batch)
     from transformer_explainability_torch.models.vit import (
         VIT_BASE_16_224 as cfg, VisionTransformer, init_params)
+    from transformer_explainability_torch.ops import kernels as K
     params = init_params(cfg, generator=torch.Generator(device=dev)
                          .manual_seed(0), device=dev)
     model = VisionTransformer(cfg, device=dev)
     model.load_state_dict(params)
     model.requires_grad_(False)
+    imgs, idx = vit_inputs(dev)
+    return [(label, lambda ops=ops: explain_batch(model, imgs, idx, ops=ops,
+                                                  **prec))
+            for label, ops in (("kernel", K.KERNEL_OPS),
+                               ("plain", K.PLAIN_OPS))]
+
+
+def vit_inputs(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     imgs = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
-    idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
-    return explain_batch, model, (imgs, idx)
+    return imgs, torch.full((8,), -1, dtype=torch.int64, device=dev)
 
 
-def bert_case(dev, S):
-    """(explain_batch, model, inputs) of BERT-base at B=8, length S, each
-    sample padded to its own length."""
+def tp_case(dev, prec):
+    """(label, explain) of the tensor-parallel ViT-B/16 program at B=8 and
+    k = 1 over a single-rank NCCL group (initialised here)."""
+    import torch.distributed as dist
+    from transformer_explainability_torch.models.vit import (
+        VIT_BASE_16_224 as cfg, init_params)
+    from transformer_explainability_torch.ops import kernels as K
+    from transformer_explainability_torch.ops.precision import mxu_name
+    from transformer_explainability_torch.parallel import (
+        make_tp_explain_fn, shard_tp_params)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    params = init_params(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(0), device=dev)
+    sh = shard_tp_params(params, cfg, mode=mxu_name(
+        prec.get("matmul_precision")))
+    imgs, idx = vit_inputs(dev)
+    out = []
+    for label, ops in (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS)):
+        fn = make_tp_explain_fn(cfg, pre_sharded=True, ops=ops, **prec)
+        out.append((label, lambda fn=fn: fn(sh, imgs, idx)))
+    return out
+
+
+def bert_case(dev, S, prec):
+    """(label, explain) of BERT-base at B=8, length S, each sample padded
+    to its own length, kernel and plain paths."""
     from transformer_explainability_torch.explain.bert_generator import (
         explain_batch)
     from transformer_explainability_torch.models.bert import (
         BERT_BASE_UNCASED as cfg, BertForSequenceClassification, init_params)
+    from transformer_explainability_torch.ops import kernels as K
     params = init_params(cfg, generator=torch.Generator(device=dev)
                          .manual_seed(0), device=dev)
     model = BertForSequenceClassification(cfg, device=dev)
@@ -108,7 +154,10 @@ def bert_case(dev, S):
     ids = torch.randint(1000, cfg.vocab_size, (8, S), generator=gen,
                         device=dev) * mask.long()
     idx = torch.full((8,), -1, dtype=torch.int64, device=dev)
-    return explain_batch, model, (ids, mask, idx)
+    return [(label, lambda ops=ops: explain_batch(model, ids, mask, idx,
+                                                  ops=ops, **prec))
+            for label, ops in (("kernel", K.BERT_KERNEL_OPS),
+                               ("plain", K.BERT_PLAIN_OPS))]
 
 
 def main():
@@ -117,6 +166,7 @@ def main():
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "production", "bfloat16"])
+    ap.add_argument("--tp", action="store_true")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
     args = ap.parse_args()
@@ -126,37 +176,38 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from transformer_explainability_torch.explain.generator import (
         precision_kwargs)
-    from transformer_explainability_torch.ops import kernels as K
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    if args.model == "vit":
-        explain, model, inputs = vit_case(dev)
-        tables = (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS))
-        what = "vit"
-    else:
-        explain, model, inputs = bert_case(dev, args.seq)
-        tables = (("kernel", K.BERT_KERNEL_OPS), ("plain", K.BERT_PLAIN_OPS))
-        what = f"bert_s{args.seq}"
-    os.makedirs(args.out, exist_ok=True)
     prec = precision_kwargs(args.precision)
-    for label, ops in tables:
-        wall, by_name, by_group = profile(
-            lambda: explain(model, *inputs, ops=ops, **prec),
-            args.batches, os.path.join(
+    if args.model == "bert":
+        paths, what = bert_case(dev, args.seq, prec), f"bert_s{args.seq}"
+    elif args.tp:
+        paths, what = tp_case(dev, prec), "vit_tp1"
+    else:
+        paths, what = vit_case(dev, prec), "vit"
+    os.makedirs(args.out, exist_ok=True)
+    for label, explain in paths:
+        wall, by_name, by_group, host = profile(
+            explain, args.batches, os.path.join(
                 args.out, f"trace_{what}_{args.precision}_{label}.json"))
         busy = sum(by_name.values()) / 1e6
         per = wall / args.batches
         print(f"[{card}] {what} {args.precision} {label} path: "
               f"{per * 1e3:.2f} ms/batch of 8 under "
               f"the profiler, device busy {busy / wall:.1%}")
+        print("  per batch: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in sorted(host.items())))
         for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
             print(f"  {g:24s} {us / 1e3 / args.batches:9.3f} ms/batch "
                   f"({us / 1e6 / busy:.1%} of device time)")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
             print(f"    {us / 1e3 / args.batches:9.3f} ms  {name[:100]}")
+    if args.tp:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ as plain C++ with g++ (threads for CUDA threads, barriers for
 host launchers the wrappers call, through ``ctypes``, on CPU tensors. Each
 kernel is held to its plain PyTorch version: float64 at rtol 1e-9 /
 atol 1e-12, float32 (forward only; the reverse's safe-divide chains make
-float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels and the
-BERT layer kernels (float32 only) are held to their plain versions in
-float64 by the rule of ``chip_smoke.py``: the kernel's distance to the
+float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels, the
+BERT layer kernels and the tensor-parallel MLP kernels (float32 only), and
+the float32 attention kernels in their bf16 modes, are held to their plain
+versions in float64 by the rule of ``chip_smoke.py``: the kernel's distance to the
 float64 plain result is at most 10 × the plain float32 version's plus 1e-6
 of the output's magnitude. This checks the kernels' indexing, tiling,
 masking of ragged edges and padded attention masks, and reductions; timing,
@@ -30,6 +31,7 @@ from transformer_explainability_torch.ops import bert_math as bmath
 from transformer_explainability_torch.ops import block_math as bm
 from transformer_explainability_torch.ops import kernels as K
 from transformer_explainability_torch.ops import precision as P
+from transformer_explainability_torch.ops import relprop as rp
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emulator")
 
@@ -289,4 +291,96 @@ def test_bert_attn_rev_kernel_matches_plain(lib, shape, preset):
     want64 = bmath.bert_attn_rev_core_plain(*a64, p64, *args, saved=s64)
     want32 = bmath.bert_attn_rev_core_plain(*a32, p32, *args, saved=s32)
     for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
+        _f32_rule(k, p, q, name)
+
+
+# ---------------------------------------------------------------------------
+# B4 / B5 in the product modes of the tensor-parallel presets
+# ---------------------------------------------------------------------------
+
+# (attn_mxu, rule_mxu) of the presets where they differ from exact FP32
+ATTN_MODES = {"production": ("float32", "bfloat16"),
+              "bfloat16": ("bfloat16", "bfloat16")}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attn_fwd_kernel_bf16_matches_plain(lib, shape):
+    """float64 at rtol 1e-9 (both round the same operands to bf16), and
+    float32 by the rule above."""
+    b, n, h, d = shape
+    qkv = _randn(40, b, n, 3 * h * d)
+    flag = K._ATTN_BF16["bfloat16"]
+    got = K._launch_attn_fwd(lib, qkv, h, d, d ** -0.5, None, flag)
+    want = K.attn_fwd_core_plain(qkv, h, d, d ** -0.5, "bfloat16")
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+    got32 = K._launch_attn_fwd(lib, qkv.float(), h, d, d ** -0.5, None, flag)
+    _f32_rule(got32, K.attn_fwd_core_plain(qkv.float(), h, d, d ** -0.5,
+                                           "bfloat16"), want, "out")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("preset", sorted(ATTN_MODES))
+def test_attn_rev_kernel_modes_match_plain(lib, shape, preset):
+    b, n, h, d = shape
+    attn, rule = ATTN_MODES[preset]
+    qkv = _randn(41, b, n, 3 * h * d) + 1.0
+    g_o, cam_o = _randn(42, b, n, h * d), _randn(43, b, n, h * d)
+    flags = (K._ATTN_BF16[attn], K._ATTN_BF16[rule])
+    got = K._launch_attn_rev(lib, qkv, g_o, cam_o, h, d, d ** -0.5, None,
+                             *flags)
+    want = K.attn_rev_core_plain(qkv, g_o, cam_o, h, d, d ** -0.5, attn, rule)
+    args32 = tuple(t.float() for t in (qkv, g_o, cam_o))
+    got32 = K._launch_attn_rev(lib, *args32, h, d, d ** -0.5, None, *flags)
+    want32 = K.attn_rev_core_plain(*args32, h, d, d ** -0.5, attn, rule)
+    for g, g32, w, w32, name in zip(got, got32, want, want32,
+                                    ["g_qkv", "cam_qkv", "gc"]):
+        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12, msg=name)
+        _f32_rule(g32, w32, w, name)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel MLP reverse B10a / B10b (float32 kernels against float64
+# plain versions), at one shard's widths
+# ---------------------------------------------------------------------------
+
+TP_SHAPES = [(2, 13, 16, 24), (1, 37, 24, 40)]     # (B, n, D, M/k)
+
+
+@pytest.mark.parametrize("shape", TP_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_mlp_rev_tp_kernels_match_plain(lib, shape, preset):
+    b, n, D, Ml = shape
+    base, _, rule, mlp = PRESETS[preset]
+    mlp = mlp or base
+    rng = np.random.RandomState(50)
+    w1, w2 = (P.prepare_weight(torch.from_numpy(rng.randn(o, i) / np.sqrt(i)),
+                               base) for o, i in ((Ml, D), (D, Ml)))
+    vecs64 = [torch.from_numpy(c + 0.1 * rng.randn(k))
+              for c, k in ((1.0, D), (0.0, D), (0.0, Ml))]
+    x64 = torch.from_numpy(rng.randn(b, n, D) + 0.5)
+    g64 = torch.from_numpy(rng.randn(b, n, D))
+    vecs32 = [v.float() for v in vecs64]
+    flags = K._tp_modes("mlp_rev_tp_phase1", x64.float(), (w1, w2), mlp=mlp,
+                        rule=rule)
+    got = K._launch_mlp_rev_tp1(lib, x64.float(), g64.float(), *vecs32, w1,
+                                w2, EPS, flags, None)
+    want64 = K.mlp_rev_tp_phase1_plain(x64, g64, *vecs64, w1, w2, EPS, mlp,
+                                       rule)
+    want32 = K.mlp_rev_tp_phase1_plain(x64.float(), g64.float(), *vecs32, w1,
+                                       w2, EPS, mlp, rule)
+    for k, p, q, name in zip(got, want32, want64,
+                             ["fc1_pre", "fc2_pre", "axw2", "g_xn2"]):
+        assert k.shape == q.shape, name
+        _f32_rule(k, p, q, name)
+    # phase 2 from the float64 phase 1's anchor and a divide Sr formed as
+    # the TP program forms it
+    R2 = torch.from_numpy(rng.randn(b, n, D))
+    Sr = rp.safe_divide(R2, 0.5 * (want64[1] + want64[2]))
+    a64 = (x64, Sr, want64[0])
+    a32 = tuple(t.float() for t in a64)
+    got = K._launch_mlp_rev_tp2(lib, *a32, *vecs32, w1, w2, EPS,
+                                {"rule": flags["rule"]}, None)
+    want64 = K.mlp_rev_tp_phase2_plain(*a64, *vecs64, w1, w2, EPS, rule)
+    want32 = K.mlp_rev_tp_phase2_plain(*a32, *vecs32, w1, w2, EPS, rule)
+    for k, p, q, name in zip(got, want32, want64, ["num_w", "num_a"]):
         _f32_rule(k, p, q, name)

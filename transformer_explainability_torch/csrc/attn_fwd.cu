@@ -18,11 +18,14 @@
 // device memory. K and V rows are padded to hd+1 so that lanes walking
 // different keys hit different banks. Tensor cores (wgmma) and TMA are later
 // work.
+//
+// Modes (the JAX kernel's mxu): float32 products, or bf16 (RA): q, k, v and
+// the softmax row rounded to bf16 as the products take them, float32 sums.
 #include "common.cuh"
 
 namespace te {
 
-template <typename T>
+template <typename T, bool RA>
 __global__ void attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                                 int n, int H, int hd, T scale,
                                 int rows_per_block) {
@@ -41,8 +44,8 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
 
   for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
     const int j = idx / hd, d = idx - j * hd;
-    Ks[j * ldk + d] = base[(size_t)j * ld + D + h * hd + d];
-    Vs[j * ldk + d] = base[(size_t)j * ld + 2 * D + h * hd + d];
+    Ks[j * ldk + d] = rnd<RA>(base[(size_t)j * ld + D + h * hd + d]);
+    Vs[j * ldk + d] = rnd<RA>(base[(size_t)j * ld + 2 * D + h * hd + d]);
   }
   __syncthreads();
 
@@ -50,7 +53,7 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   const int row_end = row0 + rows_per_block < n ? row0 + rows_per_block : n;
   for (int i = row0 + warp; i < row_end; i += nwarps) {
     const T* qrow = base + (size_t)i * ld + h * hd;
-    for (int d = lane; d < hd; d += kWarp) qw[d] = qrow[d];
+    for (int d = lane; d < hd; d += kWarp) qw[d] = rnd<RA>(qrow[d]);
     __syncwarp();
 
     T m = -INFINITY;
@@ -70,7 +73,7 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < n; j += kWarp) pw[j] = pw[j] / sum;
+    for (int j = lane; j < n; j += kWarp) pw[j] = rnd<RA>(pw[j] / sum);
     __syncwarp();
 
     T* orow = out + ((size_t)b * n + i) * D + h * hd;
@@ -83,7 +86,7 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
-template <typename T>
+template <typename T, bool RA>
 int attn_fwd_launch(const T* qkv, T* out, int B, int n, int H, int hd,
                     double scale, cudaStream_t stream) {
   const int limit = max_smem_optin();
@@ -94,29 +97,28 @@ int attn_fwd_launch(const T* qkv, T* out, int B, int n, int H, int hd,
     if (smem <= (size_t)limit) break;
   }
   if (warps < 1) return (int)cudaErrorInvalidValue;
+  auto kern = attn_fwd_kernel<T, RA>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = 4 * warps;
   dim3 grid((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(attn_fwd_kernel<T>, grid, warps * kWarp, smem, stream)(
-      qkv, out, n, H, hd, (T)scale, rows);
+  TE_LAUNCH(kern, grid, warps * kWarp, smem, stream)(qkv, out, n, H, hd,
+                                                     (T)scale, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace te
 
-extern "C" int te_attn_fwd_f32(const void* qkv, void* out, int B, int n,
-                               int H, int hd, double scale, void* stream) {
-  return te::attn_fwd_launch<float>(static_cast<const float*>(qkv),
-                                    static_cast<float*>(out), B, n, H, hd,
-                                    scale, static_cast<cudaStream_t>(stream));
-}
+// Plain C entry points. attn_bf16: 1 = bf16 product operands, 0 = exact.
+#define TE_ATTN_FWD_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const void* qkv, void* out, int B, int n, int H,       \
+                      int hd, double scale, int attn_bf16, void* stream) {   \
+    const auto launch = attn_bf16 ? te::attn_fwd_launch<T, true>             \
+                                  : te::attn_fwd_launch<T, false>;           \
+    return launch(static_cast<const T*>(qkv), static_cast<T*>(out), B, n, H, \
+                  hd, scale, static_cast<cudaStream_t>(stream));             \
+  }
 
-extern "C" int te_attn_fwd_f64(const void* qkv, void* out, int B, int n,
-                               int H, int hd, double scale, void* stream) {
-  return te::attn_fwd_launch<double>(static_cast<const double*>(qkv),
-                                     static_cast<double*>(out), B, n, H, hd,
-                                     scale, static_cast<cudaStream_t>(stream));
-}
+TE_ATTN_FWD_ENTRY(te_attn_fwd_f32, float)
+TE_ATTN_FWD_ENTRY(te_attn_fwd_f64, double)

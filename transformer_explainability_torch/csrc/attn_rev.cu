@@ -36,11 +36,16 @@
 // The scratch round trip is the price of the split; keeping tiles of P, G
 // and S2 on chip across passes (clusters / distributed shared memory) is
 // later work, as are tensor cores.
+//
+// Modes (the JAX kernel's attn_mxu and rule_mxu): each of the ten products
+// takes its operands unrounded (float32 mode) or rounded to bf16 (RA for
+// the forward recompute and the gradient products, RR for the four z-rule
+// products), with sums in T.
 #include "common.cuh"
 
 namespace te {
 
-template <typename T>
+template <typename T, bool RA, bool RR>
 __global__ void attn_rev_rows_kernel(
     const T* __restrict__ qkv, const T* __restrict__ g_o,
     const T* __restrict__ cam_o, T* __restrict__ g_qkv,
@@ -90,7 +95,8 @@ __global__ void attn_rev_rows_kernel(
     for (int j = lane; j < n; j += kWarp) {
       const T* kr = Ks + j * ldk;
       T s = T(0);
-      for (int d = 0; d < hd; ++d) s = fma(qw[d], kr[d], s);
+      for (int d = 0; d < hd; ++d)
+        s = fma(rnd<RA>(qw[d]), rnd<RA>(kr[d]), s);
       ra[j] = s;
       const T x = s * scale;
       m = x > m ? x : m;
@@ -109,7 +115,8 @@ __global__ void attn_rev_rows_kernel(
     // out_i = attn_i V, then S1 = safe_divide(cam_o, out)
     for (int d = lane; d < hd; d += kWarp) {
       T o = T(0);
-      for (int j = 0; j < n; ++j) o = fma(rb[j], Vs[j * ldk + d], o);
+      for (int j = 0; j < n; ++j)
+        o = fma(rnd<RA>(rb[j]), rnd<RA>(Vs[j * ldk + d]), o);
       const T s1 = safe_divide(cam_o[row_md + d], o);
       sw[d] = s1;
       S1g[(bh * n + i) * hd + d] = s1;
@@ -122,8 +129,8 @@ __global__ void attn_rev_rows_kernel(
       const T* vr = Vs + j * ldk;
       T ga = T(0), t = T(0);
       for (int d = 0; d < hd; ++d) {
-        ga = fma(gw[d], vr[d], ga);
-        t = fma(sw[d], vr[d], t);
+        ga = fma(rnd<RA>(gw[d]), rnd<RA>(vr[d]), ga);
+        t = fma(rnd<RR>(sw[d]), rnd<RR>(vr[d]), t);
       }
       const T a = rb[j];
       inner = fma(ga, a, inner);
@@ -150,8 +157,8 @@ __global__ void attn_rev_rows_kernel(
       T gq = T(0), cq = T(0);
       for (int j = 0; j < n; ++j) {
         const T kv = Ks[j * ldk + d];
-        gq = fma(rc[j], kv, gq);
-        cq = fma(ra[j], kv, cq);
+        gq = fma(rnd<RA>(rc[j]), rnd<RA>(kv), gq);
+        cq = fma(rnd<RR>(ra[j]), rnd<RR>(kv), cq);
       }
       g_qkv[row_q + d] = gq;
       cam_qkv[row_q + d] = qw[d] * cq * half;
@@ -167,7 +174,7 @@ constexpr int kMaxDPerThread = 8;
 constexpr int kMaxHeadDim = kDGroups * kMaxDPerThread;   // 64
 constexpr int kColThreads = kColTile * kDGroups;         // 256
 
-template <typename T>
+template <typename T, bool RA, bool RR>
 __global__ void attn_rev_cols_kernel(
     const T* __restrict__ qkv, const T* __restrict__ g_o,
     const T* __restrict__ P, const T* __restrict__ G,
@@ -223,10 +230,10 @@ __global__ void attn_rev_cols_kernel(
         const int d = dg + kDGroups * k;
         if (d < hd) {
           const T qv = qs[il * hd + d];
-          agv[k] = fma(p, gos[il * hd + d], agv[k]);
-          acv[k] = fma(p, s1s[il * hd + d], acv[k]);
-          agk[k] = fma(g, qv, agk[k]);
-          ack[k] = fma(s, qv, ack[k]);
+          agv[k] = fma(rnd<RA>(p), rnd<RA>(gos[il * hd + d]), agv[k]);
+          acv[k] = fma(rnd<RR>(p), rnd<RR>(s1s[il * hd + d]), acv[k]);
+          agk[k] = fma(rnd<RA>(g), rnd<RA>(qv), agk[k]);
+          ack[k] = fma(rnd<RR>(s), rnd<RR>(qv), ack[k]);
         }
       }
     }
@@ -260,7 +267,7 @@ __global__ void head_mean_kernel(const T* __restrict__ GCP, T* __restrict__ gc,
   gc[idx] = s / T(H);
 }
 
-template <typename T>
+template <typename T, bool RA, bool RR>
 int attn_rev_launch(const T* qkv, const T* g_o, const T* cam_o, T* g_qkv,
                     T* cam_qkv, T* gc, T* P, T* G, T* S2, T* GCP, T* S1,
                     int B, int n, int H, int hd, double scale,
@@ -276,27 +283,25 @@ int attn_rev_launch(const T* qkv, const T* g_o, const T* cam_o, T* g_qkv,
     if (smem_rows <= (size_t)limit) break;
   }
   if (warps < 1) return (int)cudaErrorInvalidValue;
+  auto rows_kern = attn_rev_rows_kernel<T, RA, RR>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_rev_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_rows);
+      rows_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_rows);
   if (err != cudaSuccess) return (int)err;
   const int rows = 4 * warps;
   dim3 grid_rows((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(attn_rev_rows_kernel<T>, grid_rows, warps * kWarp, smem_rows,
-            stream)(qkv, g_o, cam_o, g_qkv, cam_qkv, P, G, S2, GCP, S1, n, H,
+  TE_LAUNCH(rows_kern, grid_rows, warps * kWarp, smem_rows, stream)(qkv, g_o, cam_o, g_qkv, cam_qkv, P, G, S2, GCP, S1, n, H,
                     hd, (T)scale, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem_cols =
       sizeof(T) * ((size_t)3 * kRowTile * kColTile + (size_t)3 * kRowTile * hd);
-  err = cudaFuncSetAttribute(attn_rev_cols_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_cols);
+  auto cols_kern = attn_rev_cols_kernel<T, RA, RR>;
+  err = cudaFuncSetAttribute(
+      cols_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_cols);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_cols((n + kColTile - 1) / kColTile, H, B);
-  TE_LAUNCH(attn_rev_cols_kernel<T>, grid_cols, kColThreads, smem_cols,
-            stream)(qkv, g_o, P, G, S2, S1, g_qkv, cam_qkv, n, H, hd);
+  TE_LAUNCH(cols_kern, grid_cols, kColThreads, smem_cols, stream)(qkv, g_o, P, G, S2, S1, g_qkv, cam_qkv, n, H, hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -309,12 +314,20 @@ int attn_rev_launch(const T* qkv, const T* g_o, const T* cam_o, T* g_qkv,
 
 }  // namespace te
 
+// Plain C entry points. attn_bf16 (the recompute and gradient products) and
+// rule_bf16 (the z-rule products): 1 = bf16 operands, 0 = exact.
 #define TE_ATTN_REV_ENTRY(NAME, T)                                            \
   extern "C" int NAME(const void* qkv, const void* g_o, const void* cam_o,    \
                       void* g_qkv, void* cam_qkv, void* gc, void* P, void* G, \
                       void* S2, void* GCP, void* S1, int B, int n, int H,     \
-                      int hd, double scale, void* stream) {                   \
-    return te::attn_rev_launch<T>(                                            \
+                      int hd, double scale, int attn_bf16, int rule_bf16,     \
+                      void* stream) {                                         \
+    const auto launch =                                                       \
+        attn_bf16 ? (rule_bf16 ? te::attn_rev_launch<T, true, true>           \
+                               : te::attn_rev_launch<T, true, false>)         \
+                  : (rule_bf16 ? te::attn_rev_launch<T, false, true>          \
+                               : te::attn_rev_launch<T, false, false>);       \
+    return launch(                                                            \
         static_cast<const T*>(qkv), static_cast<const T*>(g_o),               \
         static_cast<const T*>(cam_o), static_cast<T*>(g_qkv),                 \
         static_cast<T*>(cam_qkv), static_cast<T*>(gc), static_cast<T*>(P),    \

@@ -82,6 +82,13 @@ __device__ __forceinline__ float bf2f(uint16_t u) {
 // x rounded to bf16 and back (the operand of a one-pass bf16 product)
 __device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
 
+// an operand as a product of precision R takes it: bf16 (R) or unrounded;
+// a double rounds through float, as ops/precision.py's kdot does
+template <bool R, typename T>
+__device__ __forceinline__ T rnd(T x) {
+  return R ? T(round_bf16(float(x))) : x;
+}
+
 // Arithmetic the compiler may not contract into an FMA: the anchors that a
 // forward and a reverse kernel both form (LayerNorm outputs, GELU) must come
 // out bitwise equal in both.

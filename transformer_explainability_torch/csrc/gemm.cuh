@@ -282,10 +282,6 @@ int gemm(int mode, const GemmArgs& g, const Epi& epi, cudaStream_t stream) {
 constexpr float kSqrt2 = 1.41421356237309504880f;
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 
-// an operand as a product of precision R takes it: bf16 (R) or float32
-template <bool R>
-__device__ __forceinline__ float rnd(float x) { return R ? round_bf16(x) : x; }
-
 // JAX _gelu_exact with erff
 __device__ __forceinline__ float gelu(float x) {
   return mul_rn(x, mul_rn(0.5f, add_rn(1.0f, erff(x / kSqrt2))));

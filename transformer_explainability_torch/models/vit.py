@@ -257,13 +257,21 @@ def embed(model: VisionTransformer, img: Tensor) -> Tuple[Tensor, Tensor]:
     """Patchify-matmul embedding + CLS concat (JAX ``vit.embed``); returns
     ``(cat_x, x0)``. The patch product runs in the parameters' dtype at full
     precision (no TF32)."""
-    cfg = model.cfg
     pe = model.patch_embed.proj
+    return embed_tokens(model.cfg, pe.weight, pe.bias, model.cls_token,
+                        model.pos_embed, img)
+
+
+def embed_tokens(cfg: ViTConfig, patch_weight: Tensor, patch_bias: Tensor,
+                 cls_token: Tensor, pos_embed: Tensor,
+                 img: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`embed` from the tensors themselves (the conv weight
+    ``(D, C, P, P)``, its bias, the CLS token and the position embedding)."""
     patches = rp.patchify(img, cfg.patch_size)
-    tok = patches @ pe.weight.reshape(cfg.embed_dim, -1).t() + pe.bias
-    cls = model.cls_token.expand(img.shape[0], -1, -1)
+    tok = patches @ patch_weight.reshape(cfg.embed_dim, -1).t() + patch_bias
+    cls = cls_token.expand(img.shape[0], -1, -1)
     cat_x = torch.cat([cls, tok], dim=1)
-    return cat_x, cat_x + model.pos_embed
+    return cat_x, cat_x + pos_embed
 
 
 def megakernel_base(matmul_precision: str) -> bool:

@@ -108,10 +108,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for dt in ("f32", "f64"):
         fwd = getattr(lib, f"te_attn_fwd_{dt}")
-        fwd.argtypes = [P, P, I, I, I, I, F, P]
+        fwd.argtypes = [P, P, I, I, I, I, F, I, P]
         fwd.restype = I
         rev = getattr(lib, f"te_attn_rev_{dt}")
-        rev.argtypes = [P] * 11 + [I, I, I, I, F, P]
+        rev.argtypes = [P] * 11 + [I, I, I, I, F, I, I, P]
         rev.restype = I
         roll = getattr(lib, f"te_rollout_{dt}")
         roll.argtypes = [P, P, P, P, I, I, I, I, I, P]
@@ -126,6 +126,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.te_bert_out_rev_f32.restype = I
     lib.te_bert_attn_rev_f32.argtypes = [P] * 28 + [I] * 4 + [F] + [I] * 4 + [P]
     lib.te_bert_attn_rev_f32.restype = I
+    lib.te_mlp_rev_tp1_f32.argtypes = [P] * 15 + [I] * 3 + [F, I, I, P]
+    lib.te_mlp_rev_tp1_f32.restype = I
+    lib.te_mlp_rev_tp2_f32.argtypes = [P] * 14 + [I] * 3 + [F, I, P]
+    lib.te_mlp_rev_tp2_f32.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib

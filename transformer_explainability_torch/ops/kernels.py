@@ -14,13 +14,18 @@ Port of the Pallas kernels on the ViT ``transformer_attribution`` path of
   ``bert_layer_fwd_core``       ``bert_layer_fwd_core``     ``csrc/bert_fwd.cu``
   ``bert_out_rev_core``         ``bert_out_rev_core``       ``csrc/bert_out_rev.cu``
   ``bert_attn_rev_core``        ``bert_attn_rev_core``      ``csrc/bert_attn_rev.cu``
+  ``mlp_rev_tp_phase1``         ``mlp_rev_tp_phase1``       ``csrc/mlp_rev_tp.cu``
+  ``mlp_rev_tp_phase2``         ``mlp_rev_tp_phase2``       ``csrc/mlp_rev_tp.cu``
   ============================  ==========================  ===================
 
 The first three carry the exact-FP32 ViT path; the block megakernels the
 ``bfloat16`` / ``tensorfloat32`` presets (their plain versions are in
 :mod:`.block_math`, their GEMM core is ``csrc/gemm.cuh``); the BERT layer
 kernels the BERT presets (plain versions in :mod:`.bert_math`, same GEMM
-core). The rollout serves both models.
+core). The rollout serves both models. The tensor-parallel explain program
+(:mod:`..parallel.tensor`) runs ``attn_fwd_core`` / ``attn_rev_core`` on
+each rank's heads, in the product modes of its preset, and the two TP MLP
+phases (plain versions in :mod:`.tp_math`, same GEMM core).
 
 Each wrapper checks device, dtype (float32 or float64; the block kernels
 take float32 on the card), shape and contiguity, and raises on anything its kernel does not take. For a CPU
@@ -46,8 +51,11 @@ from transformer_explainability_torch.ops.bert_math import (
     BertLayerParams, bert_attn_rev_core_plain, bert_layer_fwd_core_plain,
     bert_out_rev_core_plain)
 from transformer_explainability_torch.ops.block_math import (
-    BlockParams, block_fwd_core_plain, block_rev_core_plain, merge3,
+    BlockParams, attn_rev_math, block_fwd_core_plain, block_rev_core_plain,
     merge_heads, split_heads)
+from transformer_explainability_torch.ops.precision import kdot
+from transformer_explainability_torch.ops.tp_math import (
+    mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain)
 
 Tensor = torch.Tensor
 
@@ -56,42 +64,27 @@ MAX_HEAD_DIM = 64        # attn_rev's column pass keeps ≤ 8 columns a thread
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (JAX: _attn_fwd_core_jnp, _attn_rev_core_jnp and the jnp
-# branch of rollout_from_grad_cam)
+# Plain versions (JAX: the attention kernels' bodies with their product
+# modes, whose float32 mode is _attn_fwd_core_jnp / _attn_rev_core_jnp, and
+# the jnp branch of rollout_from_grad_cam)
 # ---------------------------------------------------------------------------
 
 def attn_fwd_core_plain(qkv: Tensor, num_heads: int, head_dim: int,
-                        scale: float) -> Tensor:
+                        scale: float, mxu: str = "float32") -> Tensor:
+    """JAX ``_attn_fwd_kernel``: both products in ``mxu``."""
     q, k, v = split_heads(qkv, num_heads, head_dim)
-    dots = q @ k.transpose(-1, -2)
-    attn = torch.softmax(dots * scale, dim=-1)
-    return merge_heads(attn @ v)
+    attn = torch.softmax(kdot(q, k.transpose(-1, -2), mxu) * scale, dim=-1)
+    return merge_heads(kdot(attn, v, mxu))
 
 
 def attn_rev_core_plain(qkv: Tensor, g_o: Tensor, cam_o: Tensor,
-                        num_heads: int, head_dim: int,
-                        scale: float) -> Tuple[Tensor, Tensor, Tensor]:
-    b, n, _ = qkv.shape
-    q, k, v = split_heads(qkv, num_heads, head_dim)
-    go = g_o.reshape(b, n, num_heads, head_dim).transpose(1, 2)
-    co = cam_o.reshape(b, n, num_heads, head_dim).transpose(1, 2)
-    dots = q @ k.transpose(-1, -2)
-    attn = torch.softmax(dots * scale, dim=-1)
-    out = attn @ v
-    g_attn = go @ v.transpose(-1, -2)
-    g_v = attn.transpose(-1, -2) @ go
-    inner = (g_attn * attn).sum(dim=-1, keepdim=True)
-    g_dots = attn * (g_attn - inner) * scale
-    g_q = g_dots @ k
-    g_k = g_dots.transpose(-1, -2) @ q
-    S1 = rp.safe_divide(co, out)
-    cam1 = attn * (S1 @ v.transpose(-1, -2)) * 0.5
-    cam_v = v * (attn.transpose(-1, -2) @ S1) * 0.5
-    S2 = rp.safe_divide(cam1, dots)          # pre-scale dots
-    cam_q = q * (S2 @ k) * 0.5
-    cam_k = k * (S2.transpose(-1, -2) @ q) * 0.5
-    gc = (g_attn * cam1).clamp(min=0).mean(dim=1)
-    return merge3(g_q, g_k, g_v), merge3(cam_q, cam_k, cam_v), gc
+                        num_heads: int, head_dim: int, scale: float,
+                        attn_mxu: str = "float32", rule_mxu: str = "float32"
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """JAX ``_attn_rev_kernel``: the recompute and gradient products in
+    ``attn_mxu``, the z-rule products in ``rule_mxu``."""
+    return attn_rev_math(qkv, g_o, cam_o, num_heads, head_dim, scale,
+                         attn_mxu, rule_mxu)
 
 
 def rollout_plain(cams: Tensor, start_layer: int = 0,
@@ -142,19 +135,20 @@ def _lib():
 
 
 def _launch_attn_fwd(lib, qkv: Tensor, num_heads: int, head_dim: int,
-                     scale: float, stream) -> Tensor:
+                     scale: float, stream, attn_bf16: int = 0) -> Tensor:
     b, n, _ = qkv.shape
     out = torch.empty(b, n, num_heads * head_dim, dtype=qkv.dtype,
                       device=qkv.device)
     fn = getattr(lib, f"te_attn_fwd_{_DTYPES[qkv.dtype]}")
     _raise_on_error("attn_fwd_core", lib, fn(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, head_dim,
-        float(scale), stream))
+        float(scale), attn_bf16, stream))
     return out
 
 
 def _launch_attn_rev(lib, qkv: Tensor, g_o: Tensor, cam_o: Tensor,
-                     num_heads: int, head_dim: int, scale: float, stream):
+                     num_heads: int, head_dim: int, scale: float, stream,
+                     attn_bf16: int = 0, rule_bf16: int = 0):
     b, n, d3 = qkv.shape
     kw = dict(dtype=qkv.dtype, device=qkv.device)
     g_qkv = torch.empty(b, n, d3, **kw)
@@ -168,7 +162,7 @@ def _launch_attn_rev(lib, qkv: Tensor, g_o: Tensor, cam_o: Tensor,
         qkv.data_ptr(), g_o.data_ptr(), cam_o.data_ptr(), g_qkv.data_ptr(),
         cam_qkv.data_ptr(), gc.data_ptr(), P.data_ptr(), G.data_ptr(),
         S2.data_ptr(), GCP.data_ptr(), S1.data_ptr(), b, n, num_heads,
-        head_dim, float(scale), stream))
+        head_dim, float(scale), attn_bf16, rule_bf16, stream))
     return g_qkv, cam_qkv, gc
 
 
@@ -192,6 +186,14 @@ _GEMM_MODE = {"bfloat16": 0, "tensorfloat32": 1}
 _ATTN_BF16 = {"float32": 0, "bfloat16": 1}
 
 
+def _mode_flag(name: str, key: str, mode: str, table: dict) -> int:
+    if mode not in table:
+        raise NotImplementedError(
+            f"{name}: {key} mode {mode!r} has no kernel instantiation "
+            f"(ROADMAP B, raw tensorfloat32)")
+    return table[mode]
+
+
 # BlockParams and BertLayerParams share one layout: eight vectors (two
 # LayerNorms' scales and biases, the qkv, attention-output, first and second
 # MLP biases), then the four prepared weights; the helpers below read them
@@ -203,11 +205,7 @@ def _block_modes(name: str, p, **modes) -> dict:
     out = {}
     for key, mode in modes.items():
         table = _ATTN_BF16 if key.endswith("_bf16") else _GEMM_MODE
-        if mode not in table:
-            raise NotImplementedError(
-                f"{name}: {key.replace('_bf16', '')} mode {mode!r} has no "
-                f"kernel instantiation (ROADMAP B, raw tensorfloat32)")
-        out[key] = table[mode]
+        out[key] = _mode_flag(name, key.replace("_bf16", ""), mode, table)
     if p[0].shape[0] % 8 or p[6].shape[0] % 8:
         raise ValueError(f"{name}: the kernel needs the embedding and MLP "
                          "widths to be multiples of 8")
@@ -349,34 +347,117 @@ def _launch_bert_attn_rev(lib, x_in: Tensor, g_attln: Tensor, R_att: Tensor,
     return g_in, R_in, gc
 
 
+def _planes(w):
+    """A shard weight's (hi, lo) pointers (lo null for a one-pass split)."""
+    return [w[0].data_ptr(), w[1].data_ptr() if len(w) > 1 else None]
+
+
+def _launch_mlp_rev_tp1(lib, x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
+                        ln2b: Tensor, b1: Tensor, w1, w2, eps: float,
+                        flags: dict, stream):
+    b, n, D = x_mid.shape
+    Ml = b1.shape[0]
+    fc1_pre = torch.empty(b, n, Ml, dtype=x_mid.dtype, device=x_mid.device)
+    parts = [torch.empty_like(x_mid) for _ in range(3)]
+    fn = lib.te_mlp_rev_tp1_f32
+    dims = [b * n, D, Ml, float(eps), flags["mlp"], flags["rule"]]
+    work = _workspace(fn, dims, x_mid.device)
+    _raise_on_error("mlp_rev_tp_phase1", lib, fn(
+        *[t.data_ptr() for t in (x_mid, g_out, ln2s, ln2b, b1)],
+        *_planes(w1), *_planes(w2), fc1_pre.data_ptr(),
+        *[t.data_ptr() for t in parts], work.data_ptr(), None, *dims,
+        stream))
+    return (fc1_pre, *parts)
+
+
+def _launch_mlp_rev_tp2(lib, x_mid: Tensor, Sr: Tensor, fc1_pre: Tensor,
+                        ln2s: Tensor, ln2b: Tensor, b1: Tensor, w1, w2,
+                        eps: float, flags: dict, stream):
+    b, n, D = x_mid.shape
+    num_w, num_a = torch.empty_like(x_mid), torch.empty_like(x_mid)
+    fn = lib.te_mlp_rev_tp2_f32
+    dims = [b * n, D, b1.shape[0], float(eps), flags["rule"]]
+    work = _workspace(fn, dims, x_mid.device)
+    _raise_on_error("mlp_rev_tp_phase2", lib, fn(
+        *[t.data_ptr() for t in (x_mid, Sr, fc1_pre, ln2s, ln2b, b1)],
+        *_planes(w1), *_planes(w2), num_w.data_ptr(), num_a.data_ptr(),
+        work.data_ptr(), None, *dims, stream))
+    return num_w, num_a
+
+
+def _check_tp_weights(name: str, weights, like: Tensor, Ml: int) -> None:
+    """This shard's ``w1_l (M/k, D)`` and ``w2_l (D, M/k)``: tensors or
+    prepared splits, contiguous, on ``like``'s device."""
+    D = like.shape[-1]
+    for w, shape in zip(weights, ((Ml, D), (D, Ml))):
+        for t in (w if isinstance(w, tuple) else (w,)):
+            if (tuple(t.shape) != shape or not t.is_contiguous()
+                    or t.device != like.device):
+                raise ValueError(f"{name}: weights must be contiguous "
+                                 f"{shape} on {like.device}")
+
+
+def _tp_modes(name: str, x: Tensor, weights, **modes) -> dict:
+    """The TP MLP kernels' GEMM flags; raise on what the kernel does not
+    take."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32")
+    out = {}
+    for key, mode in modes.items():
+        if mode == "float32":
+            raise NotImplementedError(
+                f"{name}: float32 {key} products have no kernel: the JAX "
+                "form is the TPU's bf16x6 emulation, which the port does not "
+                "carry (ROADMAP B, not to port); the TP program takes the "
+                "plain MLP arm in float32")
+        out[key] = _mode_flag(name, key, mode, _GEMM_MODE)
+    for w in weights:
+        if not isinstance(w, tuple) or any(t.dtype != torch.bfloat16
+                                           for t in w):
+            raise ValueError(f"{name}: the kernel takes weights prepared as "
+                             "bf16 splits (precision.prepare_weight)")
+        if 1 in out.values() and len(w) != 2:
+            raise ValueError(f"{name}: a tensorfloat32 product needs weights "
+                             "prepared as (hi, lo) pairs")
+    if x.shape[-1] % 8 or weights[0][0].shape[0] % 8:
+        raise ValueError(f"{name}: the kernel needs the embedding and shard "
+                         "MLP widths to be multiples of 8")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 def attn_fwd_core(qkv: Tensor, num_heads: int, head_dim: int,
-                  scale: float) -> Tensor:
+                  scale: float, mxu: str = "float32") -> Tensor:
     """Softmax attention from raw ``qkv (B, n, 3D)`` -> merged ``(B, n, D)``
-    (JAX ``pallas_kernels.attn_fwd_core``)."""
+    (JAX ``pallas_kernels.attn_fwd_core``), both products in ``mxu``
+    (``"float32"`` or ``"bfloat16"`` on the card)."""
     D = num_heads * head_dim
     b, n = qkv.shape[:2] if qkv.ndim == 3 else (-1, -1)
     device = _check("attn_fwd_core", [qkv], [(b, n, 3 * D)])
     if device == "cpu":
-        return attn_fwd_core_plain(qkv, num_heads, head_dim, scale)
+        return attn_fwd_core_plain(qkv, num_heads, head_dim, scale, mxu)
+    flag = _mode_flag("attn_fwd_core", "mxu", mxu, _ATTN_BF16)
     with torch.cuda.device(qkv.device):
         out = _launch_attn_fwd(_lib(), qkv, num_heads, head_dim, scale,
-                               _stream(qkv))
+                               _stream(qkv), flag)
     attn_fwd_core.launches += 1
     return out
 
 
 def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
-                  head_dim: int, scale: float) -> Tuple[Tensor, Tensor, Tensor]:
+                  head_dim: int, scale: float, attn_mxu: str = "float32",
+                  rule_mxu: str = "float32") -> Tuple[Tensor, Tensor, Tensor]:
     """Fused backward + LRP relprop of the attention core (JAX
     ``pallas_kernels.attn_rev_core``). ``qkv (B, n, 3D)``; ``g_o``,
     ``cam_o (B, n, D)`` are the merged-head gradient and relevance at the
     AV output. Returns ``(g_qkv (B, n, 3D), cam_qkv (B, n, 3D),
     gc (B, n, n))``: the qkv-layout cotangent and relevance, and the
-    head-mean ``(grad ⊙ cam)⁺`` map."""
+    head-mean ``(grad ⊙ cam)⁺`` map. The recompute and gradient products
+    run in ``attn_mxu``, the z-rule products in ``rule_mxu`` (each
+    ``"float32"`` or ``"bfloat16"`` on the card)."""
     D = num_heads * head_dim
     b, n = qkv.shape[:2] if qkv.ndim == 3 else (-1, -1)
     device = _check("attn_rev_core", [qkv, g_o, cam_o],
@@ -386,10 +467,12 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
                          f"{MAX_HEAD_DIM} is not supported by the kernel")
     if device == "cpu":
         return attn_rev_core_plain(qkv, g_o, cam_o, num_heads, head_dim,
-                                   scale)
+                                   scale, attn_mxu, rule_mxu)
+    flags = (_mode_flag("attn_rev_core", "attn", attn_mxu, _ATTN_BF16),
+             _mode_flag("attn_rev_core", "rule", rule_mxu, _ATTN_BF16))
     with torch.cuda.device(qkv.device):
         outs = _launch_attn_rev(_lib(), qkv, g_o, cam_o, num_heads, head_dim,
-                                scale, _stream(qkv))
+                                scale, _stream(qkv), *flags)
     attn_rev_core.launches += 1
     return outs
 
@@ -612,6 +695,66 @@ def bert_attn_rev_core(x_in: Tensor, g_attln: Tensor, R_att: Tensor,
     return outs
 
 
+def mlp_rev_tp_phase1(x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
+                      ln2b: Tensor, b1_l: Tensor, w1_l, w2_l, eps: float,
+                      mxu: str = "bfloat16", rule_mxu: str = "bfloat16"
+                      ) -> Tuple[Tensor, ...]:
+    """Phase 1 of the tensor-parallel MLP reverse on this shard (JAX
+    ``pallas_kernels.mlp_rev_tp_phase1``): ``x_mid``, ``g_out (B, n, D)``,
+    the LN2 scale and bias, this shard's ``b1_l (M/k,)``, ``w1_l (M/k, D)``
+    and ``w2_l (D, M/k)``. Returns ``(fc1_pre_l (B, n, M/k), fc2_pre_l,
+    axw2_l, g_xn2_l (B, n, D))`` as :func:`.tp_math.mlp_rev_tp_phase1_plain`;
+    the caller all-reduces the three partials. The kernel takes the
+    weights as bf16 splits and products in ``"bfloat16"`` or
+    ``"tensorfloat32"``."""
+    name = "mlp_rev_tp_phase1"
+    if x_mid.ndim != 3:
+        raise ValueError(f"{name}: x_mid must be (B, n, D)")
+    D, Ml = x_mid.shape[-1], b1_l.shape[0]
+    device = _check(name, [x_mid, g_out, ln2s, ln2b, b1_l],
+                    [x_mid.shape, x_mid.shape, (D,), (D,), (Ml,)])
+    _check_tp_weights(name, (w1_l, w2_l), x_mid, Ml)
+    if device == "cpu":
+        return mlp_rev_tp_phase1_plain(x_mid, g_out, ln2s, ln2b, b1_l, w1_l,
+                                       w2_l, eps, mxu, rule_mxu)
+    flags = _tp_modes(name, x_mid, (w1_l, w2_l), mlp=mxu, rule=rule_mxu)
+    with torch.cuda.device(x_mid.device):
+        outs = _launch_mlp_rev_tp1(_lib(), x_mid, g_out, ln2s, ln2b, b1_l,
+                                   w1_l, w2_l, eps, flags, _stream(x_mid))
+    mlp_rev_tp_phase1.launches += 1
+    return outs
+
+
+def mlp_rev_tp_phase2(x_mid: Tensor, Sr: Tensor, fc1_pre_l: Tensor,
+                      ln2s: Tensor, ln2b: Tensor, b1_l: Tensor, w1_l, w2_l,
+                      eps: float, rule_mxu: str = "bfloat16"
+                      ) -> Tuple[Tensor, Tensor]:
+    """Phase 2 of the tensor-parallel MLP reverse on this shard (JAX
+    ``pallas_kernels.mlp_rev_tp_phase2``): ``Sr (B, n, D)`` is the fc2
+    rule's divide from the all-reduced phase-1 partials, ``fc1_pre_l``
+    phase 1's anchor. Returns this shard's partials ``(num_w_l, num_a_l)``
+    as :func:`.tp_math.mlp_rev_tp_phase2_plain`; every product is a rule
+    product in ``rule_mxu``."""
+    name = "mlp_rev_tp_phase2"
+    if x_mid.ndim != 3:
+        raise ValueError(f"{name}: x_mid must be (B, n, D)")
+    D, Ml = x_mid.shape[-1], b1_l.shape[0]
+    device = _check(name, [x_mid, Sr, fc1_pre_l, ln2s, ln2b, b1_l],
+                    [x_mid.shape, x_mid.shape, (*x_mid.shape[:2], Ml), (D,),
+                     (D,), (Ml,)])
+    _check_tp_weights(name, (w1_l, w2_l), x_mid, Ml)
+    if device == "cpu":
+        return mlp_rev_tp_phase2_plain(x_mid, Sr, fc1_pre_l, ln2s, ln2b,
+                                       b1_l, w1_l, w2_l, eps, rule_mxu)
+    flags = _tp_modes(name, x_mid, (w1_l, w2_l), rule=rule_mxu)
+    with torch.cuda.device(x_mid.device):
+        outs = _launch_mlp_rev_tp2(_lib(), x_mid, Sr, fc1_pre_l, ln2s, ln2b,
+                                   b1_l, w1_l, w2_l, eps, flags,
+                                   _stream(x_mid))
+    mlp_rev_tp_phase2.launches += 1
+    return outs
+
+
 attn_fwd_core.launches = 0
 attn_rev_core.launches = 0
 rollout_from_grad_cam.launches = 0
@@ -620,10 +763,13 @@ block_rev_core.launches = 0
 bert_layer_fwd_core.launches = 0
 bert_out_rev_core.launches = 0
 bert_attn_rev_core.launches = 0
+mlp_rev_tp_phase1.launches = 0
+mlp_rev_tp_phase2.launches = 0
 
 WRAPPERS = (attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
             block_fwd_core, block_rev_core, bert_layer_fwd_core,
-            bert_out_rev_core, bert_attn_rev_core)
+            bert_out_rev_core, bert_attn_rev_core, mlp_rev_tp_phase1,
+            mlp_rev_tp_phase2)
 
 
 def reset_launch_counts() -> None:
@@ -636,19 +782,24 @@ def launch_counts() -> dict:
 
 
 class AttnOps(NamedTuple):
-    """The kernel operations the ViT path calls, so that a reference run
-    can take the plain versions explicitly on any device."""
+    """The kernel operations the ViT paths call (single-device and tensor
+    parallel), so that a reference run can take the plain versions
+    explicitly on any device."""
     attn_fwd_core: Callable
     attn_rev_core: Callable
     rollout_from_grad_cam: Callable
     block_fwd_core: Callable
     block_rev_core: Callable
+    mlp_rev_tp_phase1: Callable
+    mlp_rev_tp_phase2: Callable
 
 
 KERNEL_OPS = AttnOps(attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
-                     block_fwd_core, block_rev_core)
+                     block_fwd_core, block_rev_core, mlp_rev_tp_phase1,
+                     mlp_rev_tp_phase2)
 PLAIN_OPS = AttnOps(attn_fwd_core_plain, attn_rev_core_plain, rollout_plain,
-                    block_fwd_core_plain, block_rev_core_plain)
+                    block_fwd_core_plain, block_rev_core_plain,
+                    mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain)
 
 
 class BertOps(NamedTuple):
