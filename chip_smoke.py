@@ -15,8 +15,10 @@ result line):
      ViT block megakernels, the BERT layer kernels (float32 only; BERT-base
      at B=8, S=512 with each sample's mask cut at another length) and the
      tensor-parallel MLP kernels (ViT-B at B=8 with the shard widths of
-     k = 1, 2, 4) in each preset's product modes, all float32 results by
-     the rule below against the float64 plain version;
+     k = 1, 2, 4) in each preset's product modes, and the split path's MLP
+     reverse (ViT-B at B=8) in its two mode pairs, all float32 results by
+     the rule below against the float64 plain version (the MLP reverse by
+     its 2-norm form);
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -30,15 +32,24 @@ result line):
      0.999 and, for ViT, min no lower than the plain float32 production
      path's min - 0.01, for BERT no more samples below 0.99 than the plain
      float32 production path + 1); the production paths' corr against the
-     exact float64 path is printed; then the tensor-parallel program
+     exact float64 path is printed; the ViT split path
+     (``block_kernel=False`` at the ``bfloat16`` preset: B4, B5 and B6 per
+     block) on the same batches by the production gates against its own
+     plain float64 path (its corr against the megakernel ``bfloat16`` path
+     is printed); each of the nine ViT methods, and ``variant="lrp"`` and
+     ``alpha=2`` of ``transformer_attribution``, in exact FP32 on the first
+     batch (>= 0.999 every sample against the plain float64 run of the same
+     method, or, where the plain float32 run also falls below 0.999, no
+     lower than its corr - 0.01); then the tensor-parallel program
      ``make_tp_explain_fn(VIT_BASE_16_224, ...)`` at k = 1 over a
      single-rank NCCL process group, in float32 and production, on the
      same batches by the ViT gates (its corr against the single-device
      slice is printed);
   5. times: each kernel beside its plain version and its bound, B4 beside
      ``scaled_dot_product_attention``, and explanations/s at B=8 for the
-     exact-FP32 and the production paths, kernels and plain (BERT at S=512
-     and S=128; the tensor-parallel program at k = 1).
+     exact-FP32 and the production paths, kernels and plain, the split
+     path beside the megakernel ``bfloat16`` path, each method in exact FP32
+     (BERT at S=512 and S=128; the tensor-parallel program at k = 1).
 
 It imports no JAX. The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -69,6 +80,9 @@ MIN_CORR = 0.999
 PROD_MIN_SLACK = 0.01
 TAIL_CORR = 0.99
 TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
+# the ViT methods whose map is a rollout chain (the rollout kernel B1)
+ROLLOUT_METHODS = ("transformer_attribution", "grad", "rollout",
+                   "rollout_attn")
 # the card's published rates (NVIDIA H100 SXM data sheet, dense, at a 700 W
 # power limit): device memory, bf16 tensor cores, FP32 off the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -121,7 +135,7 @@ def main() -> int:
               f"({pkg_dir})", file=sys.stderr)
         return 2
     from transformer_explainability_torch.explain.generator import (
-        explain_batch, precision_kwargs)
+        METHODS, explain_batch, precision_kwargs, uses_kernel_branch)
     from transformer_explainability_torch.models.vit import (
         VIT_BASE_16_224, VisionTransformer, init_params)
     from transformer_explainability_torch.explain import (BertExplainer,
@@ -254,14 +268,26 @@ def main() -> int:
             check_f64_f32(name, kern, plain, make(*shp, torch.float64),
                           f"{sname} {tuple(shp)}", sname == "main")
 
-    def f32_rule(name, k32, p32, p64):
-        """float32 kernel vs plain float32, both against plain float64."""
+    def f32_rule(name, k32, p32, p64, norm=False):
+        """float32 kernel vs plain float32, both against plain float64: by
+        the largest error, or with ``norm`` by the error's 2-norm relative
+        to the float64 result's (the largest error is printed too)."""
         require(torch.isfinite(k32).all().item(),
                 f"{name}: non-finite float32 output")
         ek = (k32.double() - p64).abs().max().item()
         ep = (p32.double() - p64).abs().max().item()
         lim = F32_FACTOR * ep + F32_FLOOR * p64.abs().max().item()
         e32 = (k32 - p32).abs().max().item()
+        if norm:
+            nk, npl = ((t.double() - p64).norm().item() / p64.norm().item()
+                       for t in (k32, p32))
+            nlim = F32_FACTOR * npl + F32_FLOOR
+            print(f"check {name}: f32 max|k-p|={e32:.3e}, |k32-p64|/|p64|="
+                  f"{nk:.3e} <= {nlim:.3e} (plain f32 {npl:.3e}); "
+                  f"max|k32-p64|={ek:.3e} (plain f32 {ep:.3e})")
+            require(nk <= nlim, f"{name}: float32 kernel error {nk:.3e} "
+                    f"(2-norm, relative) above {nlim:.3e}")
+            return e32
         print(f"check {name}: f32 max|k-p|={e32:.3e}, max|k32-p64|={ek:.3e}"
               f" <= {lim:.3e} (plain f32 {ep:.3e})")
         require(ek <= lim, f"{name}: float32 kernel error {ek:.3e} above "
@@ -373,10 +399,11 @@ def main() -> int:
                 f"{kern.__name__}: launch count did not rise")
         return out
 
-    def check_all(name, preset, sname, shp, outs_k, outs_32, outs_64, names):
+    def check_all(name, preset, sname, shp, outs_k, outs_32, outs_64, names,
+                  norm=False):
         for i, nm in enumerate(names):
             e = f32_rule(f"{name}[{nm}] {preset} {sname} {shp}", outs_k[i],
-                         outs_32[i], outs_64[i])
+                         outs_32[i], outs_64[i], norm)
             if sname == "main":
                 errs[name] = max(errs.get(name, 0.0), e)
 
@@ -505,6 +532,63 @@ def main() -> int:
             del w1, w2, vecs, x, a64, a32, b64, b32, k32, p64, p32, q64, q32
     torch.cuda.empty_cache()
 
+    # the split path's MLP reverse B6 at ViT-B B=8 and at the same ragged
+    # widths as B10, in its two (MLP, rule) mode pairs: the bfloat16
+    # preset's (the split path) and bf16x3 MLP products with bf16 rules.
+    # The kernel takes float32 only (as B2, B3 and B10 do): its float32
+    # result is held to the float64 plain version by the rule above in its
+    # 2-norm form. B6 recomputes fc1_pre and fc2_pre and rounds their
+    # successors (hg, the rule quotients) to bf16 again, so each
+    # implementation moves its own few operands to the other bf16
+    # neighbour, and each such move shifts a block output by up to ≈ 3e-3
+    # (more where the add rule divides by a small output). The largest
+    # error is then a draw of where those moves land, the kernel's and the
+    # plain float32 version's each their own (seen on an H100: 4.4e-2 vs
+    # 3.2e-3 in one draw, 4.6e-3 vs 1.7e-2 in the next); the 2-norm
+    # compares their size, which is what the kernel sets
+    b6_modes = {"bf16/bf16": ("bfloat16", "bfloat16"),
+                "tf32/bf16": ("tensorfloat32", "bfloat16")}
+    b6_inputs = {}
+    for mname, (mlp, rule) in b6_modes.items():
+        for sname in ("main", "ragged"):
+            b, nn_, dd, ml = tp_shapes[sname]
+            w1 = prec.prepare_weight(randn(ml, dd, dtype=torch.float64)
+                                     / dd ** 0.5, mlp)
+            w2 = prec.prepare_weight(randn(dd, ml, dtype=torch.float64)
+                                     / ml ** 0.5, mlp)
+            vecs = (1.0 + 0.1 * randn(dd, dtype=torch.float64),
+                    *(0.1 * randn(k, dtype=torch.float64)
+                      for k in (dd, ml, dd)))
+            z = torch.zeros(1, device=dev)      # attention half: not read
+
+            def b6_params(ln2s, ln2b, b1, b2):
+                return bm.BlockParams(z, z, ln2s, ln2b, z, z, b1, b2, None,
+                                      None, w1, w2)
+
+            q64 = b6_params(*vecs)
+            q32 = b6_params(*(v.float() for v in vecs))
+            # x_mid around 4 (spread 0.5), so that x_mid and the block
+            # output x_mid + mlp_out (spread ≈ 0.65 here) stay away from 0:
+            # the add rule divides by the output and the clone by x_mid, and
+            # near 0 those divisions amplify the summation order of the
+            # recomputed fc1 / fc2 products (kernel and plain versions each
+            # have their own), so the comparison would measure their
+            # conditioning instead of the kernel
+            a64 = (4.0 + 0.5 * randn(b, nn_, dd, dtype=torch.float64),
+                   *(randn(b, nn_, dd, dtype=torch.float64)
+                     for _ in range(2)))          # x_mid, g_out, R
+            a32 = tuple(t.float() for t in a64)
+            shp = (b, nn_, dd, ml)
+            k32 = counted(K.mlp_rev_core, *a32, q32, vit_eps, mlp, rule)
+            p64 = K.mlp_rev_core_plain(*a64, q64, vit_eps, mlp, rule)
+            p32 = K.mlp_rev_core_plain(*a32, q32, vit_eps, mlp, rule)
+            check_all("mlp_rev_core", mname, sname, shp, k32, p32, p64,
+                      ["g_mid", "Rm"], norm=True)
+            if mname == "bf16/bf16" and sname == "main":
+                b6_inputs = dict(a32=a32, p32=q32, mlp=mlp, rule=rule)
+            del w1, w2, vecs, q64, q32, a64, a32, k32, p64, p32
+    torch.cuda.empty_cache()
+
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 4. the slice ----------------------------------------------------------
     data = np.load(os.path.join(ROOT, "experiments/data/fidelity_truth.npz"))
@@ -522,9 +606,11 @@ def main() -> int:
         idx[[1, 5]] = -1                  # argmax class
         batches.append((imgs_all[rows], idx))
 
-    def drive(explain, batches, shape, per_batch, label):
+    def drive(explain, batches, shape, per_batch, label, finite=True):
         """Explain the three batches twice each (counts set to 0 before,
-        read after); returns the heatmaps and the counts."""
+        read after); returns the heatmaps and the counts. ``finite=False``
+        leaves finiteness to the caller (a method whose answer is 0/0 on
+        some inputs); repeatability is bitwise, NaNs included."""
         K.reset_launch_counts()
         heats = []
         for k, batch in enumerate(batches):
@@ -537,10 +623,11 @@ def main() -> int:
                     f"{label} batch {k}: launch counts rose by {rose}")
             require(tuple(heat.shape) == shape,
                     f"{label} batch {k}: shape {tuple(heat.shape)}")
-            require(torch.isfinite(heat).all().item(),
+            require(torch.isfinite(heat).all().item() or not finite,
                     f"{label} batch {k}: non-finite")
             again = explain(*batch)
-            require(torch.equal(heat, again),
+            require(torch.equal(heat.contiguous().view(torch.uint8),
+                                again.contiguous().view(torch.uint8)),
                     f"{label} batch {k}: not bitwise repeatable")
             heats.append(heat)
         counts = K.launch_counts()
@@ -563,6 +650,9 @@ def main() -> int:
         a = x.double() - x.double().mean(dim=1, keepdim=True)
         b = y - y.mean(dim=1, keepdim=True)
         return ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).tolist()
+
+    def fmt(a):
+        return np.array2string(a, precision=6, max_line_width=1000)
 
     corrs, plain_corrs = [], []
     p_corrs, p_plain_corrs, p_exact = [], [], []
@@ -605,7 +695,110 @@ def main() -> int:
     require(p_corrs.min() >= p_plain_corrs.min() - PROD_MIN_SLACK,
             f"production min corr {p_corrs.min():.6f} below the plain f32 "
             f"path's {p_plain_corrs.min():.6f} - {PROD_MIN_SLACK}")
-    del model64
+
+    # the split path: the bfloat16 preset with the block kernels off (B4,
+    # B5 and B6 per block, the products outside them in bf16), gated as
+    # production is, against its own plain float64 version; its corr
+    # against the megakernel bfloat16 path is printed
+    bf16 = precision_kwargs("bfloat16")
+    split = dict(bf16, block_kernel=False)
+    ex_split = Explainer(params, cfg, device="cuda", **split)
+    heats_split, launches_split = drive(
+        ex_split.explain, batches, vit_shape,
+        {**none, "attn_fwd_core": L, "attn_rev_core": L, "mlp_rev_core": L,
+         "rollout_from_grad_cam": 1}, "split bfloat16")
+    ex_bf16 = Explainer(params, cfg, device="cuda", **bf16)
+    heats_bf16, launches_bf16 = drive(
+        ex_bf16.explain, batches, vit_shape,
+        {**none, "block_fwd_core": L, "block_rev_core": L,
+         "rollout_from_grad_cam": 1}, "bfloat16")
+    s_corrs, s_plain_corrs, s_mega = [], [], []
+    for (imgs, idx), heat, heat_m in zip(batches, heats_split, heats_bf16):
+        idx_t = torch.as_tensor(idx, device=dev)
+        ref_s = explain_batch(model64, torch.as_tensor(
+            imgs, device=dev, dtype=torch.float64), idx_t, ops=K.PLAIN_OPS,
+            **split)
+        s_corrs += corr(heat, ref_s)
+        s_plain_corrs += corr(explain_batch(
+            ex_split.model, torch.as_tensor(imgs, device=dev), idx_t,
+            ops=K.PLAIN_OPS, **split), ref_s)
+        s_mega += corr(heat, heat_m.double())
+    s_corrs, s_plain_corrs, s_mega = map(np.asarray, (s_corrs, s_plain_corrs,
+                                                      s_mega))
+    print(f"split bfloat16 slice corr vs plain split f64 on the card: min "
+          f"{s_corrs.min():.6f} median {np.median(s_corrs):.6f} (plain f32 "
+          f"split path: min {s_plain_corrs.min():.6f} median "
+          f"{np.median(s_plain_corrs):.6f}); per sample "
+          f"{np.array2string(s_corrs, precision=6, max_line_width=1000)}")
+    print(f"split bfloat16 slice corr vs the megakernel bfloat16 path, not "
+          f"gated: min {s_mega.min():.6f} median {np.median(s_mega):.6f}; "
+          f"per sample "
+          f"{np.array2string(s_mega, precision=6, max_line_width=1000)}")
+    require(np.median(s_corrs) >= MIN_CORR,
+            f"split median corr {np.median(s_corrs):.6f} below {MIN_CORR}")
+    require(s_corrs.min() >= s_plain_corrs.min() - PROD_MIN_SLACK,
+            f"split min corr {s_corrs.min():.6f} below the plain f32 split "
+            f"path's {s_plain_corrs.min():.6f} - {PROD_MIN_SLACK}")
+    del ex_split, ex_bf16
+
+    # every ViT method in exact FP32 on the first batch, plus the lrp
+    # variant and alpha = 2 of transformer_attribution: the kernel branch
+    # for the fused method (ours, alpha 1), the non-kernel branch with the
+    # rollout kernel for the others; per-sample corr >= MIN_CORR against
+    # the plain float64 run of the same method, except on a sample where
+    # the plain float32 run falls below MIN_CORR too (exact FP32 is
+    # ill-conditioned there for this method and these random weights):
+    # there no lower than the plain float32 run's corr - PROD_MIN_SLACK
+    ex_lrp = Explainer(params, cfg, device="cuda", variant="lrp")
+    grid = (8, cfg.grid, cfg.grid)
+    explainers = {"ours": ex, "lrp": ex_lrp}
+    method_runs = [(m, "ours", {}) for m in METHODS] + [
+        ("transformer_attribution", "lrp", {}),
+        ("transformer_attribution", "ours", dict(alpha=2.0))]
+    method_launches = []
+    imgs0, idx0 = batches[0]
+    img64 = torch.as_tensor(imgs0, device=dev, dtype=torch.float64)
+    idx0_t = torch.as_tensor(idx0, device=dev)
+    for m, variant, kw in method_runs:
+        label = f"method {m} variant {variant} {kw}"
+        explainer = explainers[variant]
+        kernel = uses_kernel_branch(m, kw.get("alpha", 1.0), variant)
+        per = {**none}
+        if kernel:
+            per.update(attn_fwd_core=L, attn_rev_core=L)
+        if m in ROLLOUT_METHODS:
+            per["rollout_from_grad_cam"] = 1
+        shape = {"full": (8, cfg.img_size, cfg.img_size),
+                 "attn_gradcam": grid}.get(m, vit_shape)
+        (heat,), counts = drive(
+            lambda im, ix: explainer.explain(im, ix, method=m, **kw),
+            [batches[0]], shape, per, label, finite=m != "attn_gradcam")
+        method_launches.append(counts)
+        ref = explain_batch(model64, img64, idx0_t, method=m,
+                            variant=variant, ops=K.PLAIN_OPS, **kw)
+        plain32 = explain_batch(ex.model, img64.float(), idx0_t, method=m,
+                                variant=variant, ops=K.PLAIN_OPS, **kw)
+        # attn_gradcam min-max normalises a relu'd map: where the map has
+        # no positive entry the method's answer is 0/0 (NaN, in JAX and the
+        # reference too). Those samples must be the float64 run's, and the
+        # others finite and gated
+        heat, ref = heat.reshape(8, -1), ref.reshape(8, -1)
+        plain32 = plain32.reshape(8, -1)
+        ok = torch.isfinite(ref).all(dim=1)
+        ok_k = torch.isfinite(heat).all(dim=1)
+        require(torch.equal(ok_k, ok) and bool(ok.any()),
+                f"{label}: finite samples {ok_k.tolist()}, float64 run's "
+                f"{ok.tolist()}")
+        c = np.asarray(corr(heat[ok], ref[ok]))
+        c_p = np.asarray(corr(plain32[ok], ref[ok]))
+        floor = np.where(c_p >= MIN_CORR, MIN_CORR, c_p - PROD_MIN_SLACK)
+        print(f"{label} corr vs plain f64 on the card over {len(c)} samples "
+              f"(0/0 in {int((~ok).sum())}): min {c.min():.6f} median "
+              f"{np.median(c):.6f} (plain f32 run: min {c_p.min():.6f}); per "
+              f"sample {fmt(c)}, plain f32 run {fmt(c_p)}")
+        require((c >= floor).all(), f"{label}: per-sample corr {fmt(c)} "
+                f"below {fmt(floor)}")
+    del model64, ex_lrp, explainers, img64
     torch.cuda.empty_cache()
 
     # BERT-base, both presets: three batches of 8 at S=512, each sample
@@ -676,7 +869,6 @@ def main() -> int:
     bc, bc_plain = np.asarray(bc), np.asarray(bc_plain)
     bpc, bpc_plain, bp_exact = (np.asarray(a) for a in (bpc, bpc_plain,
                                                         bp_exact))
-    fmt = lambda a: np.array2string(a, precision=6, max_line_width=1000)
     print(f"bert float32 slice corr vs plain f64 on the card: min "
           f"{bc.min():.6f} median {np.median(bc):.6f} over {len(bc)} samples "
           f"(plain f32 path: min {bc_plain.min():.6f} median "
@@ -800,6 +992,13 @@ def main() -> int:
         print(f"time {name} {tp_shapes['main']} f32 production modes: "
               f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
               f"ms {tag}")
+    b6 = b6_inputs
+    b6_args = (*b6["a32"], b6["p32"], vit_eps, b6["mlp"], b6["rule"])
+    times["mlp_rev_core"] = (time_ms(lambda: K.mlp_rev_core(*b6_args)),
+                             time_ms(lambda: K.mlp_rev_core_plain(*b6_args)))
+    print(f"time mlp_rev_core {tp_shapes['main']} f32 bfloat16 modes: kernel "
+          f"{times['mlp_rev_core'][0]:.4f} ms, plain "
+          f"{times['mlp_rev_core'][1]:.4f} ms {tag}")
     # the library yardstick of B4: one scaled_dot_product_attention call on
     # the same q, k, v (timed only; the port never calls it)
     qkv_main = cases["attn_fwd_core"][0](*shapes["main"], torch.float32)[0]
@@ -811,6 +1010,7 @@ def main() -> int:
     print(f"time scaled_dot_product_attention {tuple(shapes['main'])} f32: "
           f"{library['attn_fwd_core']:.4f} ms {tag}")
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
+    del b6_inputs, b6, b6_args
 
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
     idx_t = torch.as_tensor(batches[0][1], device=dev)
@@ -850,6 +1050,24 @@ def main() -> int:
           f"windows: kernel path {rp_kernel:.2f} / {rp_kernel2:.2f} expl/s, "
           f"plain path {rp_plain:.2f} expl/s, batch working memory "
           f"{peak_p:.3f} GiB {tag}")
+    # the split path beside the megakernel path of the same preset, in
+    # alternating windows: split kernels, split plain, megakernel, split
+    # kernels, megakernel
+    peak_s = peak_gib(K.KERNEL_OPS, **split)
+    rs = [rate(K.KERNEL_OPS, **split), rate(K.PLAIN_OPS, **split),
+          rate(K.KERNEL_OPS, **bf16), rate(K.KERNEL_OPS, **split),
+          rate(K.KERNEL_OPS, **bf16)]
+    print(f"e2e transformer_attribution ViT-B/16 bfloat16 split path "
+          f"(block_kernel=False) B=8, 20-batch windows: kernel path "
+          f"{rs[0]:.2f} / {rs[3]:.2f} expl/s, plain path {rs[1]:.2f} expl/s, "
+          f"batch working memory {peak_s:.3f} GiB; megakernel bfloat16 path "
+          f"{rs[2]:.2f} / {rs[4]:.2f} expl/s {tag}")
+    # each method in exact FP32, kernels (the rollout kernel, and B4/B5 on
+    # the fused method's kernel branch)
+    for m, variant, kw in method_runs:
+        r = rate(K.KERNEL_OPS, method=m, variant=variant, **kw)
+        print(f"e2e method {m} variant {variant} {kw} ViT-B/16 "
+              f"float32 B=8, 20-batch window: {r:.2f} expl/s {tag}")
 
     def tp_rate(fn, sh, nb=20):
         for _ in range(3):
@@ -969,6 +1187,12 @@ def main() -> int:
         "mlp_rev_tp_phase2": (
             f4 * (2 * Dm + Mm + 2 * R * Dm + R * Mm) + 2 * 2 * Mm * Dm
             + f4 * 2 * R * Dm, dict(bf16=10 * R * Dm * Mm)),
+        # ten products of 2·R·D·M (fc1, fc2, the two backward products, the
+        # two |x|·|W| denominators and the two dual GEMMs' four), one bf16
+        # pass each in the split path's modes
+        "mlp_rev_core": (
+            f4 * (3 * Dm + Mm + 3 * R * Dm) + 2 * 2 * Mm * Dm
+            + f4 * 2 * R * Dm, dict(bf16=20 * R * Dm * Mm)),
     }
     bounds = {name: bound(nb, **ops) for name, (nb, ops) in work.items()}
     sources = {"attn_fwd_core": "attn_fwd.cu", "attn_rev_core": "attn_rev.cu",
@@ -979,18 +1203,20 @@ def main() -> int:
                "bert_out_rev_core": "bert_out_rev.cu",
                "bert_attn_rev_core": "bert_attn_rev.cu",
                "mlp_rev_tp_phase1": "mlp_rev_tp.cu",
-               "mlp_rev_tp_phase2": "mlp_rev_tp.cu"}
+               "mlp_rev_tp_phase2": "mlp_rev_tp.cu",
+               "mlp_rev_core": "mlp_rev.cu"}
     tpu_lines = {"attn_fwd_core": 391, "attn_rev_core": 415,
                  "rollout_from_grad_cam": 49, "block_fwd_core": 1378,
                  "block_rev_core": 1223, "bert_layer_fwd_core": 2335,
                  "bert_out_rev_core": 2011, "bert_attn_rev_core": 2163,
-                 "mlp_rev_tp_phase1": 892, "mlp_rev_tp_phase2": 937}
+                 "mlp_rev_tp_phase1": 892, "mlp_rev_tp_phase2": 937,
+                 "mlp_rev_core": 733}
     for name in sources:
         print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
               f"kernel {times[name][0]:.4f} ms {tag}")
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
-    slices = (launches, launches_prod, blaunches, blaunches_prod,
-              *tp_launches)
+    slices = (launches, launches_prod, launches_split, launches_bf16,
+              *method_launches, blaunches, blaunches_prod, *tp_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",

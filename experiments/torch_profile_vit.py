@@ -3,12 +3,17 @@ on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
 
     python3 experiments/torch_profile_vit.py [--model vit|bert] [--seq 512]
                                              [--precision float32|production|bfloat16]
+                                             [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
 the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
-padded to its own length, seeded. ``--tp`` profiles the tensor-parallel
+padded to its own length, seeded. ``--no-block-kernel`` takes ViT's split
+path (``block_kernel=False``: at the bfloat16 preset the attention kernels
+and the MLP reverse kernel per block instead of the megakernels).
+``--method`` names a ViT method of ``METHODS`` (default
+``transformer_attribution``). ``--tp`` profiles the tensor-parallel
 ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
 single-rank NCCL process group instead of the single-device path.
 
@@ -85,7 +90,8 @@ def profile(fn, batches: int, trace: str):
 
 
 def vit_case(dev, prec):
-    """(label, explain) of ViT-B/16 at B=8, kernel and plain paths."""
+    """(label, explain) of ViT-B/16 at B=8, kernel and plain paths;
+    ``prec`` holds explain_batch's precision, method and branch keywords."""
     from transformer_explainability_torch.explain.generator import (
         explain_batch)
     from transformer_explainability_torch.models.vit import (
@@ -166,6 +172,8 @@ def main():
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "production", "bfloat16"])
+    ap.add_argument("--no-block-kernel", action="store_true")
+    ap.add_argument("--method", default="transformer_attribution")
     ap.add_argument("--tp", action="store_true")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
@@ -187,7 +195,12 @@ def main():
     elif args.tp:
         paths, what = tp_case(dev, prec), "vit_tp1"
     else:
-        paths, what = vit_case(dev, prec), "vit"
+        kw = dict(prec, method=args.method,
+                  block_kernel=not args.no_block_kernel)
+        what = "vit" + ("_split" if args.no_block_kernel else "")
+        if args.method != "transformer_attribution":
+            what += "_" + args.method
+        paths = vit_case(dev, kw)
     os.makedirs(args.out, exist_ok=True)
     for label, explain in paths:
         wall, by_name, by_group, host = profile(

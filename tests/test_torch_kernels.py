@@ -110,6 +110,31 @@ def test_rollout_plain_matches_pallas_interpret(start_layer, row_normalize):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("with_grads", [False, True])
+@pytest.mark.parametrize("start_layer,row_normalize", [(0, False), (2, True)])
+def test_rollout_per_head_form_matches_jax(x64, with_grads, start_layer,
+                                           row_normalize):
+    """The (B, L, h, n, n) form: head mean of (grads ⊙ cams)⁺ (or cams⁺),
+    then the chain, against the jnp branch of the JAX function."""
+    rng = np.random.RandomState(5)
+    cams = rng.randn(B, 4, H, N, N) * 0.1
+    grads = rng.randn(B, 4, H, N, N) if with_grads else None
+    got = K.rollout_from_grad_cam(
+        torch.from_numpy(cams), start_layer, row_normalize,
+        grads=None if grads is None else torch.from_numpy(grads))
+    assert torch.equal(got, K.rollout_plain(
+        torch.from_numpy(cams), start_layer, row_normalize,
+        None if grads is None else torch.from_numpy(grads)))
+    for i in range(B):
+        _close(got[i], pk.rollout_from_grad_cam(
+            jnp.asarray(cams[i]), None if grads is None
+            else jnp.asarray(grads[i]), start_layer, row_normalize,
+            use_pallas=False))
+    with pytest.raises(ValueError):
+        K.rollout_from_grad_cam(torch.from_numpy(cams[:, 0]), 0,
+                                grads=torch.from_numpy(cams[:, 0]))
+
+
 def test_wrappers_take_plain_path_on_cpu():
     qkv, g_o, cam_o = (torch.from_numpy(a) for a in _inputs(3))
     before = K.launch_counts()

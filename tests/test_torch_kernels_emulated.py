@@ -384,3 +384,43 @@ def test_mlp_rev_tp_kernels_match_plain(lib, shape, preset):
     want32 = K.mlp_rev_tp_phase2_plain(*a32, *vecs32, w1, w2, EPS, rule)
     for k, p, q, name in zip(got, want32, want64, ["num_w", "num_a"]):
         _f32_rule(k, p, q, name)
+
+
+# ---------------------------------------------------------------------------
+# The split path's MLP reverse B6 (float32 kernel against float64 plain
+# versions), in its two product-mode pairs
+# ---------------------------------------------------------------------------
+
+MLP_SHAPES = [(2, 13, 16, 40), (1, 37, 24, 96)]     # (B, n, D, M)
+# (weight preparation and MLP mode, rule mode)
+MLP_MODES = [("bfloat16", "bfloat16"), ("tensorfloat32", "bfloat16")]
+
+
+@pytest.mark.parametrize("shape", MLP_SHAPES)
+@pytest.mark.parametrize("modes", MLP_MODES)
+def test_mlp_rev_kernel_matches_plain(lib, shape, modes):
+    b, n, D, M = shape
+    mlp, rule = modes
+    rng = np.random.RandomState(60)
+    w1, w2 = (P.prepare_weight(torch.from_numpy(rng.randn(o, i) / np.sqrt(i)),
+                               mlp) for o, i in ((M, D), (D, M)))
+    vecs64 = [torch.from_numpy(c + 0.1 * rng.randn(k))
+              for c, k in ((1.0, D), (0.0, D), (0.0, M), (0.0, D))]
+    z = torch.zeros(1, dtype=torch.float64)
+
+    def params(vecs):
+        ln2s, ln2b, b1, b2 = vecs
+        return bm.BlockParams(z, z, ln2s, ln2b, z, z, b1, b2, None, None,
+                              w1, w2)
+
+    p64, p32 = params(vecs64), params([v.float() for v in vecs64])
+    a64 = tuple(torch.from_numpy(rng.randn(b, n, D) + c)
+                for c in (0.5, 0.0, 0.0))          # x_mid, g_out, R
+    a32 = tuple(t.float() for t in a64)
+    flags = K._tp_modes("mlp_rev_core", a32[0], (w1, w2), mlp=mlp, rule=rule)
+    got = K._launch_mlp_rev(lib, *a32, p32, EPS, flags, None)
+    want64 = K.mlp_rev_core_plain(*a64, p64, EPS, mlp, rule)
+    want32 = K.mlp_rev_core_plain(*a32, p32, EPS, mlp, rule)
+    for k, p, q, name in zip(got, want32, want64, ["g_mid", "Rm"]):
+        assert k.shape == q.shape, name
+        _f32_rule(k, p, q, name)

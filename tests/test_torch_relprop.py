@@ -149,6 +149,32 @@ def test_patchify(x64):
                                                         16)))
 
 
+def test_unpatchify(x64):
+    rng = np.random.RandomState(10)
+    patches = rng.randn(2, 6, 3 * 16 * 16)
+    got = trp.unpatchify(_t(patches), 16, 3, 32, 48)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(got[i]), np.asarray(jrp.unpatchify(
+                jnp.asarray(patches[i]), 16, 3, 32, 48)))
+    torch.testing.assert_close(trp.patchify(got, 16), _t(patches), rtol=0,
+                               atol=0)
+
+
+def test_conv_patch_zB_relprop(x64):
+    """Per-image pixel bounds (the second image on another scale)."""
+    rng = np.random.RandomState(11)
+    img = rng.randn(2, 3, 32, 48)
+    img[1] *= 3.0
+    w = rng.randn(3 * 16 * 16, 8) * 0.05
+    R = rng.randn(2, 6, 8)
+    got = trp.conv_patch_zB_relprop(_t(img), _t(w), _t(R), 16)
+    assert got.shape == img.shape
+    for i in range(2):
+        _close(got[i], jrp.conv_patch_zB_relprop(
+            jnp.asarray(img[i]), jnp.asarray(w), jnp.asarray(R[i]), 16))
+
+
 @pytest.mark.parametrize("start_layer", [0, 2])
 @pytest.mark.parametrize("row_normalize", [False, True])
 def test_compute_rollout(x64, start_layer, row_normalize):

@@ -107,21 +107,27 @@ def test_unported_options_raise():
     cfg = ViTConfig(**SMALL)
     ex = Explainer(sd, cfg, device="cpu")
     img = np.zeros((1, 3, 32, 32))
-    for kw in (dict(method="rollout"), dict(method="attn_gradcam"),
-               dict(alpha=2.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex.explain(img, **kw)
     with pytest.raises(ValueError):
         ex.explain(img, method="nonsense")
-    for kw in (dict(variant="lrp"),
-               dict(matmul_precision="bfloat16", relprop_precision="float32"),
-               dict(attn_precision="float32")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the non-kernel branch (lrp, alpha != 1, the other methods) at a
+    # reduced-precision base
+    ex_bf16 = Explainer(sd, cfg, device="cpu", matmul_precision="bfloat16")
+    for kw in (dict(method="rollout"), dict(method="attn_gradcam"),
+               dict(alpha=2.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            ex_bf16.explain(img, **kw)
+    for kw, match in (
+            (dict(variant="lrp", matmul_precision="bfloat16"), "ROADMAP A4"),
+            (dict(matmul_precision="bfloat16", relprop_precision="float32"),
+             "ROADMAP A4"),
+            (dict(attn_precision="float32"), "ROADMAP A4"),
+            (dict(matmul_precision="tensorfloat32",
+                  relprop_precision="bfloat16", attn_precision="float32",
+                  block_kernel=False), "ROADMAP B")):
+        with pytest.raises(NotImplementedError, match=match):
             Explainer(sd, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         make_explain_fn(cfg, "cpu", with_diagnostics=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.generate_rollout(img)
 
 
 def test_uint8_preprocess_matches_float_input():

@@ -30,8 +30,8 @@
 // attn_rev.cu without the forward recompute. Intermediates go through one
 // workspace in device memory. The rule epilogues, the add rule and the
 // column and head-mean passes live in rules.cuh, shared with the BERT
-// reverse kernels.
-#include "rules.cuh"
+// reverse kernels; the MLP half in mlp_rev.cuh, shared with mlp_rev.cu.
+#include "mlp_rev.cuh"
 
 namespace te {
 
@@ -183,19 +183,14 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
               int rule, int mlp, cudaStream_t stream) {
   if (hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
   const int D = H * hd, rows = B * n;
-  const size_t rD = (size_t)rows * D, rM = (size_t)rows * M;
+  const size_t rD = (size_t)rows * D;
   const size_t hnn = (size_t)B * H * n * n;
   Carve ws{work};
   float* xn1 = ws.take<float>(rD);
   float* xn2 = ws.take<float>(rD);
-  float* t_M = ws.take<float>(rM);      // g_h1, then the fc1 rule's S
-  float* hg = ws.take<float>(rM);
-  float* R2 = ws.take<float>(rM);
-  float* t_D = ws.take<float>(rD);      // g_xn2, then g_xn1
+  const MlpRevWork mw(ws, B, rows, D, M);
+  float* t_D = mw.t_D;                  // g_xn2, then g_xn1
   float* g_mid = ws.take<float>(rD);
-  float* Ca = ws.take<float>(rD);
-  float* Cb = ws.take<float>(rD);
-  float* Sr = ws.take<float>(rD);
   float* Rm = ws.take<float>(rD);
   float* g_om = ws.take<float>(rD);
   float* Ra1 = ws.take<float>(rD);
@@ -209,7 +204,7 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
   float* S2 = ws.take<float>(hnn);
   float* GCP = ws.take<float>(hnn);
   float* S1 = ws.take<float>((size_t)B * H * n * hd);
-  float* partials = ws.take<float>((size_t)B * kAddChunks * 3);
+  float* partials = mw.partials;
   if (work == nullptr) {
     *work_bytes = ws.used;
     return 0;
@@ -218,30 +213,11 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
   const uint16_t *q_hi = w.wqkv_hi, *q_lo = w.wqkv_lo;
   const uint16_t *p_hi = w.wproj_hi, *p_lo = w.wproj_lo;
 
-  // MLP half
+  // MLP half (mlp_rev.cuh, shared with mlp_rev.cu)
   TE_TRY(ln_fwd(x_in, w.ln1s, w.ln1b, xn1, rows, D, eps, stream));
   TE_TRY(ln_fwd(x_mid, w.ln2s, w.ln2b, xn2, rows, D, eps, stream));
-  TE_TRY(gemm<false, false, false>(
-      mlp, GemmArgs{g_out, w.w2_hi, w.w2_lo, D, M, rows, M, D},
-      EpiGeluGrad{t_M, hg, sv.fc1_pre, w.b1, M}, stream));
-  TE_TRY(gemm<false, false, false>(
-      mlp, GemmArgs{t_M, w.w1_hi, w.w1_lo, M, D, rows, D, M},
-      EpiStore{t_D, D}, stream));
-  TE_TRY(ln_bwd(t_D, x_mid, w.ln2s, g_out, g_mid, rows, D, eps, stream));
-  TE_TRY(add_rule(x_mid, sv.fc2_pre, w.b2, R, partials, Ca, Cb, B, n, D,
-                  stream));
-  TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{hg, w.w2_hi, w.w2_lo, M, M, rows, D, M},
-      EpiRuleDen{Sr, Cb, sv.fc2_pre, D}, stream));
-  TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sr, w.w2_hi, w.w2_lo, D, M, rows, M, D},
-      EpiRuleNum{R2, hg, M}, stream));
-  TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{xn2, w.w1_hi, w.w1_lo, D, D, rows, M, D},
-      EpiRuleDen{t_M, R2, sv.fc1_pre, M}, stream));
-  TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{t_M, w.w1_hi, w.w1_lo, M, D, rows, D, M},
-      EpiRuleClone{Rm, xn2, Ca, x_mid, D}, stream));
+  TE_TRY(mlp_rev_half(x_mid, xn2, g_out, R, sv.fc1_pre, sv.fc2_pre, w, mw,
+                      g_mid, Rm, B, n, D, M, eps, mlp, rule, stream));
 
   // add1 split and proj rule
   TE_TRY(gemm<false, false, false>(

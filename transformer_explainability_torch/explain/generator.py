@@ -1,19 +1,22 @@
-"""Explanation entry points of the port: ``transformer_attribution`` on ViT.
+"""Explanation entry points of the port: the ViT methods.
 
-Port of ``transformer_explainability_tpu/explain/generator.py`` for the
-method ``transformer_attribution`` (and its alias ``grad``) under the
+Port of ``transformer_explainability_tpu/explain/generator.py``: every
+method of :data:`METHODS` (the reference's ``LRP.generate_LRP`` methods and
+its ``Baselines``), the rule variants ``ours`` and ``lrp``, any α, and the
 precision presets ``float32`` (exact FP32), ``production`` and ``bfloat16``
-(:data:`PRECISION_PRESETS`, :func:`precision_kwargs`):
+(:data:`PRECISION_PRESETS`, :func:`precision_kwargs`). JAX's kernel gate
+decides the branch of :mod:`..models.vit`:
 
-    1. :func:`..models.vit.forward_collect` — forward with the attention
-       core in the ``attn_fwd_core`` kernel (float32), or whole blocks in the
-       ``block_fwd_core`` megakernel with the rich anchors (the presets);
-    2. :func:`..models.vit.reverse_pass` — class gradient and LRP relevance
-       together, block by block, in ``attn_rev_core`` (float32) or the
-       ``block_rev_core`` megakernel, each block emitting its head-mean
-       ``(grad ⊙ cam)⁺`` map;
-    3. the ``rollout_from_grad_cam`` kernel chains the maps; the heatmap is
-       the CLS row over the patch tokens.
+  * ``transformer_attribution`` (and its alias ``grad``) with variant
+    ``ours`` at α=1 take the kernel branch: the forward with the attention
+    core in ``attn_fwd_core`` (float32; bfloat16 with ``block_kernel=False``)
+    or whole blocks in ``block_fwd_core``; the reverse with ``attn_rev_core``
+    (and ``mlp_rev_core`` on the split path) or ``block_rev_core``, each
+    block emitting its head-mean ``(grad ⊙ cam)⁺`` map; the
+    ``rollout_from_grad_cam`` kernel chains the maps;
+  * every other method and option takes the non-kernel branch, exact
+    products at the float32 base, with the rollout kernel where the method
+    rolls out.
 
 In every preset the embedding, the final norm and the head are exact
 products in the parameters' dtype (float32 on a card needs TF32 off).
@@ -22,9 +25,10 @@ The JAX package jit-compiles one program per configuration and pads
 batches to power-of-two buckets; here PyTorch runs eagerly, the batch is
 the leading dimension, and any batch size runs as it is.
 
-Other methods, the ``lrp`` variant, α ≠ 1, the precision combinations the
-kernels do not run and ``with_diagnostics`` raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The non-kernel branch at the reduced-precision bases, the tensorfloat32
+split arm, the precision combinations the kernels do not run and
+``with_diagnostics`` raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -40,10 +44,21 @@ from transformer_explainability_torch.ops import precision as prec
 
 Tensor = torch.Tensor
 
-METHODS = ("transformer_attribution", "grad")
-# the JAX package's other ViT methods (generator.METHODS)
-NOT_PORTED_METHODS = ("rollout", "full", "last_layer", "last_layer_attn",
-                      "second_layer", "attn_gradcam", "rollout_attn")
+# method name -> needs (attention gradients, relevance chain) (JAX
+# generator.METHODS); each method's output is documented at explain_batch
+METHODS = {
+    "transformer_attribution": (True, True),
+    "grad": (True, True),                    # alias of the above
+    "rollout": (False, True),                # relevance-cam rollout
+    "full": (False, True),                   # full LRP to the pixels
+    "last_layer": (False, True),             # + gradients with is_ablation
+    "last_layer_attn": (False, False),       # raw attention
+    "second_layer": (False, True),
+    "attn_gradcam": (True, False),           # Baselines.generate_cam_attn
+    "rollout_attn": (False, False),          # Baselines.generate_rollout
+}
+# the methods whose reverse folds (grad ⊙ cam)⁺ into each block
+FUSED_METHODS = ("transformer_attribution", "grad")
 
 # Named precision presets (JAX generator.PRECISION_PRESETS). "float32" is
 # exact FP32; "production" and "bfloat16" run the block megakernels with
@@ -92,42 +107,52 @@ def _one_hot_index(logits: Tensor, index: Tensor, num_classes: int) -> Tensor:
     return torch.nn.functional.one_hot(idx, num_classes).to(logits.dtype)
 
 
+def uses_kernel_branch(method: str, alpha: float = 1.0,
+                       variant: str = "ours") -> bool:
+    """JAX's kernel gate (``generator._explain_single_impl``): the fused
+    method with variant ``ours`` at α=1 takes the kernel branch."""
+    return method in FUSED_METHODS and variant == "ours" and alpha == 1.0
+
+
 def check_supported(method: str = "transformer_attribution",
                     alpha: float = 1.0, variant: str = "ours",
                     matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
                     mlp_precision: Optional[str] = None,
-                    with_diagnostics: bool = False) -> None:
-    """Raise for every configuration this slice of the port does not run."""
-    if method in NOT_PORTED_METHODS:
-        raise NotImplementedError(f"method {method!r} is not ported yet "
-                                  "(ROADMAP A4)")
+                    with_diagnostics: bool = False,
+                    block_kernel: bool = True) -> None:
+    """Raise for every configuration the port does not run."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: "
-                         f"{sorted(METHODS + NOT_PORTED_METHODS)}")
-    if variant != "ours":
-        raise NotImplementedError(f"variant {variant!r} is not ported yet "
-                                  "(ROADMAP A3, the non-kernel reverse)")
-    if alpha != 1.0:
-        raise NotImplementedError("alpha != 1 is not ported yet (ROADMAP A3, "
-                                  "the non-kernel reverse)")
+                         f"{sorted(METHODS)}")
+    if variant not in ("ours", "lrp"):
+        raise ValueError(f"unknown variant {variant!r} ('ours' or 'lrp')")
     check_precision(matmul_precision, relprop_precision, attn_precision,
-                    mlp_precision)
+                    mlp_precision, block_kernel)
+    if (not uses_kernel_branch(method, alpha, variant)
+            and matmul_precision != "float32"):
+        raise NotImplementedError(
+            f"method {method!r}, variant {variant!r}, alpha {alpha} take the "
+            "non-kernel branch, which runs at the float32 base only: its "
+            "products at other bases need a fidelity measurement on the card "
+            "first (ROADMAP A4)")
     if with_diagnostics:
         raise NotImplementedError("with_diagnostics is not ported yet "
-                                  "(ROADMAP A4)")
+                                  "(ROADMAP A11)")
 
 
 def check_precision(matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
-                    mlp_precision: Optional[str] = None) -> None:
-    """The JAX gates of the kernel path (generator.py, vit.py): float32
+                    mlp_precision: Optional[str] = None,
+                    block_kernel: bool = True) -> None:
+    """The JAX gates of the kernel paths (generator.py, vit.py): float32
     runs the B4/B5 path with no islands; bfloat16 / tensorfloat32 run the
     block megakernels when no weight-consuming island exceeds the base, the
     rule products are bfloat16 and the attention's are float32 or
-    bfloat16."""
+    bfloat16; with ``block_kernel=False`` the bfloat16 base runs the split
+    path (B4, B5, B6) under the same island rules."""
     for p in (matmul_precision, relprop_precision, attn_precision,
               mlp_precision):
         if p is not None and p not in prec.MODES:
@@ -150,6 +175,11 @@ def check_precision(matmul_precision: str = "float32",
         raise NotImplementedError(
             "tensorfloat32 rule or attention products have no block-kernel "
             "instantiation yet (ROADMAP B, raw tensorfloat32)")
+    if not block_kernel and matmul_precision != "bfloat16":
+        raise NotImplementedError(
+            "the split path (block_kernel=False) runs at the bfloat16 base; "
+            "the tensorfloat32 split arm waits for an on-card fidelity "
+            "measurement (ROADMAP B, the tf32 split arm)")
 
 
 def _check_fp32_matmul(device: torch.device, dtype: torch.dtype) -> None:
@@ -170,26 +200,68 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
                   matmul_precision: str = "float32",
                   relprop_precision: Optional[str] = None,
                   attn_precision: Optional[str] = None,
-                  mlp_precision: Optional[str] = None) -> Tensor:
-    """Batched ``transformer_attribution`` (JAX ``generator.explain_single``
-    vmapped): ``images (B, C, H, W)`` in the model's dtype and device,
-    ``indices (B,)`` int64 with −1 for the argmax class. Returns the CLS-row
-    relevance over the patches, ``(B, num_patches)``. ``ops`` selects the
-    kernels (default) or, for a reference run, their plain versions; the
-    precision arguments are those of :data:`PRECISION_PRESETS`."""
+                  mlp_precision: Optional[str] = None,
+                  is_ablation: bool = False, alpha: float = 1.0,
+                  variant: str = "ours", block_kernel: bool = True) -> Tensor:
+    """Batched explanation (JAX ``generator.explain_single`` vmapped):
+    ``images (B, C, H, W)`` in the model's dtype and device, ``indices
+    (B,)`` int64 with −1 for the argmax class. Returns, per method (JAX's
+    shapes with a leading batch dimension): the CLS-row relevance over the
+    patches ``(B, num_patches)``; ``full`` the pixel relevance ``(B, H, W)``;
+    ``attn_gradcam`` a ``(B, grid, grid)`` map min-max normalised per sample.
+    ``ops`` selects the kernels (default) or, for a reference run, their
+    plain versions; the precision arguments are those of
+    :data:`PRECISION_PRESETS`; ``block_kernel=False`` takes the split path
+    at the bfloat16 base (JAX's ``TE_TPU_NO_BLOCK_KERNEL=1``)."""
     precision = dict(matmul_precision=matmul_precision,
                      attn_precision=attn_precision,
                      mlp_precision=mlp_precision)
-    check_supported(method, relprop_precision=relprop_precision, **precision)
+    check_supported(method, alpha, variant, relprop_precision=relprop_precision,
+                    block_kernel=block_kernel, **precision)
     cfg = model.cfg
     _check_fp32_matmul(images.device, images.dtype)
-    logits, res = vit_mod.forward_collect(model, images, ops, **precision)
-    onehot = _one_hot_index(logits, indices, cfg.num_classes)
-    _, gc = vit_mod.reverse_pass(model, res, onehot, ops=ops,
-                                 relprop_precision=relprop_precision,
-                                 **precision)
-    joint = ops.rollout_from_grad_cam(gc, start_layer)
-    return joint[:, 0, cfg.num_prefix_tokens:]
+    needs_grads = METHODS[method][0] or (
+        is_ablation and method in ("last_layer", "second_layer"))
+    needs_relprop = METHODS[method][1]
+    fused = method in FUSED_METHODS
+    kernel = uses_kernel_branch(method, alpha, variant)
+    branch = dict(use_attn_kernel=kernel, block_kernel=block_kernel)
+    logits, res = vit_mod.forward_collect(model, images, ops, **precision,
+                                          **branch)
+    R_tokens = cams = grads = None
+    if needs_grads or needs_relprop:
+        onehot = _one_hot_index(logits, indices, cfg.num_classes)
+        R_tokens, cams, grads = vit_mod.reverse_pass(
+            model, res, onehot, alpha, variant, ops,
+            relprop_precision=relprop_precision, need_grads=needs_grads,
+            need_relprop=needs_relprop, fuse_grad_cam=fused, **precision,
+            **branch)
+    P = cfg.num_prefix_tokens
+    if fused or method == "rollout":
+        return ops.rollout_from_grad_cam(cams, start_layer)[:, 0, P:]
+    if method == "full":
+        return vit_mod.full_lrp_input_relevance(model, res, R_tokens, images,
+                                                variant)
+    if method in ("last_layer", "second_layer"):
+        li = cfg.depth - 1 if method == "last_layer" else 1
+        cam = cams[:, li]
+        if is_ablation:
+            cam = grads[:, li] * cam
+        return cam.clamp(min=0).mean(dim=1)[:, 0, P:]
+    if method == "last_layer_attn":
+        return res.attns[:, -1].clamp(min=0).mean(dim=1)[:, 0, P:]
+    if method == "attn_gradcam":
+        # GradCAM on the last attention map, per head, min-max normalised
+        g, B = cfg.grid, images.shape[0]
+        cam = res.attns[:, -1, :, 0, P:].reshape(B, -1, g, g)
+        grad = grads[:, -1, :, 0, P:].reshape(B, -1, g, g)
+        cam = (cam * grad.mean(dim=(2, 3), keepdim=True)).mean(dim=1)
+        cam = cam.clamp(min=0)
+        lo = cam.amin(dim=(1, 2), keepdim=True)
+        return (cam - lo) / (cam.amax(dim=(1, 2), keepdim=True) - lo)
+    # rollout_attn: the raw-attention rollout, row-normalised
+    return ops.rollout_from_grad_cam(res.attns, start_layer,
+                                     row_normalize=True)[:, 0, P:]
 
 
 def _resolve_device(device) -> torch.device:
@@ -202,29 +274,33 @@ def _resolve_device(device) -> torch.device:
 
 def make_explain_fn(cfg: ViTConfig, device,
                     method: str = "transformer_attribution",
-                    start_layer: int = 0, alpha: float = 1.0,
-                    variant: str = "ours", matmul_precision: str = "float32",
+                    start_layer: int = 0, is_ablation: bool = False,
+                    alpha: float = 1.0, variant: str = "ours",
+                    matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
                     mlp_precision: Optional[str] = None,
                     with_diagnostics: bool = False,
-                    preprocess: Optional[str] = None) -> Callable:
-    """Build ``fn(model, images, indices) -> heatmaps (B, num_patches)``
-    (JAX ``generator.make_explain_fn``). ``images`` are ``(B, C, H, W)``, or
-    raw ``(B, H, W, C)`` uint8 frames with ``preprocess="uint8"``;
+                    preprocess: Optional[str] = None,
+                    block_kernel: bool = True) -> Callable:
+    """Build ``fn(model, images, indices) -> heatmaps`` (JAX
+    ``generator.make_explain_fn``), shaped per method as
+    :func:`explain_batch`. ``images`` are ``(B, C, H, W)``, or raw
+    ``(B, H, W, C)`` uint8 frames with ``preprocess="uint8"``;
     ``indices (B,)``, −1 for the argmax class. Inputs may be numpy arrays or
     tensors; they are moved to ``device`` and the model's dtype."""
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision,
-                    with_diagnostics)
+                    with_diagnostics, block_kernel)
     if preprocess not in (None, "uint8"):
         raise ValueError(f"unknown preprocess {preprocess!r} "
                          "(None or 'uint8')")
     device = _resolve_device(device)
-    precision = dict(matmul_precision=matmul_precision,
-                     relprop_precision=relprop_precision,
-                     attn_precision=attn_precision,
-                     mlp_precision=mlp_precision)
+    kw = dict(matmul_precision=matmul_precision,
+              relprop_precision=relprop_precision,
+              attn_precision=attn_precision, mlp_precision=mlp_precision,
+              is_ablation=is_ablation, alpha=alpha, variant=variant,
+              block_kernel=block_kernel)
 
     def fn(model: vit_mod.VisionTransformer, images, indices) -> Tensor:
         if model.cfg != cfg:
@@ -236,7 +312,7 @@ def make_explain_fn(cfg: ViTConfig, device,
         images = images.to(dtype)
         idx = torch.as_tensor(indices, device=device).to(torch.int64)
         return explain_batch(model, images, idx.reshape(images.shape[0]),
-                             start_layer, method, **precision)
+                             start_layer, method, **kw)
 
     return fn
 
@@ -245,18 +321,22 @@ class Explainer:
     """Convenience wrapper around a model built from ``params`` (a timm-named
     state dict, e.g. from :func:`..models.vit.init_params` or
     :func:`..params.convert.vit_params_from_jax`) on ``device``, in the
-    params' dtype (JAX ``generator.Explainer``). The precision arguments
-    are those of :data:`PRECISION_PRESETS`, e.g.
-    ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``."""
+    params' dtype (JAX ``generator.Explainer``; the reference's ``LRP`` and
+    ``Baselines``). The precision arguments are those of
+    :data:`PRECISION_PRESETS`, e.g.
+    ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``;
+    ``block_kernel=False`` takes the split path at the bfloat16 base."""
 
     def __init__(self, params: Mapping[str, Tensor], cfg: ViTConfig, device,
                  variant: str = "ours", matmul_precision: str = "float32",
                  relprop_precision=None, attn_precision=None,
-                 mlp_precision=None):
+                 mlp_precision=None, block_kernel: bool = True):
+        self.variant = variant
         self.precision = dict(matmul_precision=matmul_precision,
                               relprop_precision=relprop_precision,
                               attn_precision=attn_precision,
-                              mlp_precision=mlp_precision)
+                              mlp_precision=mlp_precision,
+                              block_kernel=block_kernel)
         check_supported(variant=variant, **self.precision)
         self.device = _resolve_device(device)
         self.cfg = cfg
@@ -268,10 +348,11 @@ class Explainer:
 
     def explain(self, images, indices=None,
                 method: str = "transformer_attribution",
-                start_layer: int = 0, alpha: float = 1.0) -> Tensor:
+                start_layer: int = 0, is_ablation: bool = False,
+                alpha: float = 1.0) -> Tensor:
         """``images (B, C, H, W)`` or one ``(C, H, W)``; ``indices`` per
-        sample, −1 (or None for all) meaning the argmax class. Returns
-        ``(B, num_patches)`` on the explainer's device."""
+        sample, −1 (or None for all) meaning the argmax class. Returns the
+        method's maps (:func:`explain_batch`) on the explainer's device."""
         images = torch.as_tensor(images)
         if images.ndim == 3:
             images = images[None]
@@ -279,14 +360,14 @@ class Explainer:
         if indices is None:
             indices = torch.full((B,), -1, dtype=torch.int64)
         fn = make_explain_fn(self.cfg, self.device, method, start_layer,
-                             alpha, **self.precision)
+                             is_ablation, alpha, self.variant,
+                             **self.precision)
         return fn(self.model, images, indices)
 
     # the reference Baselines API surface
-    def generate_rollout(self, images, start_layer: int = 0):
-        raise NotImplementedError("rollout_attn is not ported yet "
-                                  "(ROADMAP A4)")
+    def generate_rollout(self, images, start_layer: int = 0) -> Tensor:
+        return self.explain(images, method="rollout_attn",
+                            start_layer=start_layer)
 
-    def generate_cam_attn(self, images, indices=None):
-        raise NotImplementedError("attn_gradcam is not ported yet "
-                                  "(ROADMAP A4)")
+    def generate_cam_attn(self, images, indices=None) -> Tensor:
+        return self.explain(images, indices, method="attn_gradcam")

@@ -1,26 +1,38 @@
-"""Explainable Vision Transformer in PyTorch: the fused-kernel paths.
+"""Explainable Vision Transformer in PyTorch.
 
-Port of ``transformer_explainability_tpu/models/vit.py`` restricted to the
-fused-kernel branches that ``transformer_attribution`` takes
-(``use_attn_kernel=True``):
+Port of ``transformer_explainability_tpu/models/vit.py``: the forward that
+collects what the reverse needs, and the reverse pass in which the class
+gradient and the LRP relevance advance together block by block. Its
+branches are JAX's:
 
-  * ``matmul_precision="float32"`` (exact FP32): :func:`forward_collect` is
-    the JAX ``step_lite`` forward (LayerNorm and the Linear products in
-    PyTorch, the attention core in :func:`..ops.kernels.attn_fwd_core`) and
-    :func:`reverse_pass` the JAX ``kstep`` reverse with the plain MLP arm and
-    :func:`..ops.kernels.attn_rev_core`. Per block three anchors are saved
-    (block input, post-attention midpoint, merged attention output).
-  * ``matmul_precision`` ``"bfloat16"`` or ``"tensorfloat32"`` (the
-    ``production`` and ``bfloat16`` presets): the whole-block megakernels,
-    JAX ``step_fused_rich`` (:func:`..ops.kernels.block_fwd_core`, saving
-    the rich anchors qkv_pre, proj_pre, dots, probs, fc1_pre, fc2_pre too)
-    and ``kstep_block`` (:func:`..ops.kernels.block_rev_core` from the six
-    saved anchors). The block weights are prepared once per model and mode
-    (:meth:`VisionTransformer.block_params`).
+  * the kernel branch (``use_attn_kernel=True``; the generator takes it for
+    ``transformer_attribution`` with variant ``ours`` at α=1), three anchors
+    per block (block input, post-attention midpoint, merged attention
+    output), each block yielding its head-mean ``(grad ⊙ cam)⁺`` map:
 
-In both, the class gradient and the LRP relevance advance together block by
-block and each block yields its head-mean ``(grad ⊙ cam)⁺`` map; the
-gradients are written by hand, autograd is not used. The embedding, the
+    - ``matmul_precision="float32"`` (exact FP32): the JAX ``step_lite``
+      forward (LayerNorm and the Linear products in PyTorch, the attention
+      core in :func:`..ops.kernels.attn_fwd_core`) and the ``kstep`` reverse
+      with the plain MLP arm and :func:`..ops.kernels.attn_rev_core`;
+    - ``"bfloat16"`` / ``"tensorfloat32"`` (the ``production`` and
+      ``bfloat16`` presets): the whole-block megakernels, JAX
+      ``step_fused_rich`` (:func:`..ops.kernels.block_fwd_core`, saving the
+      rich anchors qkv_pre, proj_pre, dots, probs, fc1_pre, fc2_pre too) and
+      ``kstep_block`` (:func:`..ops.kernels.block_rev_core`);
+    - ``"bfloat16"`` with ``block_kernel=False`` (the split path, JAX's
+      ``TE_TPU_NO_BLOCK_KERNEL=1``): ``step_lite`` and ``kstep`` with every
+      product outside the kernels in bf16 (:func:`..ops.precision.kdot`, JAX's
+      ambient ``default_matmul_precision``), the attention kernels in their
+      bf16 modes and :func:`..ops.kernels.mlp_rev_core` for the MLP half;
+
+  * the non-kernel branch (``use_attn_kernel=False``; every other method,
+    variant ``lrp`` and α ≠ 1), exact products at the float32 base only: the
+    forward keeps the block inputs, midpoints and post-softmax attention
+    maps; the reverse recomputes each block's activations
+    (:func:`_block_acts_from_anchors`) and runs :func:`block_backward` and
+    :func:`block_relprop` on them, fused or not.
+
+The gradients are written by hand, autograd is not used. The embedding, the
 final norm and the head stay exact products in the parameters' dtype.
 
 The module holds parameters under timm's names (``blocks.{i}.attn.qkv``,
@@ -43,6 +55,7 @@ from transformer_explainability_torch.ops import precision as prec
 from transformer_explainability_torch.ops import relprop as rp
 from transformer_explainability_torch.ops import block_math as bm
 from transformer_explainability_torch.ops.block_math import BlockParams
+from transformer_explainability_torch.ops.precision import kdot, transpose
 
 Tensor = torch.Tensor
 
@@ -147,16 +160,19 @@ class VisionTransformer(nn.Module):
         return forward_collect(self, img)[0]
 
     def block_params(self, i: int, mode: str) -> BlockParams:
-        """Block ``i``'s parameters for the megakernels, its four weights
-        prepared for ``mode`` (JAX ``prepare_block_weights``). The split is
-        made once per model and mode and kept; it is made again only when a
-        weight tensor is replaced or changed in place."""
+        """Block ``i``'s parameters for the block kernels and the products
+        of ``mode``, its four weights prepared for it (JAX
+        ``prepare_block_weights``); ``"float32"`` takes the weights as they
+        are. The split is made once per model and mode and kept; it is made
+        again only when a weight tensor is replaced or changed in place."""
         blk = self.blocks[i]
         lins = (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
         key = tuple((lin.weight.data_ptr(), lin.weight._version)
                     for lin in lins)
         cache = self.__dict__.setdefault("_prepared", {})
-        if cache.get((i, mode), (None,))[0] != key:
+        if mode == "float32":
+            cache[(i, mode)] = (key, tuple(lin.weight for lin in lins))
+        elif cache.get((i, mode), (None,))[0] != key:
             cache[(i, mode)] = (key, tuple(prec.prepare_weight(lin.weight,
                                                                mode)
                                            for lin in lins))
@@ -239,7 +255,8 @@ class Residuals(NamedTuple):
     cat_x: Tensor           # tokens before the pos-embed add (B, n, D)
     x_ins: List[Tensor]     # per block: input (B, n, D)
     x_mids: List[Tensor]    # per block: post-attention midpoint (B, n, D)
-    outs: List[Tensor]      # per block: merged attention output (B, n, D)
+    # per block: merged attention output (B, n, D); kernel branch only
+    outs: Optional[List[Tensor]]
     x_final: Tensor         # last block output (B, n, D)
     xn: Tensor              # final norm output (B, n, D)
     cls: Tensor             # pooled CLS (B, D), the head's input
@@ -251,6 +268,8 @@ class Residuals(NamedTuple):
     probs: Optional[List[Tensor]] = None
     fc1_pres: Optional[List[Tensor]] = None    # (B, n, M)
     fc2_pres: Optional[List[Tensor]] = None    # (B, n, D)
+    # post-softmax attention (B, L, h, n, n); non-kernel branch only
+    attns: Optional[Tensor] = None
 
 
 def embed(model: VisionTransformer, img: Tensor) -> Tuple[Tensor, Tensor]:
@@ -281,37 +300,75 @@ def megakernel_base(matmul_precision: str) -> bool:
     return matmul_precision in ("bfloat16", "tensorfloat32")
 
 
+def _lite_mode(matmul_precision: str, block_kernel: bool) -> Optional[str]:
+    """The product mode of the ``step_lite`` / ``kstep`` blocks, or None
+    where the kernel branch runs the megakernels. Raises for the
+    tensorfloat32 base without them (JAX takes its plain MLP arm there at
+    the ambient tf32 precision, which has no CPU oracle)."""
+    if not megakernel_base(matmul_precision):
+        return "float32"
+    if block_kernel:
+        return None
+    if matmul_precision != "bfloat16":
+        raise NotImplementedError(
+            "the split path (block_kernel=False) runs at the bfloat16 base; "
+            "at tensorfloat32 JAX takes its plain MLP arm at the ambient "
+            "precision, which waits for an on-card fidelity measurement "
+            "(ROADMAP B, the tf32 split arm)")
+    return "bfloat16"
+
+
+def _exact_only(*precisions: Optional[str]) -> None:
+    """The non-kernel branch runs exact products only."""
+    if (precisions[0] != "float32"
+            or any(p is not None for p in precisions[1:])):
+        raise NotImplementedError(
+            "the non-kernel branch runs at the float32 base without islands; "
+            "other bases need a fidelity measurement on the card first "
+            "(ROADMAP A4)")
+
+
 def forward_collect(model: VisionTransformer, img: Tensor,
                     ops: K.AttnOps = K.KERNEL_OPS,
                     matmul_precision: str = "float32",
                     attn_precision: Optional[str] = None,
-                    mlp_precision: Optional[str] = None
+                    mlp_precision: Optional[str] = None,
+                    use_attn_kernel: bool = True,
+                    block_kernel: bool = True
                     ) -> Tuple[Tensor, Residuals]:
     """Forward pass returning logits ``(B, num_classes)`` and the residuals
-    (JAX ``vit.forward_collect``, ``use_attn_kernel=True``: the
-    ``step_lite`` block at float32, the rich-anchor megakernel
-    ``step_fused_rich`` at bfloat16 / tensorfloat32). ``img`` is
-    ``(B, C, H, W)``."""
+    (JAX ``vit.forward_collect``). ``img`` is ``(B, C, H, W)``. With
+    ``use_attn_kernel``: the ``step_lite`` block at float32 and, with
+    ``block_kernel=False``, at bfloat16; the rich-anchor megakernel
+    ``step_fused_rich`` at bfloat16 / tensorfloat32. Without: the plain
+    blocks, keeping the post-softmax attention maps."""
     cfg = model.cfg
-    scale = cfg.head_dim ** -0.5
     cat_x, x0 = embed(model, img)
-    if megakernel_base(matmul_precision):
-        if prec.islands_exceed_base(matmul_precision, mlp_precision):
-            raise NotImplementedError("an MLP precision above the base is "
-                                      "not ported yet (ROADMAP A4)")
+    if not use_attn_kernel:
+        _exact_only(matmul_precision, attn_precision, mlp_precision)
+        return _forward_acts(model, cat_x, x0)
+    if (megakernel_base(matmul_precision)
+            and prec.islands_exceed_base(matmul_precision, mlp_precision)):
+        raise NotImplementedError("an MLP precision above the base is "
+                                  "not ported yet (ROADMAP A4)")
+    mxu = _lite_mode(matmul_precision, block_kernel)
+    attn_mxu = prec.mxu_name(attn_precision, matmul_precision)
+    if mxu is None:
         return _forward_blocks(model, cat_x, x0, ops, matmul_precision,
-                               prec.mxu_name(attn_precision, matmul_precision),
+                               attn_mxu,
                                mlp_precision and prec.mxu_name(mlp_precision))
+    scale = cfg.head_dim ** -0.5
     x = x0
     x_ins, x_mids, outs = [], [], []
-    for blk in model.blocks:
-        qkv = _bias(_pre(_layernorm(x, blk.norm1), blk.attn.qkv), blk.attn.qkv)
-        out_merged = ops.attn_fwd_core(qkv, cfg.num_heads, cfg.head_dim, scale)
-        x_mid = x + _bias(_pre(out_merged, blk.attn.proj), blk.attn.proj)
-        h1 = _bias(_pre(_layernorm(x_mid, blk.norm2), blk.mlp.fc1),
-                   blk.mlp.fc1)
-        hg = torch.nn.functional.gelu(h1, approximate="none")
-        x_out = x_mid + _bias(_pre(hg, blk.mlp.fc2), blk.mlp.fc2)
+    for i, blk in enumerate(model.blocks):
+        p = model.block_params(i, mxu)
+        qkv = kdot(_layernorm(x, blk.norm1), transpose(p.wqkv), mxu) + p.bqkv
+        out_merged = ops.attn_fwd_core(qkv, cfg.num_heads, cfg.head_dim,
+                                       scale, mxu=attn_mxu)
+        x_mid = x + (kdot(out_merged, transpose(p.wproj), mxu) + p.bproj)
+        hg = bm.gelu_exact(kdot(_layernorm(x_mid, blk.norm2),
+                                transpose(p.w1), mxu) + p.b1)
+        x_out = x_mid + (kdot(hg, transpose(p.w2), mxu) + p.b2)
         x_ins.append(x)
         x_mids.append(x_mid)
         outs.append(out_merged)
@@ -352,6 +409,72 @@ def _forward_blocks(model: VisionTransformer, cat_x: Tensor, x0: Tensor,
                                      **keep))
 
 
+class BlockActs(NamedTuple):
+    """One block's activations in forward order (JAX ``vit.BlockActs``),
+    batched."""
+    xn1: Tensor         # norm1 output (B, n, D)
+    qkv: Tensor         # qkv product incl. bias (B, n, 3D), 'n (qkv h d)'
+    q: Tensor           # (B, h, n, hd)
+    k: Tensor
+    v: Tensor
+    attn: Tensor        # post-softmax attention (B, h, n, n)
+    out_merged: Tensor  # attention output, heads merged (B, n, D)
+    attn_out: Tensor    # proj output (B, n, D), add1's second operand
+    xn2: Tensor         # norm2 output (B, n, D)
+    h1: Tensor          # fc1 output, pre-GELU (B, n, M)
+    hg: Tensor          # GELU output (B, n, M)
+    mlp_out: Tensor     # fc2 output (B, n, D), add2's second operand
+
+
+def _block_acts(x_in: Tensor, blk: Block, cfg: ViTConfig,
+                x_mid: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor, BlockActs]:
+    """One block from its input, exact products (JAX ``vit._block_acts``);
+    returns ``(x_mid, x_out, acts)``. A given ``x_mid`` anchor feeds the MLP
+    half instead of the recomputed midpoint (JAX
+    ``_block_acts_from_anchors``)."""
+    qkv_l, proj = blk.attn.qkv, blk.attn.proj
+    xn1 = _layernorm(x_in, blk.norm1)
+    qkv = _bias(_pre(xn1, qkv_l), qkv_l)
+    q, k, v = bm.split_heads(qkv, cfg.num_heads, cfg.head_dim)
+    dots = q @ k.transpose(-1, -2)
+    attn = torch.softmax(dots * cfg.head_dim ** -0.5, dim=-1)
+    out_merged = bm.merge_heads(attn @ v)
+    attn_out = _pre(out_merged, proj) + proj.bias
+    if x_mid is None:
+        x_mid = x_in + attn_out
+    fc1, fc2 = blk.mlp.fc1, blk.mlp.fc2
+    xn2 = _layernorm(x_mid, blk.norm2)
+    h1 = _pre(xn2, fc1) + fc1.bias
+    hg = bm.gelu_exact(h1)
+    mlp_out = _pre(hg, fc2) + fc2.bias
+    return x_mid, x_mid + mlp_out, BlockActs(
+        xn1, qkv, q, k, v, attn, out_merged, attn_out, xn2, h1, hg, mlp_out)
+
+
+def _block_acts_from_anchors(x_in: Tensor, x_mid: Tensor, blk: Block,
+                             cfg: ViTConfig) -> BlockActs:
+    """Every activation of a block recomputed from its two anchors, each by
+    the forward's own operations (JAX ``vit._block_acts_from_anchors``)."""
+    return _block_acts(x_in, blk, cfg, x_mid)[2]
+
+
+def _forward_acts(model: VisionTransformer, cat_x: Tensor,
+                  x0: Tensor) -> Tuple[Tensor, Residuals]:
+    """The non-kernel forward (JAX ``forward_collect``'s checkpointed
+    ``step``): block inputs, midpoints and post-softmax attention maps."""
+    x = x0
+    x_ins, x_mids, attns = [], [], []
+    for blk in model.blocks:
+        x_mid, x_out, acts = _block_acts(x, blk, model.cfg)
+        x_ins.append(x)
+        x_mids.append(x_mid)
+        attns.append(acts.attn)
+        x = x_out
+    return _tail(model, x, Residuals(x0, cat_x, x_ins, x_mids, None, x, None,
+                                     None, attns=torch.stack(attns, dim=1)))
+
+
 # ---------------------------------------------------------------------------
 # Reverse: hand-written gradients + LRP relevance, block by block
 # ---------------------------------------------------------------------------
@@ -361,45 +484,145 @@ def _layernorm_bwd(g_y: Tensor, x: Tensor, ln: nn.LayerNorm) -> Tensor:
     return bm.ln_bwd(g_y, x, *bm.ln_stats(x, ln.eps), ln.weight)
 
 
+def block_backward(g_out: Tensor, x_in: Tensor, x_mid: Tensor,
+                   acts: BlockActs, blk: Block, cfg: ViTConfig
+                   ) -> Tuple[Tensor, Tensor]:
+    """Hand-written VJP of one block from its activations (JAX
+    ``vit.block_backward``): ``(g_in, g_attn)``, ``g_attn (B, h, n, n)`` the
+    cotangent of the post-softmax attention (the reference's
+    ``register_hook`` gradient)."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    g_h1 = (g_out @ blk.mlp.fc2.weight) * bm.gelu_grad(acts.h1)
+    g_mid = g_out + _layernorm_bwd(g_h1 @ blk.mlp.fc1.weight, x_mid,
+                                   blk.norm2)
+    g_o = bm.to_heads(g_mid @ blk.attn.proj.weight, h, hd)
+    g_attn = g_o @ acts.v.transpose(-1, -2)
+    g_v = acts.attn.transpose(-1, -2) @ g_o
+    inner = (g_attn * acts.attn).sum(dim=-1, keepdim=True)
+    g_dots = acts.attn * (g_attn - inner) * hd ** -0.5
+    g_qkv = bm.merge3(g_dots @ acts.k, g_dots.transpose(-1, -2) @ acts.q,
+                      g_v)
+    g_in = g_mid + _layernorm_bwd(g_qkv @ blk.attn.qkv.weight, x_in,
+                                  blk.norm1)
+    return g_in, g_attn
+
+
+def block_relprop(R: Tensor, x_in: Tensor, x_mid: Tensor, blk: Block,
+                  cfg: ViTConfig, alpha: float = 1.0, variant: str = "ours",
+                  acts: Optional[BlockActs] = None
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """LRP through one block in reverse order (JAX ``vit.block_relprop``,
+    exact products): ``(R_in, attn_cam (B, h, n, n), v_cam (B, h, n, hd))``.
+    The activations are recomputed from the two anchors unless ``acts`` is
+    given."""
+    if acts is None:
+        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg)
+    qkv_l, proj = blk.attn.qkv, blk.attn.proj
+    fc1, fc2 = blk.mlp.fc1, blk.mlp.fc2
+    # the forward's pre-bias products from the activations, as JAX forms
+    # them (the rules' y_pre)
+    qkv_pre = acts.qkv if qkv_l.bias is None else acts.qkv - qkv_l.bias
+
+    # add2 -> fc2 -> fc1 -> clone
+    R1, R2 = rp.add_relprop(x_mid, acts.mlp_out, R, variant)
+    R2 = rp.linear_alphabeta(acts.hg, fc2.weight.t(), R2, alpha, variant,
+                             y_pre=acts.mlp_out - fc2.bias)
+    R2 = rp.linear_alphabeta(acts.xn2, fc1.weight.t(), R2, alpha, variant,
+                             y_pre=acts.h1 - fc1.bias)
+    Rm = rp.clone_relprop(x_mid, [R1, R2])
+
+    # add1 (Z = the stored x_mid) -> proj -> attention -> qkv -> clone
+    R1, R2 = rp.add_relprop(x_in, acts.attn_out, Rm, variant, Z=x_mid)
+    R2 = rp.linear_alphabeta(acts.out_merged, proj.weight.t(), R2, alpha,
+                             variant, y_pre=acts.attn_out - proj.bias)
+    cam = bm.to_heads(R2, cfg.num_heads, cfg.head_dim)
+    cam1, cam_v = rp.einsum_av_relprop(acts.attn, acts.v, cam)
+    cam1, cam_v = cam1 / 2, cam_v / 2
+    cam_q, cam_k = rp.einsum_qk_relprop(acts.q, acts.k, cam1)
+    cam_qkv = bm.merge3(cam_q / 2, cam_k / 2, cam_v)
+    R2 = rp.linear_alphabeta(acts.xn1, qkv_l.weight.t(), cam_qkv, alpha,
+                             variant, y_pre=qkv_pre)
+    return rp.clone_relprop(x_in, [R1, R2]), cam1, cam_v
+
+
+def relprop(model: VisionTransformer, res: Residuals, R_logits: Tensor,
+            alpha: float = 1.0, variant: str = "ours"
+            ) -> Tuple[Tensor, Tensor]:
+    """Relevance from ``R_logits (B, num_classes)`` through the head, the
+    pool, the final norm and the blocks (JAX ``vit.relprop``): the
+    non-kernel reverse without gradients. Returns ``(R_tokens, attn_cams
+    (B, L, h, n, n))``; ``res`` from the non-kernel forward."""
+    R_tokens, attn_cams, _ = reverse_pass(
+        model, res, R_logits, alpha, variant, need_grads=False,
+        fuse_grad_cam=False, use_attn_kernel=False)
+    return R_tokens, attn_cams
+
+
 def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                  alpha: float = 1.0, variant: str = "ours",
                  ops: K.AttnOps = K.KERNEL_OPS,
                  matmul_precision: str = "float32",
                  relprop_precision: Optional[str] = None,
                  attn_precision: Optional[str] = None,
-                 mlp_precision: Optional[str] = None
-                 ) -> Tuple[Tensor, Tensor]:
-    """The fused gradient + relevance reverse pass (JAX ``vit.reverse_pass``
-    with ``fuse_grad_cam=True, use_attn_kernel=True``: the plain MLP arm at
-    float32, ``kstep_block`` at bfloat16 / tensorfloat32). Returns
-    ``(R_tokens (B, n, D), gc (B, L, n, n))``: the relevance at the block-0
-    input and, per block, the head-mean ``(grad ⊙ cam)⁺`` map."""
+                 mlp_precision: Optional[str] = None,
+                 need_grads: bool = True, need_relprop: bool = True,
+                 fuse_grad_cam: bool = True, use_attn_kernel: bool = True,
+                 block_kernel: bool = True
+                 ) -> Tuple[Optional[Tensor], Optional[Tensor],
+                            Optional[Tensor]]:
+    """The gradient + relevance reverse pass (JAX ``vit.reverse_pass``).
+
+    With ``use_attn_kernel`` (``fuse_grad_cam`` and both passes, variant
+    ``ours`` at α=1): ``kstep`` with the plain MLP arm at float32, with
+    ``mlp_rev_core`` at bfloat16 when ``block_kernel`` is off, else
+    ``kstep_block``. Without: the plain ``step`` over the recomputed
+    activations, exact products only.
+
+    Returns ``(R_tokens (B, n, D), gc (B, L, n, n), None)`` with
+    ``fuse_grad_cam``: the relevance at the block-0 input and, per block, the
+    head-mean ``(grad ⊙ cam)⁺`` map; else ``(R_tokens, attn_cams,
+    attn_grads)``, the last two ``(B, L, h, n, n)``, each None where its
+    ``need_*`` flag is off."""
     cfg = model.cfg
-    scale = cfg.head_dim ** -0.5
     head = model.head
+    if fuse_grad_cam and not (need_grads and need_relprop):
+        raise ValueError("fuse_grad_cam needs both passes")
 
     # gradient seed through head -> CLS pool -> final LayerNorm
-    g_xn = torch.zeros_like(res.xn)
-    g_xn[:, 0] = onehot @ head.weight
-    g = _layernorm_bwd(g_xn, res.x_final, model.norm)
+    g = None
+    if need_grads:
+        g_xn = torch.zeros_like(res.xn)
+        g_xn[:, 0] = onehot @ head.weight
+        g = _layernorm_bwd(g_xn, res.x_final, model.norm)
 
     # relevance seed: head rule, then the CLS index_select (the final norm
     # is an identity rule)
-    R_cls = rp.linear_alphabeta(res.cls, head.weight.t(), onehot, alpha,
-                                variant)
-    R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
+    R = None
+    if need_relprop:
+        R_cls = rp.linear_alphabeta(res.cls, head.weight.t(), onehot, alpha,
+                                    variant)
+        R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
 
+    if not use_attn_kernel:
+        _exact_only(matmul_precision, relprop_precision, attn_precision,
+                    mlp_precision)
+        return _reverse_acts(model, res, g, R, alpha, variant, need_grads,
+                             need_relprop, fuse_grad_cam)
+    if not (fuse_grad_cam and variant == "ours" and alpha == 1.0):
+        raise NotImplementedError(
+            "the kernel branch runs the fused method with variant 'ours' at "
+            "alpha 1; the others take use_attn_kernel=False")
+    if (megakernel_base(matmul_precision)
+            and prec.islands_exceed_base(matmul_precision, relprop_precision,
+                                         mlp_precision)):
+        raise NotImplementedError("the block kernels run islands at or "
+                                  "below the base (ROADMAP A4)")
     gcs = [None] * cfg.depth
-    if megakernel_base(matmul_precision):
-        if (prec.islands_exceed_base(matmul_precision, relprop_precision,
-                                     mlp_precision)
-                or variant != "ours" or alpha != 1.0):
-            raise NotImplementedError("the block megakernels run variant "
-                                      "'ours' at alpha 1 with islands at or "
-                                      "below the base (ROADMAP A3, A4)")
+    mxu = _lite_mode(matmul_precision, block_kernel)
+    attn_mxu = prec.mxu_name(attn_precision, matmul_precision)
+    rule_mxu = prec.mxu_name(relprop_precision, matmul_precision)
+    if mxu is None:
         mxu = matmul_precision
-        attn_mxu = prec.mxu_name(attn_precision, mxu)
-        rule_mxu = prec.mxu_name(relprop_precision, mxu)
         mlp_mxu = mlp_precision and prec.mxu_name(mlp_precision)
         for li in reversed(range(cfg.depth)):
             saved = None
@@ -410,56 +633,83 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                 res.x_ins[li], res.x_mids[li], res.outs[li], g, R,
                 model.block_params(li, mxu), cfg.num_heads, cfg.head_dim,
                 cfg.block_ln_eps, mxu, attn_mxu, rule_mxu, mlp_mxu, saved)
-        return R, torch.stack(gcs, dim=1)
+        return R, torch.stack(gcs, dim=1), None
 
+    # kstep: the MLP half in mlp_rev_core on the split path, else the plain
+    # arm; the add1 and proj rules, the attention core, the qkv tails
+    mlp_mxu = prec.mxu_name(mlp_precision, mxu)
+    scale = cfg.head_dim ** -0.5
     for li in reversed(range(cfg.depth)):
-        blk = model.blocks[li]
+        blk, p = model.blocks[li], model.block_params(li, mxu)
         x_in, x_mid, out_merged = res.x_ins[li], res.x_mids[li], res.outs[li]
-        qkv_l, proj_l = blk.attn.qkv, blk.attn.proj
-        fc1, fc2 = blk.mlp.fc1, blk.mlp.fc2
 
         # recompute (the same ops as the forward)
         xn1 = _layernorm(x_in, blk.norm1)
-        qkv_pre = _pre(xn1, qkv_l)
-        qkv = _bias(qkv_pre, qkv_l)
-        proj_pre = _pre(out_merged, proj_l)
-        attn_out = _bias(proj_pre, proj_l)
-        xn2 = _layernorm(x_mid, blk.norm2)
-        fc1_pre = _pre(xn2, fc1)
-        h1 = _bias(fc1_pre, fc1)
-        hg = torch.nn.functional.gelu(h1, approximate="none")
-        fc2_pre = _pre(hg, fc2)
-        mlp_out = _bias(fc2_pre, fc2)
+        qkv_pre = kdot(xn1, transpose(p.wqkv), mxu)
+        proj_pre = kdot(out_merged, transpose(p.wproj), mxu)
+        if mxu == "float32":
+            g_mid, Rm = bm.mlp_rev_math(x_mid, g, R, p, eps=cfg.block_ln_eps,
+                                        mxu=mxu, rule_mxu=rule_mxu)
+        else:
+            g_mid, Rm = ops.mlp_rev_core(x_mid, g, R, p, cfg.block_ln_eps,
+                                         mlp_mxu, rule_mxu)
 
-        # backward, MLP half
-        g_h1 = (g @ fc2.weight) * bm.gelu_grad(h1)
-        g_mid = g + _layernorm_bwd(g_h1 @ fc1.weight, x_mid, blk.norm2)
-
-        # relevance, MLP half: add2 split, fc2 and fc1 rules, clone
-        R1, R2 = rp.add_relprop(x_mid, mlp_out, R, variant)
-        R2 = rp.linear_alphabeta(hg, fc2.weight.t(), R2, alpha, variant,
-                                 y_pre=fc2_pre)
-        R2 = rp.linear_alphabeta(xn2, fc1.weight.t(), R2, alpha, variant,
-                                 y_pre=fc1_pre)
-        Rm = rp.clone_relprop(x_mid, [R1, R2])
-
-        # attention half: add1 split and proj rule, then the fused core
-        g_om = g_mid @ proj_l.weight
-        Ra1, Ra2 = rp.add_relprop(x_in, attn_out, Rm, variant, Z=x_mid)
-        cam_o = rp.linear_alphabeta(out_merged, proj_l.weight.t(), Ra2, alpha,
-                                    variant, y_pre=proj_pre)
+        g_om = kdot(g_mid, p.wproj, mxu)
+        Ra1, Ra2 = rp.add_relprop(x_in, proj_pre + p.bproj, Rm, Z=x_mid)
+        cam_o = bm.linear_rule_math(out_merged, p.wproj, Ra2, proj_pre,
+                                    rule_mxu)
         g_qkv, cam_qkv, gcs[li] = ops.attn_rev_core(
-            qkv, g_om, cam_o, cfg.num_heads, cfg.head_dim, scale)
+            qkv_pre + p.bqkv, g_om, cam_o, cfg.num_heads, cfg.head_dim,
+            scale, attn_mxu=attn_mxu, rule_mxu=rule_mxu)
 
-        g = g_mid + _layernorm_bwd(g_qkv @ qkv_l.weight, x_in, blk.norm1)
-        Rq = rp.linear_alphabeta(xn1, qkv_l.weight.t(), cam_qkv, alpha,
-                                 variant, y_pre=qkv_pre)
+        g = g_mid + _layernorm_bwd(kdot(g_qkv, p.wqkv, mxu), x_in, blk.norm1)
+        Rq = bm.linear_rule_math(xn1, p.wqkv, cam_qkv, qkv_pre, rule_mxu)
         R = rp.clone_relprop(x_in, [Ra1, Rq])
-    return R, torch.stack(gcs, dim=1)
+    return R, torch.stack(gcs, dim=1), None
+
+
+def _reverse_acts(model: VisionTransformer, res: Residuals,
+                  g: Optional[Tensor], R: Optional[Tensor], alpha: float,
+                  variant: str, need_grads: bool, need_relprop: bool,
+                  fuse_grad_cam: bool):
+    """The non-kernel reverse (JAX ``reverse_pass``'s plain ``step``)."""
+    cfg = model.cfg
+    cams, grads = [None] * cfg.depth, [None] * cfg.depth
+    for li in reversed(range(cfg.depth)):
+        blk, x_in, x_mid = model.blocks[li], res.x_ins[li], res.x_mids[li]
+        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg)
+        if need_grads:
+            g, grads[li] = block_backward(g, x_in, x_mid, acts, blk, cfg)
+        if need_relprop:
+            R, cams[li], _ = block_relprop(R, x_in, x_mid, blk, cfg, alpha,
+                                           variant, acts)
+        if fuse_grad_cam:
+            cams[li] = (grads[li] * cams[li]).clamp(min=0).mean(dim=1)
+    if fuse_grad_cam:
+        return R, torch.stack(cams, dim=1), None
+    return (R, torch.stack(cams, dim=1) if need_relprop else None,
+            torch.stack(grads, dim=1) if need_grads else None)
+
+
+def full_lrp_input_relevance(model: VisionTransformer, res: Residuals,
+                             R_tokens: Tensor, img: Tensor,
+                             variant: str = "ours") -> Tensor:
+    """Relevance continued to the pixels (JAX
+    ``vit.full_lrp_input_relevance``, method ``full``): the pos-embed add,
+    the CLS row dropped, the patch conv's z^B rule, the channel sum.
+    Returns ``(B, H, W)``."""
+    cfg = model.cfg
+    Rx, _ = rp.add_relprop(res.cat_x, model.pos_embed.expand_as(res.cat_x),
+                           R_tokens, variant)
+    w = model.patch_embed.proj.weight.reshape(cfg.embed_dim, -1).t()
+    cam = rp.conv_patch_zB_relprop(img, w, Rx[:, cfg.num_prefix_tokens:],
+                                   cfg.patch_size)
+    return cam.sum(dim=1)
 
 
 __all__ = [
     "ViTConfig", "VIT_BASE_16_224", "VisionTransformer", "init_params",
-    "Residuals", "embed", "megakernel_base", "forward_collect",
-    "reverse_pass",
+    "Residuals", "BlockActs", "embed", "megakernel_base", "forward_collect",
+    "block_backward", "block_relprop", "relprop", "reverse_pass",
+    "full_lrp_input_relevance",
 ]

@@ -130,6 +130,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.te_mlp_rev_tp1_f32.restype = I
     lib.te_mlp_rev_tp2_f32.argtypes = [P] * 14 + [I] * 3 + [F, I, P]
     lib.te_mlp_rev_tp2_f32.restype = I
+    lib.te_mlp_rev_f32.argtypes = [P] * 15 + [I] * 4 + [F, I, I, P]
+    lib.te_mlp_rev_f32.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib

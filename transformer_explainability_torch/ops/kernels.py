@@ -16,6 +16,7 @@ Port of the Pallas kernels on the ViT ``transformer_attribution`` path of
   ``bert_attn_rev_core``        ``bert_attn_rev_core``      ``csrc/bert_attn_rev.cu``
   ``mlp_rev_tp_phase1``         ``mlp_rev_tp_phase1``       ``csrc/mlp_rev_tp.cu``
   ``mlp_rev_tp_phase2``         ``mlp_rev_tp_phase2``       ``csrc/mlp_rev_tp.cu``
+  ``mlp_rev_core``              ``mlp_rev_core``            ``csrc/mlp_rev.cu``
   ============================  ==========================  ===================
 
 The first three carry the exact-FP32 ViT path; the block megakernels the
@@ -25,7 +26,10 @@ kernels the BERT presets (plain versions in :mod:`.bert_math`, same GEMM
 core). The rollout serves both models. The tensor-parallel explain program
 (:mod:`..parallel.tensor`) runs ``attn_fwd_core`` / ``attn_rev_core`` on
 each rank's heads, in the product modes of its preset, and the two TP MLP
-phases (plain versions in :mod:`.tp_math`, same GEMM core).
+phases (plain versions in :mod:`.tp_math`, same GEMM core). The ViT split
+path (``block_kernel=False`` at the ``bfloat16`` base) runs the attention
+kernels in bf16 modes with ``mlp_rev_core`` for the MLP half of the reverse
+(plain version :func:`.block_math.mlp_rev_math`, same GEMM core).
 
 Each wrapper checks device, dtype (float32 or float64; the block kernels
 take float32 on the card), shape and contiguity, and raises on anything its kernel does not take. For a CPU
@@ -37,7 +41,7 @@ count. It never falls back from the kernel to the plain version.
 Layouts follow the JAX package, with a leading batch dimension: ``qkv`` is
 ``(B, n, 3D)`` with columns in ``'n (qkv h d)'`` order, ``g_qkv`` and
 ``cam_qkv`` come back in that layout, and the rollout takes pre-reduced
-``(B, L, n, n)`` maps.
+``(B, L, n, n)`` maps or per-head ``(B, L, h, n, n)`` ones.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from transformer_explainability_torch.ops.bert_math import (
     bert_out_rev_core_plain)
 from transformer_explainability_torch.ops.block_math import (
     BlockParams, attn_rev_math, block_fwd_core_plain, block_rev_core_plain,
-    merge_heads, split_heads)
+    merge_heads, mlp_rev_math, split_heads)
 from transformer_explainability_torch.ops.precision import kdot
 from transformer_explainability_torch.ops.tp_math import (
     mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain)
@@ -87,9 +91,31 @@ def attn_rev_core_plain(qkv: Tensor, g_o: Tensor, cam_o: Tensor,
                          attn_mxu, rule_mxu)
 
 
+def head_mean_grad_cam(cams: Tensor, grads: Optional[Tensor] = None
+                       ) -> Tensor:
+    """Per-head ``(B, L, h, n, n)`` maps -> ``mean_h (grads ⊙ cams)⁺``
+    ``(B, L, n, n)`` (``grads=None``: ``mean_h cams⁺``); the elementwise prep
+    JAX's ``rollout_from_grad_cam`` runs in XLA before its chain kernel."""
+    m = cams if grads is None else grads * cams
+    return m.clamp(min=0).mean(dim=2)
+
+
 def rollout_plain(cams: Tensor, start_layer: int = 0,
-                  row_normalize: bool = False) -> Tensor:
+                  row_normalize: bool = False,
+                  grads: Optional[Tensor] = None) -> Tensor:
+    if cams.ndim == 5:
+        cams = head_mean_grad_cam(cams, grads)
     return rp.compute_rollout(cams, start_layer, row_normalize)
+
+
+def mlp_rev_core_plain(x_mid: Tensor, g_out: Tensor, R: Tensor,
+                       p: BlockParams, eps: float, mxu: str = "bfloat16",
+                       rule_mxu: str = "bfloat16") -> Tuple[Tensor, Tensor]:
+    """JAX ``_mlp_rev_math`` (the one-shot body of ``_mlp_rev_kernel``):
+    the recompute and backward products in ``mxu``, the rule products in
+    ``rule_mxu``; returns ``(g_mid, Rm)``."""
+    return mlp_rev_math(x_mid, g_out, R, p, eps=eps, mxu=mxu,
+                        rule_mxu=rule_mxu)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +411,20 @@ def _launch_mlp_rev_tp2(lib, x_mid: Tensor, Sr: Tensor, fc1_pre: Tensor,
     return num_w, num_a
 
 
+def _launch_mlp_rev(lib, x_mid: Tensor, g_out: Tensor, R: Tensor,
+                    p: BlockParams, eps: float, flags: dict, stream):
+    b, n, D = x_mid.shape
+    g_mid, Rm = torch.empty_like(x_mid), torch.empty_like(x_mid)
+    fn = lib.te_mlp_rev_f32
+    dims = [b, n, D, p.b1.shape[0], float(eps), flags["mlp"], flags["rule"]]
+    work = _workspace(fn, dims, x_mid.device)
+    _raise_on_error("mlp_rev_core", lib, fn(
+        *[t.data_ptr() for t in (x_mid, g_out, R, p.ln2s, p.ln2b, p.b1, p.b2)],
+        *_planes(p.w1), *_planes(p.w2), g_mid.data_ptr(), Rm.data_ptr(),
+        work.data_ptr(), None, *dims, stream))
+    return g_mid, Rm
+
+
 def _check_tp_weights(name: str, weights, like: Tensor, Ml: int) -> None:
     """This shard's ``w1_l (M/k, D)`` and ``w2_l (D, M/k)``: tensors or
     prepared splits, contiguous, on ``like``'s device."""
@@ -398,8 +438,8 @@ def _check_tp_weights(name: str, weights, like: Tensor, Ml: int) -> None:
 
 
 def _tp_modes(name: str, x: Tensor, weights, **modes) -> dict:
-    """The TP MLP kernels' GEMM flags; raise on what the kernel does not
-    take."""
+    """The MLP kernels' GEMM flags (the TP phases and ``mlp_rev_core``);
+    raise on what the kernel does not take."""
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes float32")
     out = {}
@@ -408,8 +448,8 @@ def _tp_modes(name: str, x: Tensor, weights, **modes) -> dict:
             raise NotImplementedError(
                 f"{name}: float32 {key} products have no kernel: the JAX "
                 "form is the TPU's bf16x6 emulation, which the port does not "
-                "carry (ROADMAP B, not to port); the TP program takes the "
-                "plain MLP arm in float32")
+                "carry (ROADMAP B, not to port); the float32 base takes the "
+                "plain MLP arm")
         out[key] = _mode_flag(name, key, mode, _GEMM_MODE)
     for w in weights:
         if not isinstance(w, tuple) or any(t.dtype != torch.bfloat16
@@ -420,8 +460,8 @@ def _tp_modes(name: str, x: Tensor, weights, **modes) -> dict:
             raise ValueError(f"{name}: a tensorfloat32 product needs weights "
                              "prepared as (hi, lo) pairs")
     if x.shape[-1] % 8 or weights[0][0].shape[0] % 8:
-        raise ValueError(f"{name}: the kernel needs the embedding and shard "
-                         "MLP widths to be multiples of 8")
+        raise ValueError(f"{name}: the kernel needs the embedding and "
+                         "(shard) MLP widths to be multiples of 8")
     return out
 
 
@@ -478,13 +518,24 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
 
 
 def rollout_from_grad_cam(cams: Tensor, start_layer: int = 0,
-                          row_normalize: bool = False) -> Tensor:
-    """Rollout chain ``Π_{i=L-1..start} (I + cams_i)`` over pre-reduced
-    ``(B, L, n, n)`` maps -> ``(B, n, n)`` (JAX
-    ``pallas_kernels.rollout_from_grad_cam`` with 3-d ``cams``)."""
-    if cams.ndim != 4 or cams.shape[-1] != cams.shape[-2]:
+                          row_normalize: bool = False,
+                          grads: Optional[Tensor] = None) -> Tensor:
+    """Rollout chain ``Π_{i=L-1..start} (I + cams_i)`` -> ``(B, n, n)``
+    (JAX ``pallas_kernels.rollout_from_grad_cam``) over pre-reduced
+    ``(B, L, n, n)`` maps, or over per-head ``(B, L, h, n, n)`` ones with
+    optional ``grads`` of their shape, head-meaned first as
+    :func:`head_mean_grad_cam` (PyTorch ops, as JAX runs that prep in XLA;
+    the chain is the kernel)."""
+    if (cams.ndim not in (4, 5) or cams.shape[-1] != cams.shape[-2]
+            or (grads is not None and cams.ndim != 5)):
         raise ValueError(f"rollout_from_grad_cam: cams must be (B, L, n, n),"
-                         f" got {tuple(cams.shape)}")
+                         f" or (B, L, h, n, n) with optional grads, got "
+                         f"{tuple(cams.shape)}")
+    if cams.ndim == 5:
+        _check("rollout_from_grad_cam", [cams] + ([] if grads is None
+                                                  else [grads]),
+               [cams.shape] * 2)
+        cams = head_mean_grad_cam(cams, grads)
     device = _check("rollout_from_grad_cam", [cams], [cams.shape])
     if not 0 <= start_layer < cams.shape[1]:
         raise ValueError(f"rollout_from_grad_cam: start_layer {start_layer} "
@@ -755,6 +806,34 @@ def mlp_rev_tp_phase2(x_mid: Tensor, Sr: Tensor, fc1_pre_l: Tensor,
     return outs
 
 
+def mlp_rev_core(x_mid: Tensor, g_out: Tensor, R: Tensor, p: BlockParams,
+                 eps: float, mxu: str = "bfloat16",
+                 rule_mxu: str = "bfloat16") -> Tuple[Tensor, Tensor]:
+    """The MLP half of the ViT reverse step on the split path (JAX
+    ``pallas_kernels.mlp_rev_core``, variant ``ours``, α=1): ``x_mid``,
+    ``g_out``, ``R (B, n, D)`` and the block's parameters ``p``
+    (:meth:`..models.vit.VisionTransformer.block_params`; only LN2, the MLP
+    biases and ``w1``, ``w2`` are read). Returns ``(g_mid, Rm)`` as
+    :func:`mlp_rev_core_plain`. The kernel takes the weights as bf16 splits
+    and products in ``"bfloat16"`` or ``"tensorfloat32"``; float32 runs
+    plain only."""
+    name = "mlp_rev_core"
+    if x_mid.ndim != 3:
+        raise ValueError(f"{name}: x_mid must be (B, n, D)")
+    D, M = x_mid.shape[-1], p.b1.shape[0]
+    device = _check(name, [x_mid, g_out, R, p.ln2s, p.ln2b, p.b1, p.b2],
+                    [x_mid.shape] * 3 + [(D,), (D,), (M,), (D,)])
+    _check_tp_weights(name, (p.w1, p.w2), x_mid, M)
+    if device == "cpu":
+        return mlp_rev_core_plain(x_mid, g_out, R, p, eps, mxu, rule_mxu)
+    flags = _tp_modes(name, x_mid, (p.w1, p.w2), mlp=mxu, rule=rule_mxu)
+    with torch.cuda.device(x_mid.device):
+        outs = _launch_mlp_rev(_lib(), x_mid, g_out, R, p, eps, flags,
+                               _stream(x_mid))
+    mlp_rev_core.launches += 1
+    return outs
+
+
 attn_fwd_core.launches = 0
 attn_rev_core.launches = 0
 rollout_from_grad_cam.launches = 0
@@ -765,11 +844,12 @@ bert_out_rev_core.launches = 0
 bert_attn_rev_core.launches = 0
 mlp_rev_tp_phase1.launches = 0
 mlp_rev_tp_phase2.launches = 0
+mlp_rev_core.launches = 0
 
 WRAPPERS = (attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
             block_fwd_core, block_rev_core, bert_layer_fwd_core,
             bert_out_rev_core, bert_attn_rev_core, mlp_rev_tp_phase1,
-            mlp_rev_tp_phase2)
+            mlp_rev_tp_phase2, mlp_rev_core)
 
 
 def reset_launch_counts() -> None:
@@ -792,14 +872,16 @@ class AttnOps(NamedTuple):
     block_rev_core: Callable
     mlp_rev_tp_phase1: Callable
     mlp_rev_tp_phase2: Callable
+    mlp_rev_core: Callable
 
 
 KERNEL_OPS = AttnOps(attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
                      block_fwd_core, block_rev_core, mlp_rev_tp_phase1,
-                     mlp_rev_tp_phase2)
+                     mlp_rev_tp_phase2, mlp_rev_core)
 PLAIN_OPS = AttnOps(attn_fwd_core_plain, attn_rev_core_plain, rollout_plain,
                     block_fwd_core_plain, block_rev_core_plain,
-                    mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain)
+                    mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain,
+                    mlp_rev_core_plain)
 
 
 class BertOps(NamedTuple):

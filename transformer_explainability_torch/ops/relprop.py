@@ -9,7 +9,8 @@ names its counterpart). The JAX rules are per example and batch through
     leading dimensions;
   * ``add_relprop`` renormalises with sums over one sample, so its tensors
     are ``(B, ...)`` and every sum runs over all dimensions but the first;
-  * ``patchify`` takes ``(B, C, H, W)``.
+  * ``patchify``, ``unpatchify`` and ``conv_patch_zB_relprop`` take
+    ``(B, C, H, W)`` images (the pixel bounds are per sample).
 
 Identity-rule ops (softmax, LayerNorm, GELU) need no function.
 """
@@ -170,6 +171,38 @@ def patchify(img: Tensor, patch: int) -> Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
+def unpatchify(x: Tensor, patch: int, c: int, h: int, w: int) -> Tensor:
+    """``(B, num_patches, C*patch*patch) -> (B, C, H, W)``, the inverse of
+    :func:`patchify` (JAX ``relprop.unpatchify``)."""
+    b = x.shape[0]
+    gh, gw = h // patch, w // patch
+    x = x.reshape(b, gh, gw, c, patch, patch)
+    x = x.permute(0, 3, 1, 4, 2, 5)                 # b, c, gh, ph, gw, pw
+    return x.reshape(b, c, h, w)
+
+
+def conv_patch_zB_relprop(img: Tensor, w: Tensor, R: Tensor,
+                          patch: int) -> Tensor:
+    """z^B rule through the patch-embedding conv down to pixels bounded by
+    each image's own min and max (JAX ``relprop.conv_patch_zB_relprop``).
+    ``img (B, C, H, W)``; ``w (C*patch*patch, D)`` in the :func:`patchify`
+    layout; ``R (B, num_patches, D)``. The division is plain, as the
+    reference's. Returns the pixel relevance ``(B, C, H, W)``."""
+    b, c, h, wd = img.shape
+    flat = img.reshape(b, -1)
+    lo = flat.min(dim=1).values[:, None, None]
+    hi = flat.max(dim=1).values[:, None, None]
+    pw = w.clamp(min=0.0)
+    nw = w.clamp(max=0.0)
+    X = patchify(img, patch)
+    L = lo.expand_as(X)
+    H = hi.expand_as(X)
+    Za = X @ w - L @ pw - H @ nw + EPS
+    S = R / Za
+    C = X * (S @ w.t()) - L * (S @ pw.t()) - H * (S @ nw.t())
+    return unpatchify(C, patch, c, h, wd)
+
+
 def compute_rollout(cams: Tensor, start_layer: int = 0,
                     row_normalize: bool = False) -> Tensor:
     """Rollout chain ``Π_{i=L-1..start} (cams_i + I)`` (JAX
@@ -188,5 +221,6 @@ def compute_rollout(cams: Tensor, start_layer: int = 0,
 __all__ = [
     "EPS", "safe_divide", "add_relprop", "clone_relprop",
     "index_select_relprop", "einsum_qk_relprop", "einsum_av_relprop",
-    "linear_alphabeta", "patchify", "compute_rollout",
+    "linear_alphabeta", "patchify", "unpatchify", "conv_patch_zB_relprop",
+    "compute_rollout",
 ]

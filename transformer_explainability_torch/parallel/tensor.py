@@ -38,7 +38,8 @@ import torch
 import torch.distributed as dist
 
 from transformer_explainability_torch.explain.generator import (
-    _check_fp32_matmul, _one_hot_index, _resolve_device, check_supported)
+    FUSED_METHODS, _check_fp32_matmul, _one_hot_index, _resolve_device,
+    check_supported)
 from transformer_explainability_torch.models import vit as vit_mod
 from transformer_explainability_torch.models.vit import ViTConfig
 from transformer_explainability_torch.ops import block_math as bm
@@ -234,6 +235,15 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
     precision combination the kernels do not run, ``NotImplementedError``;
     heads or MLP width not divisible by the group's size, ``ValueError``.
     """
+    if method not in FUSED_METHODS:
+        raise NotImplementedError(
+            f"method {method!r}: the tensor-parallel program runs "
+            "transformer_attribution, as the JAX one does; the other methods "
+            "run on one device (ROADMAP A4)")
+    if variant != "ours" or alpha != 1.0:
+        raise NotImplementedError(
+            "the tensor-parallel program runs variant 'ours' at alpha 1, as "
+            "the JAX one does; the others run on one device (ROADMAP A3)")
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision)
     k, _ = _group_shape(group)
