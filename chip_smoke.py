@@ -46,7 +46,9 @@ result line):
      same batches by the ViT gates (its corr against the single-device
      slice is printed);
   5. times: each kernel beside its plain version and its bound, B4 beside
-     ``scaled_dot_product_attention``, and explanations/s at B=8 for the
+     ``scaled_dot_product_attention`` (and the CUDA kernel that call ran,
+     from the profiler) and in the split path's bf16 mode, B9 at S=512 and
+     S=128, and explanations/s at B=8 for the
      exact-FP32 and the production paths, kernels and plain, the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
      (BERT at S=512 and S=128; the tensor-parallel program at k = 1).
@@ -175,8 +177,9 @@ def main() -> int:
           f" (0 if cached)")
     log = so.parent / "build.log"
     if log.exists():
-        # registers and spills per kernel (-Xptxas -v): a summary line, and
-        # a line for each kernel that spills
+        # registers and spills per kernel (-Xptxas -v): a summary line, a
+        # line for each kernel that spills and for each instance of the
+        # redesigned kernels (B4, B9's row pass)
         entry, spill, regs = None, "", []
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
@@ -185,7 +188,9 @@ def main() -> int:
                 spill = line.strip()
             elif "registers" in line and entry:
                 regs.append(int(line.split("Used")[1].split()[0]))
-                if not spill.startswith("0 bytes stack frame, 0 bytes spill"):
+                if (not spill.startswith("0 bytes stack frame, 0 bytes spill")
+                        or "attn_fwd_kernel" in entry
+                        or "bert_attn_rev_rows_kernel" in entry):
                     print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
                           f"{spill}")
                 entry = None
@@ -961,7 +966,9 @@ def main() -> int:
     times = {}
     for name, (make, kern, plain) in cases.items():
         args = make(*shapes["main"], torch.float32)
-        times[name] = (time_ms(lambda: kern(*args)),
+        # B4 and its library yardstick take ~0.06 ms: 200 calls a window
+        iters = 200 if name == "attn_fwd_core" else 20
+        times[name] = (time_ms(lambda: kern(*args), iters),
                        time_ms(lambda: plain(*args)))
         print(f"time {name} {tuple(shapes['main'])} f32: kernel "
               f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms {tag}")
@@ -1004,11 +1011,42 @@ def main() -> int:
     qkv_main = cases["attn_fwd_core"][0](*shapes["main"], torch.float32)[0]
     q_, k_, v_ = bm.split_heads(qkv_main, h, hd)
     library = {name: None for name in K.launch_counts()}
-    library["attn_fwd_core"] = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q_, k_, v_, scale=hd ** -0.5))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, scale=hd ** -0.5)
+    library["attn_fwd_core"] = time_ms(sdpa, 200)
     print(f"time scaled_dot_product_attention {tuple(shapes['main'])} f32: "
           f"{library['attn_fwd_core']:.4f} ms {tag}")
+    print(f"B4 float32 {times['attn_fwd_core'][0]:.4f} ms vs "
+          f"scaled_dot_product_attention {library['attn_fwd_core']:.4f} ms: "
+          f"{times['attn_fwd_core'][0] / library['attn_fwd_core']:.3f}x {tag}")
+    # which kernel the library call ran (its float32 route), and the device
+    # time of both calls' kernels alone (the profiler's CUDA events)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    def device_ms(fn, iters=50):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in evs) / iters / 1e3,
+                sorted({e.key for e in evs}))
+
+    b4_dev = device_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5))
+    sdpa_dev = device_ms(sdpa)
+    print(f"scaled_dot_product_attention f32 ran: "
+          f"{'; '.join(sdpa_dev[1]) or 'no kernel seen by the profiler'}")
+    print(f"device time per call (profiler): B4 float32 {b4_dev[0]:.4f} ms, "
+          f"scaled_dot_product_attention {sdpa_dev[0]:.4f} ms {tag}")
+    # B4 in the split path's bf16 mode, same shapes
+    b4_bf16 = (time_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5,
+                                               "bfloat16"), 200),
+               time_ms(lambda: K.attn_fwd_core_plain(qkv_main, h, hd,
+                                                     hd ** -0.5, "bfloat16")))
+    print(f"time attn_fwd_core {tuple(shapes['main'])} f32 bf16 mode (split "
+          f"path): kernel {b4_bf16[0]:.4f} ms, plain {b4_bf16[1]:.4f} ms {tag}")
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
     del b6_inputs, b6, b6_args
 
@@ -1109,6 +1147,23 @@ def main() -> int:
         print(f"time {name} {bert_shapes['main']} f32 production modes: "
               f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
               f"ms {tag}")
+    # B9 at S=128, from the forward kernel's own anchors
+    S_s, D_b = 128, bcfg.hidden_size
+    keep = (torch.arange(S_s, device=dev)[None, :]
+            < (S_s - 16 * torch.arange(8, device=dev))[:, None])
+    m_s = (1.0 - keep.float()) * bcfg.mask_value
+    x_s, g_s, r_s = (randn(8, S_s, D_b, dtype=torch.float32)
+                     for _ in range(3))
+    sv_s = K.bert_layer_fwd_core(x_s, m_s, bi["p32"], *bi["fargs"],
+                                 save_attn=True)[2:]
+    b9_s = (x_s, g_s, r_s, m_s, bi["p32"], *bi["aargs"])
+    b9_128 = (time_ms(lambda: K.bert_attn_rev_core(*b9_s, saved=sv_s)),
+              time_ms(lambda: bmath.bert_attn_rev_core_plain(*b9_s,
+                                                             saved=sv_s)))
+    print(f"time bert_attn_rev_core (8, {S_s}, {bcfg.num_heads}, "
+          f"{bcfg.head_dim}) f32 production modes: kernel {b9_128[0]:.4f} "
+          f"ms, plain {b9_128[1]:.4f} ms {tag}")
+    del x_s, g_s, r_s, m_s, sv_s, b9_s
     del bert_inputs, bi
     torch.cuda.empty_cache()
 

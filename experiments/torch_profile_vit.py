@@ -5,6 +5,7 @@ on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
                                              [--precision float32|production|bfloat16]
                                              [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
+    python3 experiments/torch_profile_vit.py --b9 [--seq 512] [--precision production]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
@@ -16,6 +17,11 @@ and the MLP reverse kernel per block instead of the megakernels).
 ``transformer_attribution``). ``--tp`` profiles the tensor-parallel
 ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
 single-rank NCCL process group instead of the single-device path.
+``--b9`` profiles one call of the BERT attention reverse kernel
+``bert_attn_rev_core`` (B9) alone, at BERT-base B=8 and length ``--seq``
+in the preset's modes, and prints every launch it makes (the row pass, the
+column pass, the head mean, each GEMM-core instance, LayerNorm backward, the
+add rule, the bias adds, λ) with its device time per call.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -166,6 +172,63 @@ def bert_case(dev, S, prec):
                                ("plain", K.BERT_PLAIN_OPS))]
 
 
+def b9_launches(dev, S, prec, card, calls=10):
+    """Every kernel one ``bert_attn_rev_core`` call launches at BERT-base,
+    B=8, length S (the samples' masks cut at lengths S … S/8), with its
+    device time per call, under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from transformer_explainability_torch.models.bert import (
+        BERT_BASE_UNCASED as cfg)
+    from transformer_explainability_torch.ops import bert_math as bmath
+    from transformer_explainability_torch.ops import kernels as K
+    from transformer_explainability_torch.ops import precision as P
+    from transformer_explainability_torch.ops.precision import mxu_name
+    gen = torch.Generator(device=dev).manual_seed(2)
+    D, inter, h, hd = (cfg.hidden_size, cfg.intermediate_size,
+                       cfg.num_heads, cfg.head_dim)
+    mxu = mxu_name(prec.get("matmul_precision"))
+    attn = mxu_name(prec.get("attn_precision", prec.get("matmul_precision")))
+    rule = mxu_name(prec.get("relprop_precision",
+                             prec.get("matmul_precision")))
+    mlp = mxu_name(prec.get("mlp_precision", prec.get("matmul_precision")))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    ws = [P.prepare_weight(randn(o, i).double() / i ** 0.5, mxu)
+          for o, i in ((3 * D, D), (D, D), (inter, D), (D, inter))]
+    vecs = [1.0 + 0.1 * randn(D), 0.1 * randn(D), 1.0 + 0.1 * randn(D),
+            0.1 * randn(D), 0.1 * randn(3 * D), 0.1 * randn(D),
+            0.1 * randn(inter), 0.1 * randn(D)]
+    p = bmath.BertLayerParams(*vecs, *ws)
+    lengths = S - (S // 8) * torch.arange(8, device=dev)
+    keep = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    mask = (1.0 - keep.float()) * cfg.mask_value
+    x, g, R = randn(8, S, D), randn(8, S, D), randn(8, S, D)
+    fwd = K.bert_layer_fwd_core(x, mask, p, h, hd, cfg.layer_norm_eps, mxu,
+                                attn, mlp or mxu, save_attn=True)
+    args = (x, g, R, mask, p, h, hd, cfg.layer_norm_eps, mxu, attn, rule)
+    call = lambda: K.bert_attn_rev_core(*args, saved=fwd[2:])
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    rows = [(evt.self_device_time_total / calls, evt.count / calls, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA]
+    total = sum(r[0] for r in rows)
+    print(f"[{card}] bert_attn_rev_core BERT-base B=8 S={S} (modes mxu "
+          f"{mxu}, attn {attn}, rule {rule}): {total / 1e3:.4f} ms of kernels "
+          f"per call, {sum(r[1] for r in rows):.0f} launches")
+    for us, count, name in sorted(rows, key=lambda r: -r[0]):
+        print(f"  {us / 1e3:9.4f} ms  x{count:.0f}  {name[:150]}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="vit", choices=["vit", "bert"])
@@ -175,6 +238,7 @@ def main():
     ap.add_argument("--no-block-kernel", action="store_true")
     ap.add_argument("--method", default="transformer_attribution")
     ap.add_argument("--tp", action="store_true")
+    ap.add_argument("--b9", action="store_true")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
     args = ap.parse_args()
@@ -190,6 +254,9 @@ def main():
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     prec = precision_kwargs(args.precision)
+    if args.b9:
+        b9_launches(dev, args.seq, prec, card)
+        return
     if args.model == "bert":
         paths, what = bert_case(dev, args.seq, prec), f"bert_s{args.seq}"
     elif args.tp:

@@ -146,6 +146,7 @@ def _f32_rule(k32, p32, p64, name):
     assert ek <= lim, f"{name}: kernel error {ek:.3e} above {lim:.3e}"
 
 
+
 @pytest.mark.parametrize("shape", BLOCK_SHAPES)
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_block_fwd_kernel_matches_plain(lib, shape, preset):
@@ -271,12 +272,13 @@ def test_bert_out_rev_kernel_matches_plain(lib, shape, preset):
         _f32_rule(k, p, q, name)
 
 
-@pytest.mark.parametrize("shape", BERT_SHAPES)
-@pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_bert_attn_rev_kernel_matches_plain(lib, shape, preset):
+def _check_bert_attn_rev(lib, shape, preset, lengths=None):
     b, S, h, hd, inter = shape
     mxu, attn, rule, mlp = PRESETS[preset]
     p64, p32, x, mask = _bert_case(33, b, S, h, hd, inter, mxu)
+    if lengths is not None:
+        keep = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+        mask = torch.from_numpy((1.0 - keep) * -10000.0)
     fwd = bmath.bert_layer_fwd_core_plain(x, mask, p64, h, hd, BERT_EPS, mxu,
                                           attn, mlp, save_attn=True)
     rng = np.random.RandomState(34)
@@ -292,6 +294,24 @@ def test_bert_attn_rev_kernel_matches_plain(lib, shape, preset):
     want32 = bmath.bert_attn_rev_core_plain(*a32, p32, *args, saved=s32)
     for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
         _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("shape", BERT_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_attn_rev_kernel_matches_plain(lib, shape, preset):
+    _check_bert_attn_rev(lib, shape, preset)
+
+
+# S=150 spans five 32-row query tiles and three streamed 64-key tiles of
+# B9's row pass, the last of each ragged; the masks cut the samples inside
+# the last key tile and inside the second
+BERT_TILE_SHAPES = [(2, 150, 1, 64, 32), (2, 150, 2, 8, 24)]
+
+
+@pytest.mark.parametrize("shape", BERT_TILE_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_attn_rev_kernel_tiles_match_plain(lib, shape, preset):
+    _check_bert_attn_rev(lib, shape, preset, lengths=(150, 97))
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +336,40 @@ def test_attn_fwd_kernel_bf16_matches_plain(lib, shape):
     got32 = K._launch_attn_fwd(lib, qkv.float(), h, d, d ** -0.5, None, flag)
     _f32_rule(got32, K.attn_fwd_core_plain(qkv.float(), h, d, d ** -0.5,
                                            "bfloat16"), want, "out")
+
+
+# n = 2·64 + 5 spans three of B4's 64-row query tiles, the last ragged, in
+# one 256-key score tile (the softmax in registers); n = 256 + 5 spans two
+# key tiles (the softmax pass over shared memory); hd 8 leaves most of the
+# 64 padded columns zero
+B4_TILE_SHAPES = [(1, 2 * 64 + 5, 2, 64), (2, 2 * 64 + 5, 3, 8),
+                  (1, 256 + 5, 1, 8)]
+
+
+@pytest.mark.parametrize("shape", B4_TILE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", sorted(K._ATTN_BF16))
+def test_attn_fwd_kernel_tiles_match_plain(lib, shape, dtype, mode):
+    """float64 at rtol 1e-9; float32 by the rule above, in bf16 mode
+    against the plain float32 version within one re-rounding: an ulp
+    between two float32 probabilities can round them to bf16 values 2⁻⁸
+    apart, which moves an output by up to 2⁻⁸·max|v|, and at this size
+    whether the kernel or the plain version meets such a tie is a draw."""
+    b, n, h, d = shape
+    qkv = _randn(44, b, n, 3 * h * d)
+    flag = K._ATTN_BF16[mode]
+    got = K._launch_attn_fwd(lib, qkv.to(dtype), h, d, d ** -0.5, None, flag)
+    want = K.attn_fwd_core_plain(qkv, h, d, d ** -0.5, mode)
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+    else:
+        plain32 = K.attn_fwd_core_plain(qkv.float(), h, d, d ** -0.5, mode)
+        if mode == "float32":
+            _f32_rule(got, plain32, want, "out")
+        else:
+            v_max = qkv[..., 2 * h * d:].abs().max().item()
+            torch.testing.assert_close(got, plain32, rtol=0,
+                                       atol=2 ** -8 * v_max)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -1,9 +1,10 @@
-// The masked attention row of a BERT layer, shared by bert_fwd.cu (B7) and
-// bert_attn_rev.cu (B9). The reverse recomputes the scores and the
+// The masked attention row of a BERT layer's forward (bert_fwd.cu, B7).
+// The reverse (bert_attn_rev.cu, B9) recomputes the scores and the
 // probabilities from q and K, and divides by the forward's saved context
-// (the AV z-rule's S1 = R1 / ctx), so both kernels form them with this one
-// function, in the same order, from the same operands: the probabilities
-// are bitwise the ones the context was made from.
+// (the AV z-rule's S1 = R1 / ctx), so its tiled row pass forms them from the
+// same operands by the same operations in this function's order (one FMA
+// chain per score over d; lane l over j ≡ l (mod 32), then the butterfly):
+// the probabilities are bitwise the ones the context was made from.
 #pragma once
 
 #include "gemm.cuh"

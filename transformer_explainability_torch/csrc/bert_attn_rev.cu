@@ -24,19 +24,31 @@
 //     g_in = g_sum1 + g_qkv·Wqkv (mxu); the stacked q/k/v rule (rule
 //     mode) and the nested clones (BERT.py:319, :227) -> R_in.
 //
-// What bounds it on the H100: the weights and the (h, S, S) per-head maps
-// do not fit in shared memory, so this is a sequence of launches over the
-// whole batch: GEMMs on the core of gemm.cuh with the rules in their
-// epilogues, the LayerNorm backward row kernel, the two-pass add rule, and
-// the attention reverse as a row pass, the column pass and head mean of
-// block_rev.cu (rules.cuh), then the combine. JAX's three TPU programs
-// exist for the 128 MiB of VMEM; here one design serves every S <= 512.
-// At S=512 a head's K and V (266 KB) do not fit in shared memory together,
-// so the row pass keeps one K/V buffer and runs in three phases: K resident
-// (scores, softmax), V resident (g_probs, the AV rule, the mask split), K
-// resident again (g_q, the q z-rule), with each row's (S) vectors in shared
-// memory in between. The per-sample sums of λ are per-block partials summed
-// in a fixed order afterwards: deterministic, no atomics.
+// What bounds it on the H100: operations. At BERT-base B=8, S=512 the
+// attention's five float32 products (raw, g_probs, g_q in the row pass;
+// g_k, g_v in the column pass) are 16.1 GFLOP off the tensor cores (0.24
+// ms at 67 TFLOP/s), beside 71 GFLOP of bf16 and 58 GFLOP of bf16×3 GEMM
+// passes on the tensor cores (0.13 ms): 0.371 ms in all. The weights and
+// the (h, S, S) per-head maps do not fit in shared memory, so this is a
+// sequence of launches over the whole batch: GEMMs on the core of gemm.cuh
+// with the rules in their epilogues, the LayerNorm backward row kernel, the
+// two-pass add rule, the attention reverse as the row pass below and the
+// column pass and head mean of rules.cuh (shared with block_rev.cu), then
+// the combine. JAX's three TPU programs exist for the 128 MiB of VMEM; here
+// one design serves every S <= 512 and hd <= 64.
+// The row pass streams the head's K and V through two shared-memory stages
+// of 64 keys (cp.async) for a tile of 32 query rows: 3·S·hd floats from L2
+// per 32 rows. The tile's
+// (32, S) rows stay in shared memory between its three sweeps, the float32
+// products are register micro-tiles and the bf16 rule products run on the
+// tensor cores (mma.sync). The per-sample sums of λ are per-block partials
+// summed in a fixed order afterwards: deterministic, no atomics.
+// The probabilities are bitwise B7's (bert_fwd.cu, masked_softmax_row of
+// bert_attn.cuh), which the AV z-rule's S1 = R1 / ctx needs: each raw score
+// is one FMA chain over d = 0 … hd−1 in order (the zero columns past hd add
+// nothing), x = raw·scale + mask by the same non-contracting operations,
+// and the max, exp, sum and divide run in that function's order, lane l
+// over j ≡ l (mod 32) ascending, then the butterfly.
 #include "bert_attn.cuh"
 #include "rules.cuh"
 
@@ -64,114 +76,312 @@ inline int bias_add(const float* pre, const float* bias, const float* res,
   return (int)cudaGetLastError();
 }
 
-constexpr int kRevWarps = 8;
+// Row pass: one block of 256 threads per (tile of kRowQ = 32 query rows,
+// head, sample). The head's K and V stream through a ring of two
+// shared-memory stages of kKeyT = 64 keys (16-byte cp.async, the next tile
+// in flight while the block works on this one) in three sweeps: K (raw
+// scores), V (g_probs, the AV rule, the mask split), K (g_q, the q z-rule).
+// Between them the tile's (32, S) raw / S2u and p / g_probs / g_raw rows
+// stay in shared memory. Emits g_q and the unscaled q relevance cqu = q ⊙
+// (S2u·K) / 2 into the q columns of g_qkv / cam_qkv, writes P (probs), G
+// (g_raw), S2 (S2u), GCP (per-head (g_probs ⊙ cam1)⁺) and S1 to scratch for
+// the column pass, and the block's three mask-Add sums to sums[b][h][tile].
+//
+// Thread (ty, tx) = (t / 8, t % 8) owns query row ty. The float32 products
+// (raw = q·Kᵀ, g_probs = g_o·Vᵀ, g_q = g_raw·K) are register micro-tiles:
+// keys tx + 8c of a tile (c < 8; distinct banks for the 16-byte reads), or
+// columns 4tx + 32e … + 3 of g_q; 16-byte shared reads, 9 per 32 FMAs. The
+// bf16 rule products (t = S1·Vᵀ, cq = S2u·K) run on the tensor cores
+// (mma.sync m16n8k16): warp w owns rows 16(w % 2) … + 15 and the 16 keys
+// (or columns) 16(w / 2) … + 15, so t lands in a shared tile for the
+// epilogue and cq stays in registers over the whole K sweep.
+constexpr int kRowQ = 32;                 // query rows per block
+constexpr int kKeyT = 64;                 // keys per streamed tile
+constexpr int kRowThreads = 256;
+constexpr int kRowTx = 8;                 // threads per row
+constexpr int kLdk = kMaxHeadDim + 4;     // stage / tile row pitch
+constexpr int kLdt = kKeyT + 8;           // pitch of the t tile
 
-// Row pass: one block per (row tile, head, sample), one warp per query
-// row. Emits g_q and the unscaled q relevance cqu = q ⊙ (S2u·K) / 2 into
-// the q columns of g_qkv / cam_qkv, writes P (probs), G (g_raw), S2 (S2u),
-// GCP (per-head (g_probs ⊙ cam1)⁺) and S1 to scratch for the column pass,
-// and the block's three mask-Add sums to sums[b][h][tile].
-template <bool RA, bool RR>
-__global__ void bert_attn_rev_rows_kernel(
+// Shared memory of the row pass, in floats: the (32, S) rows Rr (raw, then
+// S2u) and Rg (x, e, p, then g_probs, then g_raw), padded to a multiple of
+// the key tile plus 8 (≡ 8 mod 32: conflict-free rows); two K/V stages; the
+// q, g_o and S1 tiles; the t tile; the mask row; the reduction slots.
+struct RowLayout {
+  int Sp, lds;
+  __host__ __device__ explicit RowLayout(int n)
+      : Sp((n + kKeyT - 1) / kKeyT * kKeyT), lds(Sp + 8) {}
+  __host__ __device__ size_t floats() const {
+    return (size_t)2 * kRowQ * lds + 2 * kKeyT * kLdk + 3 * kRowQ * kLdk +
+           kRowQ * kLdt + Sp + 3 * (kRowThreads / kWarp);
+  }
+};
+
+template <bool RA>
+__global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
     const float* __restrict__ qkv, const float* __restrict__ mask,
     const float* __restrict__ ctx, const float* __restrict__ g_ctx,
     const float* __restrict__ R1f, float* __restrict__ g_qkv,
     float* __restrict__ cam_qkv, float* __restrict__ Pg,
     float* __restrict__ Gg, float* __restrict__ S2g,
     float* __restrict__ GCP, float* __restrict__ S1g,
-    float* __restrict__ sums, int n, int H, int hd, float scale, int rows) {
-  float* smem = reinterpret_cast<float*>(te_smem);
-  const int ldk = hd + 1;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  float* KV = smem;                                  // [n][hd + 1]
-  float* Rr = KV + head_kv_floats(n, hd);            // [rows][n]: raw, S2u
-  float* Rp = Rr + (size_t)rows * n;                 // [rows][n]: probs
-  float* Rg = Rp + (size_t)rows * n;                 // [rows][n]: g_probs, g_raw
-  float* qw = Rg + (size_t)rows * n + (size_t)warp * 3 * hd;
-  float* gw = qw + hd;                               // g_o row
-  float* sw = gw + hd;                               // S1 row
-  float* red = Rg + (size_t)rows * n + (size_t)nwarps * 3 * hd;  // [warps][3]
+    float* __restrict__ sums, int n, int H, int hd, float scale) {
+  const RowLayout lay(n);
+  const int lds = lay.lds, Sp = lay.Sp, T = Sp / kKeyT;
+  float* Rr = reinterpret_cast<float*>(te_smem);   // [kRowQ][lds]
+  float* Rg = Rr + kRowQ * lds;                    // [kRowQ][lds]
+  float* KVs = Rg + kRowQ * lds;                   // [2][kKeyT][kLdk]
+  float* Qs = KVs + 2 * kKeyT * kLdk;              // [kRowQ][kLdk]
+  float* Gs = Qs + kRowQ * kLdk;                   // g_o tile
+  float* S1s = Gs + kRowQ * kLdk;                  // S1 tile
+  float* Ts = S1s + kRowQ * kLdk;                  // [kRowQ][kLdt]
+  float* ms = Ts + kRowQ * kLdt;                   // [Sp] mask row
+  float* red = ms + Sp;                            // [warps][3]
 
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x, tx = t % kRowTx, ty = t / kRowTx;
+  const int warp = t / kWarp, lane = t % kWarp, g = lane >> 2, t4 = lane & 3;
+  const int mw = 16 * (warp & 1), nw = 16 * (warp >> 1);
+  const int h = blockIdx.y, b = blockIdx.z, row0 = blockIdx.x * kRowQ;
+  const int nr = n - row0 < kRowQ ? n - row0 : kRowQ;
   const int D = H * hd, ld = 3 * D;
-  const float* base = qkv + (size_t)b * n * ld;
-  const float* mrow = mask + (size_t)b * n;
+  const float* base = qkv + (size_t)b * n * ld + h * hd;
+  const bool vec = tile_vec_ok(base, ld, hd);
   const size_t bh = (size_t)b * H + h, nn = (size_t)n * n;
-  const int row0 = blockIdx.x * rows;
-  const int nr = n - row0 < rows ? n - row0 : rows;
 
-  auto load = [&](int part) {   // part 1: K, 2: V
-    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-      const int j = idx / hd, d = idx - j * hd;
-      KV[j * ldk + d] = base[(size_t)j * ld + part * D + h * hd + d];
+  // zeros where no copy writes: the columns hd … kMaxHeadDim of the stages
+  // and of the tiles (every product runs over all 64 columns; a zero term
+  // leaves a sum unchanged), the q rows past n
+  for (int idx = t; idx < 2 * kKeyT * kMaxHeadDim; idx += kRowThreads) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    if (c >= hd) KVs[r * kLdk + c] = 0.f;
+  }
+  for (int idx = t; idx < kRowQ * kMaxHeadDim; idx += kRowThreads) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    float gv = 0.f, s1 = 0.f;
+    if (r < nr && c < hd) {
+      const size_t o = ((size_t)b * n + row0 + r) * D + h * hd + c;
+      gv = g_ctx[o];
+      s1 = safe_divide(R1f[o], ctx[o]);
+      S1g[(bh * n + row0 + r) * hd + c] = s1;
+    } else {
+      Qs[r * kLdk + c] = 0.f;
     }
+    Gs[r * kLdk + c] = rnd<RA>(gv);
+    S1s[r * kLdk + c] = s1;
+  }
+  for (int j = t; j < Sp; j += kRowThreads)
+    ms[j] = j < n ? mask[(size_t)b * n + j] : 0.f;
+  load_tile(Qs, kLdk, base + (size_t)row0 * ld, ld, nr, hd, vec);
+  cp_async_commit();
+
+  // stream tile s: K for s < T and s >= 2T, V between; rows past n zero
+  auto fetch = [&](int s) {
+    float* st = KVs + (s & 1) * kKeyT * kLdk;
+    const int j0 = (s % T) * kKeyT, part = s / T == 1 ? 2 : 1;
+    const int rows = n - j0 < kKeyT ? n - j0 : kKeyT;
+    for (int idx = t; idx < (kKeyT - rows) * hd; idx += kRowThreads)
+      st[(rows + idx / hd) * kLdk + idx % hd] = 0.f;
+    load_tile(st, kLdk, base + (size_t)j0 * ld + part * D, ld, rows, hd, vec);
+    cp_async_commit();
   };
 
-  // phase 1: K resident; raw scores and probabilities, as the forward
-  load(1);
-  __syncthreads();
-  for (int r = warp; r < nr; r += nwarps) {
-    const float* qrow = base + (size_t)(row0 + r) * ld + h * hd;
-    for (int d = lane; d < hd; d += kWarp) qw[d] = rnd<RA>(qrow[d]);
-    __syncwarp();
-    masked_softmax_row<RA>(qw, KV, ldk, n, hd, mrow, scale,
-                           Rr + (size_t)r * n, Rp + (size_t)r * n, lane);
-    __syncwarp();
-  }
-  __syncthreads();
+  uint32_t a1[4][4];                      // S1 as A fragments (sweep 2)
+  float gq[2][4], cq[2][4];               // g_q (SIMT) and cq (mma) rows
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gq[e][i] = cq[e][i] = 0.f;
+  float inner = 0.f, sa = 0.f, sb = 0.f, sr = 0.f;
 
-  // phase 2: V resident; hook gradient, AV z-rule, mask-Add split, QKᵀ S
-  load(2);
-  __syncthreads();
-  float sa = 0.f, sb = 0.f, sr = 0.f;
-  for (int r = warp; r < nr; r += nwarps) {
-    const int i = row0 + r;
-    const size_t row_md = ((size_t)b * n + i) * D + h * hd;
-    for (int d = lane; d < hd; d += kWarp) {
-      gw[d] = g_ctx[row_md + d];
-      const float s1 = safe_divide(R1f[row_md + d], ctx[row_md + d]);
-      sw[d] = s1;
-      S1g[(bh * n + i) * hd + d] = s1;
+  fetch(0);
+  for (int s = 0; s < 3 * T; ++s) {
+    if (s + 1 < 3 * T) {
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncwarp();
-    float* rr = Rr + (size_t)r * n;
-    const float* rp = Rp + (size_t)r * n;
-    float* rg = Rg + (size_t)r * n;
-    float inner = 0.f;
-    for (int j = lane; j < n; j += kWarp) {
-      const float* vr = KV + (size_t)j * ldk;
-      float ga = 0.f, t = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        ga = fmaf(rnd<RA>(gw[d]), rnd<RA>(vr[d]), ga);
-        t = fmaf(rnd<RR>(sw[d]), rnd<RR>(vr[d]), t);
+    __syncthreads();
+    float* st = KVs + (s & 1) * kKeyT * kLdk;
+    if (RA) {   // the attention products take K, V, q and g_o as bf16
+      for (int idx = t; idx < kKeyT * kLdk; idx += kRowThreads)
+        st[idx] = round_bf16(st[idx]);
+      if (s == 0)
+        for (int idx = t; idx < kRowQ * kLdk; idx += kRowThreads)
+          Qs[idx] = round_bf16(Qs[idx]);
+      __syncthreads();
+    }
+    const int j0 = (s % T) * kKeyT;
+
+    if (s < T) {
+      // sweep 1: raw = q·kᵀ, each one FMA chain over d in order
+      float acc[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+#pragma unroll
+      for (int d = 0; d < kMaxHeadDim; d += 4) {
+        float q[4], k[8][4];
+        lds4(Qs + ty * kLdk + d, q);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, k[c]);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[c] = fmaf(q[dd], k[c][dd], acc[c]);
       }
-      const float p = rp[j];
-      inner = fmaf(ga, p, inner);
-      const float cam1 = p * t * 0.5f;
-      const float gcv = ga * cam1;
-      GCP[bh * nn + (size_t)i * n + j] = gcv > 0.f ? gcv : 0.f;
-      const float raw = rr[j], m = mrow[j];
-      const float scaled = mul_rn(raw, scale);
-      const float Sm = safe_divide(cam1, add_rn(scaled, m));
-      const float M = scaled * Sm;
-      rr[j] = safe_divide(M, raw);
-      rg[j] = ga;
-      sa += M;
-      sb += m * Sm;
-      sr += cam1;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) Rr[ty * lds + j0 + tx + kRowTx * c] = acc[c];
+    } else if (s < 2 * T) {
+      // sweep 2: t = S1·Vᵀ (bf16, tensor cores) into Ts
+      if (s == T) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* r0 = S1s + (mw + g) * kLdk + 16 * kk + 2 * t4;
+          const float* r1 = r0 + 8 * kLdk;
+          a1[kk][0] = pack_bf16x2(r0[0], r0[1]);
+          a1[kk][1] = pack_bf16x2(r1[0], r1[1]);
+          a1[kk][2] = pack_bf16x2(r0[8], r0[9]);
+          a1[kk][3] = pack_bf16x2(r1[8], r1[9]);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        float dacc[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* vr = st + (nw + 8 * nb + g) * kLdk + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t bf[2] = {pack_bf16x2(vr[16 * kk], vr[16 * kk + 1]),
+                                  pack_bf16x2(vr[16 * kk + 8], vr[16 * kk + 9])};
+          mma_bf16_16816(dacc, a1[kk], bf);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Ts[(mw + g + 8 * (i >> 1)) * kLdt + nw + 8 * nb + 2 * t4 + (i & 1)] =
+              dacc[i];
+      }
+      // g_probs = g_o·vᵀ (float32 micro-tile)
+      float ga[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ga[c] = 0.f;
+#pragma unroll
+      for (int d = 0; d < kMaxHeadDim; d += 4) {
+        float go[4], v[8][4];
+        lds4(Gs + ty * kLdk + d, go);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, v[c]);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) ga[c] = fmaf(go[dd], v[c][dd], ga[c]);
+      }
+      __syncthreads();   // Ts complete
+      // the AV z-rule, the mask-Add split and the QKᵀ z-rule's S, per (i, j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int jl = tx + kRowTx * c, j = j0 + jl;
+        float* rr = Rr + ty * lds + j;
+        float* rg = Rg + ty * lds + j;
+        if (ty < nr && j < n) {
+          const float p = *rg, raw = *rr, m = ms[j];
+          inner = fmaf(ga[c], p, inner);
+          const float cam1 = p * Ts[ty * kLdt + jl] * 0.5f;
+          const float gcv = ga[c] * cam1;
+          const size_t o = bh * nn + (size_t)(row0 + ty) * n + j;
+          GCP[o] = gcv > 0.f ? gcv : 0.f;
+          Pg[o] = p;
+          const float scaled = mul_rn(raw, scale);
+          const float Sm = safe_divide(cam1, add_rn(scaled, m));
+          const float M = scaled * Sm;
+          *rr = safe_divide(M, raw);
+          *rg = ga[c];
+          sa += M;
+          sb += m * Sm;
+          sr += cam1;
+        } else {
+          *rr = 0.f;
+          *rg = 0.f;
+        }
+      }
+    } else {
+      // sweep 3: g_q = g_raw·K (float32 micro-tile) ...
+      for (int jj = 0; jj < kKeyT; jj += 4) {
+        float gr[4];
+        lds4(Rg + ty * lds + j0 + jj, gr);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float k[4];
+            lds4(st + (jj + u) * kLdk + 4 * tx + 32 * e, k);
+#pragma unroll
+            for (int dd = 0; dd < 4; ++dd)
+              gq[e][dd] = fmaf(gr[u], k[dd], gq[e][dd]);
+          }
+      }
+      // ... and cq = S2u·K (bf16, tensor cores)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* r0 = Rr + (mw + g) * lds + j0 + 16 * kk + 2 * t4;
+        const float* r1 = r0 + 8 * lds;
+        const uint32_t af[4] = {pack_bf16x2(r0[0], r0[1]),
+                                pack_bf16x2(r1[0], r1[1]),
+                                pack_bf16x2(r0[8], r0[9]),
+                                pack_bf16x2(r1[8], r1[9])};
+        const float* kr = st + (16 * kk + 2 * t4) * kLdk + g;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const float* kc = kr + nw + 8 * nb;
+          const uint32_t bf[2] = {pack_bf16x2(kc[0], kc[kLdk]),
+                                  pack_bf16x2(kc[8 * kLdk], kc[9 * kLdk])};
+          mma_bf16_16816(cq[nb], af, bf);
+        }
+      }
     }
-    inner = warp_sum(inner);
-    for (int j = lane; j < n; j += kWarp) {
-      const float gd = rp[j] * (rg[j] - inner) * scale;
-      rg[j] = gd;
-      const size_t o = bh * nn + (size_t)i * n + j;
-      Gg[o] = gd;
-      S2g[o] = rr[j];
-      Pg[o] = rp[j];
+    __syncthreads();   // the stage and Ts are consumed
+
+    if (s == T - 1) {
+      // the masked softmax, in bert_attn.cuh masked_softmax_row's order
+      // (lane l takes j = l, l + 32, …; butterfly max and sum): p is
+      // bitwise the forward's
+      for (int r = warp; r < nr; r += kRowThreads / kWarp) {
+        const float* rr = Rr + r * lds;
+        float* rp = Rg + r * lds;
+        float m = -INFINITY;
+        for (int j = lane; j < n; j += kWarp) {
+          const float x = add_rn(mul_rn(rr[j], scale), ms[j]);
+          rp[j] = x;
+          m = x > m ? x : m;
+        }
+        m = warp_max(m);
+        float sum = 0.f;
+        for (int j = lane; j < n; j += kWarp) {
+          const float e = expf(rp[j] - m);
+          rp[j] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int j = lane; j < n; j += kWarp) rp[j] = rp[j] / sum;
+      }
+      __syncthreads();
+    } else if (s == 2 * T - 1) {
+      // inner_i = Σ_j g_probs·p over the row's 8 threads (butterfly), then
+      // the softmax backward g_raw = p ⊙ (g_probs − inner) · scale; p comes
+      // back from P, which this thread wrote
+#pragma unroll
+      for (int o = kRowTx / 2; o > 0; o >>= 1)
+        inner += __shfl_xor_sync(0xffffffffu, inner, o);
+      if (ty < nr)
+        for (int j = tx; j < n; j += kRowTx) {
+          const size_t o = bh * nn + (size_t)(row0 + ty) * n + j;
+          const float gd = Pg[o] * (Rg[ty * lds + j] - inner) * scale;
+          Gg[o] = gd;
+          S2g[o] = Rr[ty * lds + j];
+          Rg[ty * lds + j] = rnd<RA>(gd);
+        }
+      __syncthreads();
     }
-    __syncwarp();  // the next row overwrites gw and sw
   }
+
+  // the block's mask-Add sums, in a fixed order
   sa = warp_sum(sa);
   sb = warp_sum(sb);
   sr = warp_sum(sr);
@@ -181,44 +391,35 @@ __global__ void bert_attn_rev_rows_kernel(
     red[warp * 3 + 2] = sr;
   }
   __syncthreads();
-  if (threadIdx.x < 3) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += red[w * 3 + threadIdx.x];
-    sums[(bh * gridDim.x + blockIdx.x) * 3 + threadIdx.x] = s;
+  if (t < 3) {
+    float acc = 0.f;
+    for (int w = 0; w < kRowThreads / kWarp; ++w) acc += red[w * 3 + t];
+    sums[(bh * gridDim.x + blockIdx.x) * 3 + t] = acc;
   }
-
-  // phase 3: K resident again; g_q = g_raw·K, cqu = q ⊙ (S2u·K) / 2
-  load(1);
-  __syncthreads();
-  for (int r = warp; r < nr; r += nwarps) {
-    const size_t row_q = ((size_t)b * n + row0 + r) * ld + h * hd;
-    const float* rr = Rr + (size_t)r * n;
-    const float* rg = Rg + (size_t)r * n;
-    for (int d = lane; d < hd; d += kWarp) {
-      float gq = 0.f, cq = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float kv = KV[j * ldk + d];
-        gq = fmaf(rnd<RA>(rg[j]), rnd<RA>(kv), gq);
-        cq = fmaf(rnd<RR>(rr[j]), rnd<RR>(kv), cq);
+  if (ty < nr) {
+    const size_t row_q = ((size_t)b * n + row0 + ty) * ld + h * hd;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const int c = 4 * tx + 32 * e + dd;
+        if (c < hd) g_qkv[row_q + c] = gq[e][dd];
       }
-      g_qkv[row_q + d] = gq;
-      cam_qkv[row_q + d] = qkv[row_q + d] * cq * 0.5f;
-    }
   }
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mw + g + 8 * (i >> 1), c = nw + 8 * nb + 2 * t4 + (i & 1);
+      if (r < nr && c < hd) {
+        const size_t o = ((size_t)b * n + row0 + r) * ld + h * hd + c;
+        cam_qkv[o] = qkv[o] * cq[nb][i] * 0.5f;
+      }
+    }
 }
 
-// Rows per block of the row pass: the most (a multiple of the warps, at
-// most 4 per warp) whose buffers fit beside one K/V buffer.
-inline size_t rev_rows_smem(int n, int hd, int rows) {
-  return sizeof(float) * (head_kv_floats(n, hd) + (size_t)3 * rows * n +
-                          (size_t)kRevWarps * (3 * hd + 3));
-}
-
-inline int rev_rows(int n, int hd) {
-  const size_t limit = (size_t)max_smem_optin();
-  for (int per = 4; per >= 1; per /= 2)
-    if (rev_rows_smem(n, hd, per * kRevWarps) <= limit) return per * kRevWarps;
-  return 0;
+inline size_t rev_rows_smem(int n) {
+  return sizeof(float) * RowLayout(n).floats();
 }
 
 // λ per sample from the row pass's partial sums, in a fixed order
@@ -267,25 +468,25 @@ struct AttnSaved {
   const float *qkv_pre, *ctx, *dense_nb;
 };
 
-template <bool RA, bool RR>
+template <bool RA>
 int bert_heads_rev(const float* qkv, const float* qkv_pre, const float* bqkv,
                    const float* mask, const float* ctx, const float* g_ctx,
                    const float* R1f, float* g_qkv, float* cam_qkv, float* P,
                    float* G, float* S2, float* GCP, float* S1, float* sums,
-                   float* gc, int B, int n, int H, int hd, int rows,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = rev_rows_smem(n, hd, rows);
-  auto kern = bert_attn_rev_rows_kernel<RA, RR>;
+                   float* gc, int B, int n, int H, int hd, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = rev_rows_smem(n);
+  auto kern = bert_attn_rev_rows_kernel<RA>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(kern, grid, kRevWarps * kWarp, smem, stream)(
+  dim3 grid((n + kRowQ - 1) / kRowQ, H, B);
+  TE_LAUNCH(kern, grid, kRowThreads, smem, stream)(
       qkv, mask, ctx, g_ctx, R1f, g_qkv, cam_qkv, P, G, S2, GCP, S1, sums, n,
-      H, hd, scale, rows);
+      H, hd, scale);
   TE_TRY((int)cudaGetLastError());
-  return attn_rev_cols<RA, RR>(qkv_pre, bqkv, g_ctx, P, G, S2, S1, GCP,
-                               g_qkv, cam_qkv, gc, B, n, H, hd, stream);
+  return attn_rev_cols<RA, true>(qkv_pre, bqkv, g_ctx, P, G, S2, S1, GCP,
+                                 g_qkv, cam_qkv, gc, B, n, H, hd, stream);
 }
 
 int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
@@ -294,10 +495,12 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
                   char* work, size_t* work_bytes, int B, int n, int H, int hd,
                   float eps, int mxu, int attn_bf16, int rule_bf16, int rule,
                   cudaStream_t stream) {
-  if (hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
-  const int rows_per_block = rev_rows(n, hd);
-  if (rows_per_block == 0) return (int)cudaErrorInvalidValue;
-  const int tiles = (n + rows_per_block - 1) / rows_per_block;
+  // the rule products run on the tensor cores in bf16 only (the wrapper's
+  // mode tables admit no other rule mode for this kernel)
+  if (hd > kMaxHeadDim || !rule_bf16 ||
+      rev_rows_smem(n) > (size_t)max_smem_optin())
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (n + kRowQ - 1) / kRowQ;
   const int D = H * hd, rows = B * n;
   const size_t rD = (size_t)rows * D, hnn = (size_t)B * H * n * n;
   Carve ws{work};
@@ -346,14 +549,10 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
       EpiRuleNum{R1f, sv.ctx, D}, stream));
 
   // per head: row pass, column pass, head mean
-  const auto heads =
-      attn_bf16 ? (rule_bf16 ? bert_heads_rev<true, true>
-                             : bert_heads_rev<true, false>)
-                : (rule_bf16 ? bert_heads_rev<false, true>
-                             : bert_heads_rev<false, false>);
+  const auto heads = attn_bf16 ? bert_heads_rev<true> : bert_heads_rev<false>;
   TE_TRY(heads(qkv, sv.qkv_pre, w.bqkv, mask, sv.ctx, g_ctx, R1f, g_qkv,
-               cam_qkv, P, G, S2, GCP, S1, sums, gc, B, n, H, hd,
-               rows_per_block, scale, stream));
+               cam_qkv, P, G, S2, GCP, S1, sums, gc, B, n, H, hd, scale,
+               stream));
 
   // combine: λ, g_in, the q/k/v rule and the nested clones
   TE_LAUNCH(mask_lambda_kernel, (B + 31) / 32, 32, 0, stream)(sums, lam, B,

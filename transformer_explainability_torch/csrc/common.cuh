@@ -95,6 +95,12 @@ __device__ __forceinline__ T rnd(T x) {
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 
+// two floats rounded to bf16 and packed as one fragment register (lo in the
+// low half, as the lower k index of the pair)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)f2bf(lo) | (uint32_t)f2bf(hi) << 16;
+}
+
 // D += A·B on the tensor cores: one m16n8k16 tile, bf16 operands packed two
 // to a register in the PTX fragment layout, float32 accumulators. A
 // warp-collective operation: all 32 lanes call it together.
@@ -110,6 +116,78 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 #else
   te_emu_mma_bf16_16816(d, a, b);
 #endif
+}
+
+// 16 bytes from device memory into shared memory without a trip through
+// registers (cp.async, sm_80 and newer). A batch of copies is closed by
+// cp_async_commit(); cp_async_wait<N>() waits until at most N batches are
+// in flight, and a __syncthreads() after it lets the other threads read.
+// The emulator copies at once and its commit and wait do nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDACC__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+#else
+  __builtin_memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// rows × cols values from device memory (row pitch ld) into shared memory
+// (row pitch lds), by the whole block: with cp.async in 16-byte pieces
+// when vec (both pitches, cols and the addresses allow it), else by plain
+// copies. The caller commits, waits and synchronises.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int lds, const T* src,
+                                          size_t ld, int rows, int cols,
+                                          bool vec) {
+  if (vec) {
+    constexpr int per = 16 / sizeof(T);
+    const int pieces = cols / per;
+    for (int idx = threadIdx.x; idx < rows * pieces; idx += blockDim.x) {
+      const int r = idx / pieces, c = (idx - r * pieces) * per;
+      cp_async16(dst + (size_t)r * lds + c, src + (size_t)r * ld + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+      const int r = idx / cols, c = idx - r * cols;
+      dst[(size_t)r * lds + c] = src[(size_t)r * ld + c];
+    }
+  }
+}
+
+// whether load_tile may take 16-byte pieces: rows of cols values at pitch
+// ld from an address p
+template <typename T>
+__host__ __device__ inline bool tile_vec_ok(const T* p, size_t ld, int cols) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) &&
+         (ld * sizeof(T)) % 16 == 0 && (cols * sizeof(T)) % 16 == 0;
+}
+
+// four consecutive values from shared memory, 16-byte aligned for float
+// (one vector load); a double reads them one by one
+template <typename T>
+__device__ __forceinline__ void lds4(const T* p, T (&v)[4]) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
+  }
 }
 
 // Largest shared-memory block the current device grants after opt-in
