@@ -47,8 +47,10 @@ result line):
      slice is printed);
   5. times: each kernel beside its plain version and its bound, B4 beside
      ``scaled_dot_product_attention`` (and the CUDA kernel that call ran,
-     from the profiler) and in the split path's bf16 mode, B9 at S=512 and
-     S=128, and explanations/s at B=8 for the
+     from the profiler) and in the split path's bf16 mode, B7 and B9 at
+     S=512 and S=128, B7's attention-core launch (profiler) beside
+     ``scaled_dot_product_attention`` with the additive mask on the same
+     q, k, v at S=512, and explanations/s at B=8 for the
      exact-FP32 and the production paths, kernels and plain, the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
      (BERT at S=512 and S=128; the tensor-parallel program at k = 1).
@@ -179,7 +181,8 @@ def main() -> int:
     if log.exists():
         # registers and spills per kernel (-Xptxas -v): a summary line, a
         # line for each kernel that spills and for each instance of the
-        # redesigned kernels (B4, B9's row pass)
+        # redesigned kernels (B4, B7's attention core, B9's and B3's row
+        # passes, the column pass)
         entry, spill, regs = None, "", []
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
@@ -189,8 +192,10 @@ def main() -> int:
             elif "registers" in line and entry:
                 regs.append(int(line.split("Used")[1].split()[0]))
                 if (not spill.startswith("0 bytes stack frame, 0 bytes spill")
-                        or "attn_fwd_kernel" in entry
-                        or "bert_attn_rev_rows_kernel" in entry):
+                        or any(k in entry for k in (
+                            "attn_fwd_kernel", "bert_attn_rev_rows_kernel",
+                            "blk_attn_rev_rows_kernel",
+                            "blk_attn_rev_cols_kernel"))):
                     print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
                           f"{spill}")
                 entry = None
@@ -1031,8 +1036,11 @@ def main() -> int:
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-        return (sum(e.self_device_time_total for e in evs) / iters / 1e3,
-                sorted({e.key for e in evs}))
+        per = {}
+        for e in evs:
+            per[e.key] = per.get(e.key, 0.0) + (e.self_device_time_total
+                                                / iters / 1e3)
+        return sum(per.values()), sorted(per), per
 
     b4_dev = device_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5))
     sdpa_dev = device_ms(sdpa)
@@ -1163,7 +1171,39 @@ def main() -> int:
     print(f"time bert_attn_rev_core (8, {S_s}, {bcfg.num_heads}, "
           f"{bcfg.head_dim}) f32 production modes: kernel {b9_128[0]:.4f} "
           f"ms, plain {b9_128[1]:.4f} ms {tag}")
-    del x_s, g_s, r_s, m_s, sv_s, b9_s
+    b7_s = (x_s, m_s, bi["p32"], *bi["fargs"])
+    b7_128 = (time_ms(lambda: K.bert_layer_fwd_core(*b7_s, save_attn=True)),
+              time_ms(lambda: bmath.bert_layer_fwd_core_plain(
+                  *b7_s, save_attn=True)))
+    print(f"time bert_layer_fwd_core (8, {S_s}, {bcfg.num_heads}, "
+          f"{bcfg.head_dim}) f32 production modes: kernel {b7_128[0]:.4f} "
+          f"ms, plain {b7_128[1]:.4f} ms {tag}")
+    del x_s, g_s, r_s, m_s, sv_s, b9_s, b7_s
+    # B7's attention core alone (its launch's device time, profiler) beside
+    # scaled_dot_product_attention with the additive mask on the same float32
+    # q, k, v (qkv_pre + b_qkv) at S=512 (timed only; the port never calls it)
+    b7_call = lambda: K.bert_layer_fwd_core(bi["x"], bi["m"], bi["p32"],
+                                            *bi["fargs"], save_attn=True)
+    b7_launches = device_ms(b7_call)[2]
+    core_ms = sum(ms for name, ms in b7_launches.items()
+                  if "bert_attn_fwd_kernel" in name)
+    qkv_b = b7_call()[2] + bi["p32"].b_qkv
+    hb, hdb = bcfg.num_heads, bcfg.head_dim
+    qb, kb, vb = (t.contiguous() for t in bm.split_heads(qkv_b, hb, hdb))
+    mask4 = bi["m"][:, None, None, :]        # (B, 1, 1, S), broadcast
+    sdpa_m = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask4, scale=hdb ** -0.5)
+    sdpa_m_ms = time_ms(sdpa_m, 50)
+    sdpa_m_dev = device_ms(sdpa_m)
+    print(f"time B7 attention core (8, {qb.shape[2]}, {hb}, {hdb}) f32: launch "
+          f"{core_ms:.4f} ms (profiler); scaled_dot_product_attention with "
+          f"the additive mask {sdpa_m_ms:.4f} ms (events), "
+          f"{sdpa_m_dev[0]:.4f} ms (profiler), ran: "
+          f"{'; '.join(sdpa_m_dev[1]) or 'no kernel seen'} {tag}")
+    print("B7 launches (profiler, ms per call): " + "; ".join(
+        f"{name[:60]} {ms:.4f}" for name, ms in sorted(
+            b7_launches.items(), key=lambda kv: -kv[1])) + f" {tag}")
+    del qkv_b, qb, kb, vb, mask4
     del bert_inputs, bi
     torch.cuda.empty_cache()
 

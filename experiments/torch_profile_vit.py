@@ -5,7 +5,9 @@ on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
                                              [--precision float32|production|bfloat16]
                                              [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
-    python3 experiments/torch_profile_vit.py --b9 [--seq 512] [--precision production]
+    python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b6] [--b7] [--b8]
+                                             [--b9] [--b10a] [--b10b] [--seq 512]
+                                             [--precision production]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
@@ -17,11 +19,12 @@ and the MLP reverse kernel per block instead of the megakernels).
 ``transformer_attribution``). ``--tp`` profiles the tensor-parallel
 ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
 single-rank NCCL process group instead of the single-device path.
-``--b9`` profiles one call of the BERT attention reverse kernel
-``bert_attn_rev_core`` (B9) alone, at BERT-base B=8 and length ``--seq``
-in the preset's modes, and prints every launch it makes (the row pass, the
-column pass, the head mean, each GEMM-core instance, LayerNorm backward, the
-add rule, the bias adds, λ) with its device time per call.
+``--b2`` … ``--b10b`` profile one call of a layer kernel alone (B2, B3, B6,
+B10a, B10b at ViT-B/16 B=8; B7, B8, B9 at BERT-base B=8 and length
+``--seq``; see ``layer_call``), each in the preset's modes, and print every
+launch the call makes (the attention passes, each GEMM-core instance, the
+LayerNorm, add-rule and other row kernels) with its device time per call,
+and the GEMM core's share.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -172,44 +175,102 @@ def bert_case(dev, S, prec):
                                ("plain", K.BERT_PLAIN_OPS))]
 
 
-def b9_launches(dev, S, prec, card, calls=10):
-    """Every kernel one ``bert_attn_rev_core`` call launches at BERT-base,
-    B=8, length S (the samples' masks cut at lengths S … S/8), with its
-    device time per call, under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
+LAYER_KERNELS = ("b2", "b3", "b6", "b7", "b8", "b9", "b10a", "b10b")
+
+
+def layer_call(which, dev, S, prec):
+    """``(label, call)``: one call of the layer kernel ``which`` in the
+    preset's modes, on random inputs from a seeded generator: at ViT-B/16,
+    B=8, B2 ``block_fwd_core``, B3 ``block_rev_core`` (from B2's anchors),
+    B6 ``mlp_rev_core`` and the tensor-parallel MLP phases B10a / B10b at
+    k = 1; at BERT-base, B=8, length S (the samples' masks cut at lengths
+    S … S/8), B7 ``bert_layer_fwd_core``, B8 ``bert_out_rev_core`` and B9
+    ``bert_attn_rev_core`` (from B7's anchors)."""
     from transformer_explainability_torch.models.bert import (
-        BERT_BASE_UNCASED as cfg)
+        BERT_BASE_UNCASED as bcfg)
+    from transformer_explainability_torch.models.vit import (
+        VIT_BASE_16_224 as vcfg)
     from transformer_explainability_torch.ops import bert_math as bmath
+    from transformer_explainability_torch.ops import block_math as bm
     from transformer_explainability_torch.ops import kernels as K
     from transformer_explainability_torch.ops import precision as P
     from transformer_explainability_torch.ops.precision import mxu_name
     gen = torch.Generator(device=dev).manual_seed(2)
-    D, inter, h, hd = (cfg.hidden_size, cfg.intermediate_size,
-                       cfg.num_heads, cfg.head_dim)
     mxu = mxu_name(prec.get("matmul_precision"))
     attn = mxu_name(prec.get("attn_precision", prec.get("matmul_precision")))
     rule = mxu_name(prec.get("relprop_precision",
                              prec.get("matmul_precision")))
     mlp = mxu_name(prec.get("mlp_precision", prec.get("matmul_precision")))
+    mlp = mlp or mxu
+    modes = f"modes mxu {mxu}, attn {attn}, rule {rule}, mlp {mlp}"
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    vit = which in ("b2", "b3", "b6", "b10a", "b10b")
+    cfg = vcfg if vit else bcfg
+    D, h, hd = cfg.num_heads * cfg.head_dim, cfg.num_heads, cfg.head_dim
+    inter = vcfg.mlp_dim if vit else bcfg.intermediate_size
     ws = [P.prepare_weight(randn(o, i).double() / i ** 0.5, mxu)
           for o, i in ((3 * D, D), (D, D), (inter, D), (D, inter))]
     vecs = [1.0 + 0.1 * randn(D), 0.1 * randn(D), 1.0 + 0.1 * randn(D),
             0.1 * randn(D), 0.1 * randn(3 * D), 0.1 * randn(D),
             0.1 * randn(inter), 0.1 * randn(D)]
+    if vit:
+        n, eps = vcfg.num_tokens, vcfg.block_ln_eps
+        where = f"ViT-B/16 B=8 n={n} ({modes})"
+        p = bm.BlockParams(*vecs, *ws)
+        x, g, R = randn(8, n, D) + 0.5, randn(8, n, D), randn(8, n, D)
+        fwd = K.block_fwd_core(x, p, h, hd, eps, mxu, attn, mlp,
+                               save_attn=True, save_mlp=True)
+        if which == "b2":
+            return (f"block_fwd_core {where}",
+                    lambda: K.block_fwd_core(x, p, h, hd, eps, mxu, attn, mlp,
+                                             save_attn=True, save_mlp=True))
+        if which == "b3":
+            args = (x, fwd[1], fwd[2], g, R, p, h, hd, eps, mxu, attn, rule,
+                    mlp)
+            return (f"block_rev_core {where}",
+                    lambda: K.block_rev_core(*args, saved=fwd[3:]))
+        if which == "b6":
+            return (f"mlp_rev_core {where}",
+                    lambda: K.mlp_rev_core(fwd[1], g, R, p, eps, mlp, rule))
+        tp = (p.ln2s, p.ln2b, p.b1, p.w1, p.w2, eps)
+        ph1 = K.mlp_rev_tp_phase1(fwd[1], g, *tp, mlp, rule)
+        if which == "b10a":
+            return (f"mlp_rev_tp_phase1 k=1 {where}",
+                    lambda: K.mlp_rev_tp_phase1(fwd[1], g, *tp, mlp, rule))
+        Sr = 1.0 / (1.0 + ph1[1].abs())
+        return (f"mlp_rev_tp_phase2 k=1 {where}",
+                lambda: K.mlp_rev_tp_phase2(fwd[1], Sr, ph1[0], *tp, rule))
+    eps = bcfg.layer_norm_eps
+    where = f"BERT-base B=8 S={S} ({modes})"
     p = bmath.BertLayerParams(*vecs, *ws)
     lengths = S - (S // 8) * torch.arange(8, device=dev)
     keep = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-    mask = (1.0 - keep.float()) * cfg.mask_value
+    mask = (1.0 - keep.float()) * bcfg.mask_value
     x, g, R = randn(8, S, D), randn(8, S, D), randn(8, S, D)
-    fwd = K.bert_layer_fwd_core(x, mask, p, h, hd, cfg.layer_norm_eps, mxu,
-                                attn, mlp or mxu, save_attn=True)
-    args = (x, g, R, mask, p, h, hd, cfg.layer_norm_eps, mxu, attn, rule)
-    call = lambda: K.bert_attn_rev_core(*args, saved=fwd[2:])
+    fargs = (x, mask, p, h, hd, eps, mxu, attn, mlp)
+    if which == "b7":
+        return (f"bert_layer_fwd_core {where}",
+                lambda: K.bert_layer_fwd_core(*fargs, save_attn=True))
+    fwd = K.bert_layer_fwd_core(*fargs, save_attn=True)
+    if which == "b8":
+        return (f"bert_out_rev_core {where}",
+                lambda: K.bert_out_rev_core(fwd[1], g, R, p, eps, mxu, rule,
+                                            mlp))
+    args = (x, g, R, mask, p, h, hd, eps, mxu, attn, rule)
+    return (f"bert_attn_rev_core {where}",
+            lambda: K.bert_attn_rev_core(*args, saved=fwd[2:]))
+
+
+def kernel_launches(which, dev, S, prec, card, calls=10):
+    """Every kernel one call of the layer kernel ``which`` (see
+    :func:`layer_call`) launches, with its device time per call, under
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    label, call = layer_call(which, dev, S, prec)
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -222,9 +283,10 @@ def b9_launches(dev, S, prec, card, calls=10):
             for evt in prof.key_averages()
             if evt.device_type == DeviceType.CUDA]
     total = sum(r[0] for r in rows)
-    print(f"[{card}] bert_attn_rev_core BERT-base B=8 S={S} (modes mxu "
-          f"{mxu}, attn {attn}, rule {rule}): {total / 1e3:.4f} ms of kernels "
-          f"per call, {sum(r[1] for r in rows):.0f} launches")
+    gemm = sum(r[0] for r in rows if "gemm_kernel" in r[2])
+    print(f"[{card}] {label}: {total / 1e3:.4f} ms of kernels per call, "
+          f"{sum(r[1] for r in rows):.0f} launches; GEMM core "
+          f"{gemm / 1e3:.4f} ms ({gemm / total:.1%})")
     for us, count, name in sorted(rows, key=lambda r: -r[0]):
         print(f"  {us / 1e3:9.4f} ms  x{count:.0f}  {name[:150]}")
 
@@ -238,7 +300,8 @@ def main():
     ap.add_argument("--no-block-kernel", action="store_true")
     ap.add_argument("--method", default="transformer_attribution")
     ap.add_argument("--tp", action="store_true")
-    ap.add_argument("--b9", action="store_true")
+    for which in LAYER_KERNELS:
+        ap.add_argument(f"--{which}", action="store_true")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profiles"))
     args = ap.parse_args()
@@ -254,8 +317,10 @@ def main():
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     prec = precision_kwargs(args.precision)
-    if args.b9:
-        b9_launches(dev, args.seq, prec, card)
+    layer = [w for w in LAYER_KERNELS if getattr(args, w)]
+    for which in layer:
+        kernel_launches(which, dev, args.seq, prec, card)
+    if layer:
         return
     if args.model == "bert":
         paths, what = bert_case(dev, args.seq, prec), f"bert_s{args.seq}"

@@ -167,9 +167,7 @@ def test_block_fwd_kernel_matches_plain(lib, shape, preset):
         _f32_rule(k, p, q, name)
 
 
-@pytest.mark.parametrize("shape", BLOCK_SHAPES)
-@pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_block_rev_kernel_matches_plain(lib, shape, preset):
+def _check_block_rev(lib, shape, preset):
     b, n, h, hd = shape
     mxu, attn, rule, mlp = PRESETS[preset]
     p64, p32, x = _block_case(21, b, n, h, hd, mxu)
@@ -191,6 +189,25 @@ def test_block_rev_kernel_matches_plain(lib, shape, preset):
                                      rule, mlp, saved=saved32)
     for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
         _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_block_rev_kernel_matches_plain(lib, shape, preset):
+    _check_block_rev(lib, shape, preset)
+
+
+# B3's attention reverse across its tiles: n = 2·64 + 5 spans five 32-row
+# query tiles of the row pass, three streamed 64-key tiles and three 64-key
+# column tiles, the last of each ragged, its (n, n) rows copied in 4-byte
+# pieces; n = 64 + 8 two of each (three query tiles) in 16-byte pieces, hd 8
+BLOCK_TILE_SHAPES = [(1, 2 * 64 + 5, 1, 64), (2, 64 + 8, 2, 8)]
+
+
+@pytest.mark.parametrize("shape", BLOCK_TILE_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_block_rev_kernel_tiles_match_plain(lib, shape, preset):
+    _check_block_rev(lib, shape, preset)
 
 
 # ---------------------------------------------------------------------------
@@ -228,12 +245,18 @@ def _bert_case(seed, b, S, h, hd, inter, base):
     return p64, p32, x, mask
 
 
-@pytest.mark.parametrize("shape", BERT_SHAPES)
-@pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_bert_fwd_kernel_matches_plain(lib, shape, preset):
+def _masks(S, lengths):
+    """Additive (B, S) masks cutting each sample at its own length."""
+    keep = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+    return torch.from_numpy((1.0 - keep) * -10000.0)
+
+
+def _check_bert_fwd(lib, shape, preset, lengths=None):
     b, S, h, hd, inter = shape
     mxu, attn, _, mlp = PRESETS[preset]
     p64, p32, x, mask = _bert_case(30, b, S, h, hd, inter, mxu)
+    if lengths is not None:
+        mask = _masks(S, lengths)
     flags = K._block_modes("bert_layer_fwd_core", p32, mxu=mxu,
                            mlp=mlp or mxu, attn_bf16=attn)
     got = K._launch_bert_fwd(lib, x.float(), mask.float(), p32, h, hd,
@@ -247,6 +270,12 @@ def test_bert_fwd_kernel_matches_plain(lib, shape, preset):
                                                    "ctx", "dense_nb"]):
         assert k.shape == q.shape, name
         _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("shape", BERT_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_fwd_kernel_matches_plain(lib, shape, preset):
+    _check_bert_fwd(lib, shape, preset)
 
 
 @pytest.mark.parametrize("shape", BERT_SHAPES)
@@ -277,8 +306,7 @@ def _check_bert_attn_rev(lib, shape, preset, lengths=None):
     mxu, attn, rule, mlp = PRESETS[preset]
     p64, p32, x, mask = _bert_case(33, b, S, h, hd, inter, mxu)
     if lengths is not None:
-        keep = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
-        mask = torch.from_numpy((1.0 - keep) * -10000.0)
+        mask = _masks(S, lengths)
     fwd = bmath.bert_layer_fwd_core_plain(x, mask, p64, h, hd, BERT_EPS, mxu,
                                           attn, mlp, save_attn=True)
     rng = np.random.RandomState(34)
@@ -312,6 +340,23 @@ BERT_TILE_SHAPES = [(2, 150, 1, 64, 32), (2, 150, 2, 8, 24)]
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_bert_attn_rev_kernel_tiles_match_plain(lib, shape, preset):
     _check_bert_attn_rev(lib, shape, preset, lengths=(150, 97))
+
+
+# S=96 (rows of the (S, S) maps 16-byte aligned, so the column pass copies
+# them in 16-byte pieces; at S=150 in 4-byte ones) spans two of the column
+# pass's 64-key tiles, the last half full, and three 32-row stages
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_attn_rev_kernel_column_tiles_match_plain(lib, preset):
+    _check_bert_attn_rev(lib, (2, 96, 1, 64, 32), preset, lengths=(96, 71))
+
+
+# B7's attention core at S=150: three 64-row query tiles and three streamed
+# 64-key tiles, the last of each ragged; the masks cut the samples inside the
+# last key tile and inside the second
+@pytest.mark.parametrize("shape", BERT_TILE_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_bert_fwd_kernel_tiles_match_plain(lib, shape, preset):
+    _check_bert_fwd(lib, shape, preset, lengths=(150, 97))
 
 
 # ---------------------------------------------------------------------------

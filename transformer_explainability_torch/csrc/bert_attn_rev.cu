@@ -43,38 +43,16 @@
 // products are register micro-tiles and the bf16 rule products run on the
 // tensor cores (mma.sync). The per-sample sums of λ are per-block partials
 // summed in a fixed order afterwards: deterministic, no atomics.
-// The probabilities are bitwise B7's (bert_fwd.cu, masked_softmax_row of
-// bert_attn.cuh), which the AV z-rule's S1 = R1 / ctx needs: each raw score
-// is one FMA chain over d = 0 … hd−1 in order (the zero columns past hd add
-// nothing), x = raw·scale + mask by the same non-contracting operations,
-// and the max, exp, sum and divide run in that function's order, lane l
-// over j ≡ l (mod 32) ascending, then the butterfly.
+// The probabilities are bitwise B7's (bert_fwd.cu), which the AV z-rule's
+// S1 = R1 / ctx needs: both form them by bert_attn.cuh's score_tile and
+// masked_softmax_rows (each raw score one FMA chain over d = 0 … hd−1 in
+// order; x = raw·scale + mask by non-contracting operations; the max, exp,
+// sum and divide with lane l over j ≡ l (mod 32) ascending, then the
+// butterfly), whatever tile shape each kernel gives its threads.
 #include "bert_attn.cuh"
 #include "rules.cuh"
 
 namespace te {
-
-// out = res + (pre + bias[c]) (res null: pre + bias[c]) over rows of width
-// N: the forward epilogues' sums (EpiQkv, EpiResidual), formed again from
-// their saved pre-bias products.
-static __global__ void bias_add_kernel(const float* __restrict__ pre,
-                                       const float* __restrict__ bias,
-                                       const float* __restrict__ res,
-                                       float* __restrict__ out, size_t total,
-                                       int N) {
-  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const float v = pre[o] + bias[o % N];
-  out[o] = res ? res[o] + v : v;
-}
-
-inline int bias_add(const float* pre, const float* bias, const float* res,
-                    float* out, size_t total, int N, cudaStream_t stream) {
-  const int threads = 256;
-  TE_LAUNCH(bias_add_kernel, (unsigned)((total + threads - 1) / threads),
-            threads, 0, stream)(pre, bias, res, out, total, N);
-  return (int)cudaGetLastError();
-}
 
 // Row pass: one block of 256 threads per (tile of kRowQ = 32 query rows,
 // head, sample). The head's K and V stream through a ring of two
@@ -94,13 +72,9 @@ inline int bias_add(const float* pre, const float* bias, const float* res,
 // bf16 rule products (t = S1·Vᵀ, cq = S2u·K) run on the tensor cores
 // (mma.sync m16n8k16): warp w owns rows 16(w % 2) … + 15 and the 16 keys
 // (or columns) 16(w / 2) … + 15, so t lands in a shared tile for the
-// epilogue and cq stays in registers over the whole K sweep.
-constexpr int kRowQ = 32;                 // query rows per block
-constexpr int kKeyT = 64;                 // keys per streamed tile
-constexpr int kRowThreads = 256;
-constexpr int kRowTx = 8;                 // threads per row
-constexpr int kLdk = kMaxHeadDim + 4;     // stage / tile row pitch
-constexpr int kLdt = kKeyT + 8;           // pitch of the t tile
+// epilogue and cq stays in registers over the whole K sweep. The scores and
+// the softmax are bert_attn.cuh's, as B7 forms them; the V and K sweeps'
+// products and the softmax backward are rules.cuh's, shared with B3.
 
 // Shared memory of the row pass, in floats: the (32, S) rows Rr (raw, then
 // S2u) and Rg (x, e, p, then g_probs, then g_raw), padded to a multiple of
@@ -146,9 +120,10 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
   const float* base = qkv + (size_t)b * n * ld + h * hd;
   const bool vec = tile_vec_ok(base, ld, hd);
   const size_t bh = (size_t)b * H + h, nn = (size_t)n * n;
+  const size_t tile_o = bh * nn + (size_t)row0 * n;   // the rows' maps
 
   // zeros where no copy writes: the columns hd … kMaxHeadDim of the stages
-  // and of the tiles (every product runs over all 64 columns; a zero term
+  // and of the q tile (every product runs over all 64 columns; a zero term
   // leaves a sum unchanged), the q rows past n
   for (int idx = t; idx < 2 * kKeyT * kMaxHeadDim; idx += kRowThreads) {
     const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
@@ -156,32 +131,21 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
   }
   for (int idx = t; idx < kRowQ * kMaxHeadDim; idx += kRowThreads) {
     const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
-    float gv = 0.f, s1 = 0.f;
-    if (r < nr && c < hd) {
-      const size_t o = ((size_t)b * n + row0 + r) * D + h * hd + c;
-      gv = g_ctx[o];
-      s1 = safe_divide(R1f[o], ctx[o]);
-      S1g[(bh * n + row0 + r) * hd + c] = s1;
-    } else {
-      Qs[r * kLdk + c] = 0.f;
-    }
-    Gs[r * kLdk + c] = rnd<RA>(gv);
-    S1s[r * kLdk + c] = s1;
+    if (r >= nr || c >= hd) Qs[r * kLdk + c] = 0.f;
   }
+  rows_stage_go_s1<RA>(Gs, S1s, S1g, g_ctx, R1f, ctx, b, h, H, n, row0, nr,
+                       hd);
   for (int j = t; j < Sp; j += kRowThreads)
     ms[j] = j < n ? mask[(size_t)b * n + j] : 0.f;
   load_tile(Qs, kLdk, base + (size_t)row0 * ld, ld, nr, hd, vec);
   cp_async_commit();
 
-  // stream tile s: K for s < T and s >= 2T, V between; rows past n zero
+  // stream tile s: K for s < T and s >= 2T, V between
   auto fetch = [&](int s) {
-    float* st = KVs + (s & 1) * kKeyT * kLdk;
     const int j0 = (s % T) * kKeyT, part = s / T == 1 ? 2 : 1;
-    const int rows = n - j0 < kKeyT ? n - j0 : kKeyT;
-    for (int idx = t; idx < (kKeyT - rows) * hd; idx += kRowThreads)
-      st[(rows + idx / hd) * kLdk + idx % hd] = 0.f;
-    load_tile(st, kLdk, base + (size_t)j0 * ld + part * D, ld, rows, hd, vec);
-    cp_async_commit();
+    stream_kv_tile(KVs + (s & 1) * kKeyT * kLdk,
+                   base + (size_t)j0 * ld + part * D, ld,
+                   n - j0 < kKeyT ? n - j0 : kKeyT, hd, vec);
   };
 
   uint32_t a1[4][4];                      // S1 as A fragments (sweep 2)
@@ -213,66 +177,17 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
     const int j0 = (s % T) * kKeyT;
 
     if (s < T) {
-      // sweep 1: raw = q·kᵀ, each one FMA chain over d in order
-      float acc[8];
+      // sweep 1: raw = q·kᵀ (bert_attn.cuh, as B7)
+      float acc[1][8];
+      score_tile<1, 8, kRowQ, kRowTx>(Qs, st, ty, tx, acc);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-#pragma unroll
-      for (int d = 0; d < kMaxHeadDim; d += 4) {
-        float q[4], k[8][4];
-        lds4(Qs + ty * kLdk + d, q);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, k[c]);
-#pragma unroll
-        for (int dd = 0; dd < 4; ++dd)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[c] = fmaf(q[dd], k[c][dd], acc[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) Rr[ty * lds + j0 + tx + kRowTx * c] = acc[c];
+      for (int c = 0; c < 8; ++c)
+        Rr[ty * lds + j0 + tx + kRowTx * c] = acc[0][c];
     } else if (s < 2 * T) {
-      // sweep 2: t = S1·Vᵀ (bf16, tensor cores) into Ts
-      if (s == T) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float* r0 = S1s + (mw + g) * kLdk + 16 * kk + 2 * t4;
-          const float* r1 = r0 + 8 * kLdk;
-          a1[kk][0] = pack_bf16x2(r0[0], r0[1]);
-          a1[kk][1] = pack_bf16x2(r1[0], r1[1]);
-          a1[kk][2] = pack_bf16x2(r0[8], r0[9]);
-          a1[kk][3] = pack_bf16x2(r1[8], r1[9]);
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        float dacc[4] = {0.f, 0.f, 0.f, 0.f};
-        const float* vr = st + (nw + 8 * nb + g) * kLdk + 2 * t4;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint32_t bf[2] = {pack_bf16x2(vr[16 * kk], vr[16 * kk + 1]),
-                                  pack_bf16x2(vr[16 * kk + 8], vr[16 * kk + 9])};
-          mma_bf16_16816(dacc, a1[kk], bf);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          Ts[(mw + g + 8 * (i >> 1)) * kLdt + nw + 8 * nb + 2 * t4 + (i & 1)] =
-              dacc[i];
-      }
-      // g_probs = g_o·vᵀ (float32 micro-tile)
+      // sweep 2: t = S1·Vᵀ (bf16, tensor cores) into Ts, g_probs = g_o·vᵀ
+      if (s == T) rows_s1_frags(S1s, mw, g, t4, a1);
       float ga[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) ga[c] = 0.f;
-#pragma unroll
-      for (int d = 0; d < kMaxHeadDim; d += 4) {
-        float go[4], v[8][4];
-        lds4(Gs + ty * kLdk + d, go);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, v[c]);
-#pragma unroll
-        for (int dd = 0; dd < 4; ++dd)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) ga[c] = fmaf(go[dd], v[c][dd], ga[c]);
-      }
+      rows_av_products(a1, st, Gs, Ts, mw, nw, g, t4, ty, tx, ga);
       __syncthreads();   // Ts complete
       // the AV z-rule, the mask-Add split and the QKᵀ z-rule's S, per (i, j)
 #pragma unroll
@@ -285,7 +200,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
           inner = fmaf(ga[c], p, inner);
           const float cam1 = p * Ts[ty * kLdt + jl] * 0.5f;
           const float gcv = ga[c] * cam1;
-          const size_t o = bh * nn + (size_t)(row0 + ty) * n + j;
+          const size_t o = tile_o + (size_t)ty * n + j;
           GCP[o] = gcv > 0.f ? gcv : 0.f;
           Pg[o] = p;
           const float scaled = mul_rn(raw, scale);
@@ -302,81 +217,20 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
         }
       }
     } else {
-      // sweep 3: g_q = g_raw·K (float32 micro-tile) ...
-      for (int jj = 0; jj < kKeyT; jj += 4) {
-        float gr[4];
-        lds4(Rg + ty * lds + j0 + jj, gr);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float k[4];
-            lds4(st + (jj + u) * kLdk + 4 * tx + 32 * e, k);
-#pragma unroll
-            for (int dd = 0; dd < 4; ++dd)
-              gq[e][dd] = fmaf(gr[u], k[dd], gq[e][dd]);
-          }
-      }
-      // ... and cq = S2u·K (bf16, tensor cores)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* r0 = Rr + (mw + g) * lds + j0 + 16 * kk + 2 * t4;
-        const float* r1 = r0 + 8 * lds;
-        const uint32_t af[4] = {pack_bf16x2(r0[0], r0[1]),
-                                pack_bf16x2(r1[0], r1[1]),
-                                pack_bf16x2(r0[8], r0[9]),
-                                pack_bf16x2(r1[8], r1[9])};
-        const float* kr = st + (16 * kk + 2 * t4) * kLdk + g;
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const float* kc = kr + nw + 8 * nb;
-          const uint32_t bf[2] = {pack_bf16x2(kc[0], kc[kLdk]),
-                                  pack_bf16x2(kc[8 * kLdk], kc[9 * kLdk])};
-          mma_bf16_16816(cq[nb], af, bf);
-        }
-      }
+      // sweep 3: g_q = g_raw·K (float32), cq = S2u·K (bf16, tensor cores)
+      rows_qk_products(Rr, Rg, lds, j0, st, mw, nw, g, t4, ty, tx, gq, cq);
     }
     __syncthreads();   // the stage and Ts are consumed
 
     if (s == T - 1) {
-      // the masked softmax, in bert_attn.cuh masked_softmax_row's order
-      // (lane l takes j = l, l + 32, …; butterfly max and sum): p is
-      // bitwise the forward's
-      for (int r = warp; r < nr; r += kRowThreads / kWarp) {
-        const float* rr = Rr + r * lds;
-        float* rp = Rg + r * lds;
-        float m = -INFINITY;
-        for (int j = lane; j < n; j += kWarp) {
-          const float x = add_rn(mul_rn(rr[j], scale), ms[j]);
-          rp[j] = x;
-          m = x > m ? x : m;
-        }
-        m = warp_max(m);
-        float sum = 0.f;
-        for (int j = lane; j < n; j += kWarp) {
-          const float e = expf(rp[j] - m);
-          rp[j] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        for (int j = lane; j < n; j += kWarp) rp[j] = rp[j] / sum;
-      }
+      // the masked softmax (bert_attn.cuh, as B7): p bitwise the forward's
+      masked_softmax_rows<kRowQ / (kRowThreads / kWarp)>(
+          Rr, Rg, lds, nr, n, ms, scale, warp, kRowThreads / kWarp, lane);
       __syncthreads();
     } else if (s == 2 * T - 1) {
-      // inner_i = Σ_j g_probs·p over the row's 8 threads (butterfly), then
-      // the softmax backward g_raw = p ⊙ (g_probs − inner) · scale; p comes
-      // back from P, which this thread wrote
-#pragma unroll
-      for (int o = kRowTx / 2; o > 0; o >>= 1)
-        inner += __shfl_xor_sync(0xffffffffu, inner, o);
-      if (ty < nr)
-        for (int j = tx; j < n; j += kRowTx) {
-          const size_t o = bh * nn + (size_t)(row0 + ty) * n + j;
-          const float gd = Pg[o] * (Rg[ty * lds + j] - inner) * scale;
-          Gg[o] = gd;
-          S2g[o] = Rr[ty * lds + j];
-          Rg[ty * lds + j] = rnd<RA>(gd);
-        }
+      // the softmax backward; p comes back from P, which this thread wrote
+      rows_softmax_bwd<RA>(inner, Pg + tile_o, Gg + tile_o, S2g + tile_o, Rr,
+                           Rg, lds, n, nr, ty, tx, scale);
       __syncthreads();
     }
   }
@@ -396,26 +250,8 @@ __global__ void __launch_bounds__(kRowThreads, 1) bert_attn_rev_rows_kernel(
     for (int w = 0; w < kRowThreads / kWarp; ++w) acc += red[w * 3 + t];
     sums[(bh * gridDim.x + blockIdx.x) * 3 + t] = acc;
   }
-  if (ty < nr) {
-    const size_t row_q = ((size_t)b * n + row0 + ty) * ld + h * hd;
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int dd = 0; dd < 4; ++dd) {
-        const int c = 4 * tx + 32 * e + dd;
-        if (c < hd) g_qkv[row_q + c] = gq[e][dd];
-      }
-  }
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = mw + g + 8 * (i >> 1), c = nw + 8 * nb + 2 * t4 + (i & 1);
-      if (r < nr && c < hd) {
-        const size_t o = ((size_t)b * n + row0 + r) * ld + h * hd + c;
-        cam_qkv[o] = qkv[o] * cq[nb][i] * 0.5f;
-      }
-    }
+  rows_store_q(gq, cq, qkv, g_qkv, cam_qkv, b, h, H, n, row0, nr, hd, mw, nw,
+               g, t4, ty, tx);
 }
 
 inline size_t rev_rows_smem(int n) {
@@ -469,9 +305,8 @@ struct AttnSaved {
 };
 
 template <bool RA>
-int bert_heads_rev(const float* qkv, const float* qkv_pre, const float* bqkv,
-                   const float* mask, const float* ctx, const float* g_ctx,
-                   const float* R1f, float* g_qkv, float* cam_qkv, float* P,
+int bert_heads_rev(const float* qkv, const float* mask, const float* ctx,
+                   const float* g_ctx, const float* R1f, float* g_qkv, float* cam_qkv, float* P,
                    float* G, float* S2, float* GCP, float* S1, float* sums,
                    float* gc, int B, int n, int H, int hd, float scale,
                    cudaStream_t stream) {
@@ -485,8 +320,8 @@ int bert_heads_rev(const float* qkv, const float* qkv_pre, const float* bqkv,
       qkv, mask, ctx, g_ctx, R1f, g_qkv, cam_qkv, P, G, S2, GCP, S1, sums, n,
       H, hd, scale);
   TE_TRY((int)cudaGetLastError());
-  return attn_rev_cols<RA, true>(qkv_pre, bqkv, g_ctx, P, G, S2, S1, GCP,
-                                 g_qkv, cam_qkv, gc, B, n, H, hd, stream);
+  return attn_rev_cols<RA>(qkv, g_ctx, P, G, S2, S1, GCP, g_qkv, cam_qkv,
+                           gc, B, n, H, hd, stream);
 }
 
 int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
@@ -550,7 +385,7 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
 
   // per head: row pass, column pass, head mean
   const auto heads = attn_bf16 ? bert_heads_rev<true> : bert_heads_rev<false>;
-  TE_TRY(heads(qkv, sv.qkv_pre, w.bqkv, mask, sv.ctx, g_ctx, R1f, g_qkv,
+  TE_TRY(heads(qkv, mask, sv.ctx, g_ctx, R1f, g_qkv,
                cam_qkv, P, G, S2, GCP, S1, sums, gc, B, n, H, hd, scale,
                stream));
 

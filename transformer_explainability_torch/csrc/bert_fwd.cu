@@ -16,90 +16,182 @@
 // What bounds it on the H100: as block_fwd.cu, one sample's weights and
 // the (S, I) activations do not fit in a block's 227 KB of shared memory,
 // so the layer is a sequence of launches over the whole batch (B·S rows
-// share each weight read): the qkv GEMM, the masked attention core per (row
-// tile, head, sample), the dense GEMM with the residual, LayerNorm, the
-// inter GEMM with GELU, the out GEMM with the residual, LayerNorm. At S=512
-// a head's K and V together (266 KB) do not fit in shared memory either, so
-// the attention core runs in two passes over one K/V buffer: K resident,
-// the tile's probabilities into shared memory; then V resident, ctx = P·V.
+// share each weight read): the qkv GEMM, the masked attention core per
+// (query tile, head, sample), the dense GEMM with the residual, LayerNorm,
+// the inter GEMM with GELU, the out GEMM with the residual, LayerNorm. At
+// BERT-base B=8, S=512 in production modes the GEMM core sets the pace:
+// 0.79 of the layer's 1.29 ms on an H100 at 700 W, the attention core 0.48.
+// The attention core's two float32 products (6.4 GFLOP, 0.10 ms at 67
+// TFLOP/s) are bounded by shared memory: a 128-bit shared read is served a
+// quarter-warp at a time, so a register tile that reads r floats per FMA
+// runs at most at 1/(4r) of the FP32 rate. So a block takes 64 query rows
+// and streams K, then V, in 64-key tiles through two shared-memory stages
+// (16-byte cp.async, the next tile in flight while the block works on this
+// one); the scores and P·V are 4 × 4 register tiles (0.5 floats read per
+// FMA); the tile's (64, S) score rows stay in shared memory between the two
+// sweeps, with the masked softmax over them in between: 13.5 TFLOP/s.
+// The probabilities are bitwise the ones B9 recomputes (bert_attn_rev.cu):
+// both kernels form them by bert_attn.cuh's score_tile and
+// masked_softmax_rows. Each ctx output is one FMA chain over j ascending
+// (the keys past n add p·0 = 0), so ctx too is bitwise that of a product
+// taken one row at a time, whatever the tiles.
 #include "bert_attn.cuh"
 
 namespace te {
 
-// One block per (row tile, head, sample), one warp per query row.
+// The attention core: one block of 256 threads per (tile of kFwdRows = 64
+// query rows, head, sample).
+constexpr int kFwdRows = 64;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdTx = 16;                // threads along the keys or d
+
+// Shared memory in floats: the tile's (64, S) score rows (raw, then x, e, p)
+// at a pitch of S padded to the key tile plus 16 (≡ 16 mod 32: a warp's two
+// rows of scores land in distinct banks); two K/V stages; the q tile; the
+// mask row.
+struct FwdLayout {
+  int Sp, lds;
+  __host__ __device__ explicit FwdLayout(int n)
+      : Sp((n + kKeyT - 1) / kKeyT * kKeyT), lds(Sp + 16) {}
+  __host__ __device__ size_t floats() const {
+    return (size_t)kFwdRows * lds + 2 * kKeyT * kLdk + kFwdRows * kLdk + Sp;
+  }
+};
+
 template <bool RA>
-__global__ void bert_attn_fwd_kernel(const float* __restrict__ qkv,
-                                     const float* __restrict__ mask,
-                                     float* __restrict__ ctx, int n, int H,
-                                     int hd, float scale, int rows) {
-  float* smem = reinterpret_cast<float*>(te_smem);
-  const int ldk = hd + 1;
-  float* KV = smem;                                  // [n][hd + 1]
-  float* P = KV + head_kv_floats(n, hd);             // [rows][n]
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  float* qw = P + (size_t)rows * n + (size_t)warp * hd;
+__global__ void __launch_bounds__(kFwdThreads, 1) bert_attn_fwd_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ mask,
+    float* __restrict__ ctx, int n, int H, int hd, float scale) {
+  const FwdLayout lay(n);
+  const int lds = lay.lds, Sp = lay.Sp, T = Sp / kKeyT;
+  float* Ps = reinterpret_cast<float*>(te_smem);   // [kFwdRows][lds]
+  float* KVs = Ps + kFwdRows * lds;                // [2][kKeyT][kLdk]
+  float* Qs = KVs + 2 * kKeyT * kLdk;              // [kFwdRows][kLdk]
+  float* ms = Qs + kFwdRows * kLdk;                // [Sp] mask row
 
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x, tx = t % kFwdTx, ty = t / kFwdTx;
+  const int warp = t / kWarp, lane = t % kWarp;
+  const int h = blockIdx.y, b = blockIdx.z, row0 = blockIdx.x * kFwdRows;
+  const int nr = n - row0 < kFwdRows ? n - row0 : kFwdRows;
   const int D = H * hd, ld = 3 * D;
-  const float* base = qkv + (size_t)b * n * ld;
-  const float* mrow = mask + (size_t)b * n;
-  const int row0 = blockIdx.x * rows;
-  const int nr = n - row0 < rows ? n - row0 : rows;
+  const float* base = qkv + (size_t)b * n * ld + h * hd;
+  const bool vec = tile_vec_ok(base, ld, hd);
 
-  // pass 1: K resident; each warp's rows of probabilities into P
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int j = idx / hd, d = idx - j * hd;
-    KV[j * ldk + d] = base[(size_t)j * ld + D + h * hd + d];
+  // zeros where no copy writes: the columns hd … kMaxHeadDim of the stages
+  // and the q tile, the q rows past n
+  for (int idx = t; idx < 2 * kKeyT * kMaxHeadDim; idx += kFwdThreads) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    if (c >= hd) KVs[r * kLdk + c] = 0.f;
   }
-  __syncthreads();
-  for (int r = warp; r < nr; r += nwarps) {
-    const float* qrow = base + (size_t)(row0 + r) * ld + h * hd;
-    for (int d = lane; d < hd; d += kWarp) qw[d] = rnd<RA>(qrow[d]);
-    __syncwarp();
-    masked_softmax_row<RA>(qw, KV, ldk, n, hd, mrow, scale, nullptr,
-                           P + (size_t)r * n, lane);
-    __syncwarp();  // the next row overwrites qw
+  for (int idx = t; idx < kFwdRows * kMaxHeadDim; idx += kFwdThreads) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    if (r >= nr || c >= hd) Qs[r * kLdk + c] = 0.f;
   }
-  __syncthreads();
+  for (int j = t; j < Sp; j += kFwdThreads)
+    ms[j] = j < n ? mask[(size_t)b * n + j] : 0.f;
+  load_tile_async(Qs, kLdk, base + (size_t)row0 * ld, ld, nr, hd, vec);
+  cp_async_commit();
 
-  // pass 2: V resident; ctx = P·V
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int j = idx / hd, d = idx - j * hd;
-    KV[j * ldk + d] = base[(size_t)j * ld + 2 * D + h * hd + d];
-  }
-  __syncthreads();
-  for (int r = warp; r < nr; r += nwarps) {
-    const float* pr = P + (size_t)r * n;
-    float* orow = ctx + ((size_t)b * n + row0 + r) * D + h * hd;
-    for (int d = lane; d < hd; d += kWarp) {
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j)
-        acc = fmaf(rnd<RA>(pr[j]), rnd<RA>(KV[j * ldk + d]), acc);
-      orow[d] = acc;
+  // stream tile s: K for s < T, then V
+  auto fetch = [&](int s) {
+    const int j0 = (s % T) * kKeyT;
+    stream_kv_tile(KVs + (s & 1) * kKeyT * kLdk,
+                   base + (size_t)j0 * ld + (s < T ? D : 2 * D), ld,
+                   n - j0 < kKeyT ? n - j0 : kKeyT, hd, vec);
+  };
+
+  // thread (ty, tx) owns rows ty + 16r (r < 4) and keys tx + 16c of a K
+  // tile, then columns 4tx … 4tx + 3 of ctx
+  float o[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[r][e] = 0.f;
+
+  fetch(0);
+  for (int s = 0; s < 2 * T; ++s) {
+    if (s + 1 < 2 * T) {
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    float* st = KVs + (s & 1) * kKeyT * kLdk;
+    if (RA) {   // the attention products take q, K, V and p as bf16
+      for (int idx = t; idx < kKeyT * kLdk; idx += kFwdThreads)
+        st[idx] = round_bf16(st[idx]);
+      if (s == 0)
+        for (int idx = t; idx < kFwdRows * kLdk; idx += kFwdThreads)
+          Qs[idx] = round_bf16(Qs[idx]);
+      __syncthreads();
+    }
+    const int j0 = (s % T) * kKeyT;
+    if (s < T) {
+      // raw = q·kᵀ (bert_attn.cuh, as B9 recomputes it)
+      float acc[4][4];
+      score_tile<4, 4, kFwdRows / 4, kFwdTx>(Qs, st, ty, tx, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          Ps[(ty + 16 * r) * lds + j0 + tx + kFwdTx * c] = acc[r][c];
+    } else {
+      // ctx = P·V, each output one FMA chain over j ascending (the keys past
+      // n add p·0: their scores are q·0 = 0 and their V rows zero)
+      const float* vt = st + 4 * tx;
+      for (int jj = 0; jj < kKeyT; jj += 4) {
+        float p[4][4], v[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) lds4(Ps + (ty + 16 * r) * lds + j0 + jj, p[r]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) lds4(vt + (jj + u) * kLdk, v[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[r][e] = fmaf(p[r][u], v[u][e], o[r][e]);
+      }
+    }
+    __syncthreads();   // the stage is consumed
+    if (s == T - 1) {
+      // the masked softmax (bert_attn.cuh, as B9 recomputes it)
+      masked_softmax_rows<kFwdRows / (kFwdThreads / kWarp)>(
+          Ps, Ps, lds, nr, n, ms, scale, warp, kFwdThreads / kWarp, lane);
+      if (RA) {
+        __syncthreads();
+        for (int idx = t; idx < kFwdRows * lds; idx += kFwdThreads)
+          Ps[idx] = round_bf16(Ps[idx]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+    if (i >= nr) continue;
+    float* orow = ctx + ((size_t)b * n + row0 + i) * D + h * hd;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * tx + e < hd) orow[4 * tx + e] = o[r][e];
   }
 }
 
 template <bool RA>
 int bert_attn_fwd(const float* qkv, const float* mask, float* ctx, int B,
                   int n, int H, int hd, float scale, cudaStream_t stream) {
-  const int limit = max_smem_optin(), warps = 8;
-  int rows = 4 * warps;
-  size_t smem = 0;
-  for (; rows >= 1; rows /= 2) {
-    smem = sizeof(float) * (head_kv_floats(n, hd) + (size_t)rows * n +
-                            (size_t)warps * hd);
-    if (smem <= (size_t)limit) break;
-  }
-  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * FwdLayout(n).floats();
+  if (hd > kMaxHeadDim || smem > (size_t)max_smem_optin())
+    return (int)cudaErrorInvalidValue;
   auto kern = bert_attn_fwd_kernel<RA>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(kern, grid, warps * kWarp, smem, stream)(qkv, mask, ctx, n, H,
-                                                     hd, scale, rows);
+  dim3 grid((n + kFwdRows - 1) / kFwdRows, H, B);
+  TE_LAUNCH(kern, grid, kFwdThreads, smem, stream)(qkv, mask, ctx, n, H, hd,
+                                                   scale);
   return (int)cudaGetLastError();
 }
 

@@ -26,149 +26,183 @@
 // and the clone, in its epilogue), row kernels for the LayerNorms, two
 // passes per add rule (per-chunk partial sums, then every block sums the
 // sample's partials in the same fixed order: deterministic, no atomics),
-// and the attention reverse as the row / column / head-mean passes of
-// attn_rev.cu without the forward recompute. Intermediates go through one
-// workspace in device memory. The rule epilogues, the add rule and the
-// column and head-mean passes live in rules.cuh, shared with the BERT
-// reverse kernels; the MLP half in mlp_rev.cuh, shared with mlp_rev.cu.
+// and the attention reverse from the saved anchors. Intermediates go
+// through one workspace in device memory. The rule epilogues, the add rule
+// and the attention reverse's passes live in rules.cuh, shared with the
+// BERT reverse kernels; the MLP half in mlp_rev.cuh, shared with mlp_rev.cu.
+// At ViT-B/16 B=8 in production modes the GEMM core sets the pace: its
+// launches take 1.40 of the step's 1.96 ms on an H100 at 700 W, the
+// attention reverse 0.45 (row pass 0.30, column pass 0.13, the bias add and
+// the head mean 0.02). The attention reverse is B9's row pass without the
+// recompute, and the column pass, with their float32 products as register
+// micro-tiles and their bf16 rule products on the tensor cores (rules.cuh
+// says what bounds them); the row pass's 1 × 8 tiles (1.1 floats read from
+// shared memory per FMA) and its one block an SM (129 KB of shared memory
+// at n = 197) are what is left of it to improve.
 #include "mlp_rev.cuh"
 
 namespace te {
 
 // ---------------------------------------------------------------------------
 // Attention reverse from the saved anchors (_attn_rev_math with saved_attn
-// and out_m). RA: gradient products in bf16 (else float32); RR: rule
-// products in bf16 (else float32). q, k, v = qkv_pre + bqkv, formed with the
-// forward's own add.
+// and out_m). RA: gradient products on bf16 operands (else float32); the
+// rule products run in bf16 (the only rule mode the wrapper admits). q, k,
+// v = qkv_pre + bqkv, formed once into qkv with the forward's own add.
 // ---------------------------------------------------------------------------
 
-// rows: one block per (row tile, head, sample), K and V of the head in
-// shared memory, one warp per query row. Emits g_q and cam_q, and writes
-// g_dots (G), S2, the per-head (g_attn ⊙ cam1)⁺ (GCP) and S1 to scratch.
-template <bool RA, bool RR>
-__global__ void blk_attn_rev_rows_kernel(
-    const float* __restrict__ qkv_pre, const float* __restrict__ bqkv,
-    const float* __restrict__ probs, const float* __restrict__ dots,
-    const float* __restrict__ out_m, const float* __restrict__ g_o,
-    const float* __restrict__ cam_o, float* __restrict__ g_qkv,
-    float* __restrict__ cam_qkv, float* __restrict__ G,
-    float* __restrict__ S2g, float* __restrict__ GCP,
-    float* __restrict__ S1g, int n, int H, int hd, float scale,
-    int rows_per_block) {
-  float* smem = reinterpret_cast<float*>(te_smem);
-  const int ldk = hd + 1;
-  float* Ks = smem;
-  float* Vs = Ks + (size_t)n * ldk;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  float* qw = Vs + (size_t)n * ldk + (size_t)warp * (3 * hd + 3 * n);
-  float* gw = qw + hd;   // g_o row
-  float* sw = gw + hd;   // S1 row
-  float* ra = sw + hd;   // dots, then S2
-  float* rb = ra + n;    // probs
-  float* rc = rb + n;    // g_attn, then g_dots
+// Shared memory of the row pass, in floats: the (32, n) rows Rr (dots, then
+// S2) and Rg (probs, then g_attn, then g_dots), padded to a multiple of the
+// key tile plus 8; two K/V stages; the g_o and S1 tiles; the t tile.
+struct BlkRowLayout {
+  int Sp, lds;
+  __host__ __device__ explicit BlkRowLayout(int n)
+      : Sp((n + kKeyT - 1) / kKeyT * kKeyT), lds(Sp + 8) {}
+  __host__ __device__ size_t floats() const {
+    return (size_t)2 * kRowQ * lds + 2 * kKeyT * kLdk + 2 * kRowQ * kLdk +
+           kRowQ * kLdt;
+  }
+};
 
-  const int h = blockIdx.y, b = blockIdx.z;
+// Row pass: one block of 256 threads per (tile of kRowQ = 32 query rows,
+// head, sample), B9's row pass without its recompute (rules.cuh pieces).
+// The rows' dots and probs arrive by cp.async; V, then K, stream through
+// two shared-memory stages of kKeyT keys, the next tile in flight while the
+// block works on this one. V sweep: g_attn = g_o·Vᵀ (float32 micro-tile, 1
+// row × 8 keys a thread) and t = S1·Vᵀ (bf16, tensor cores), then per (i,
+// j) cam1 = p·t/2, S2 = safe_divide(cam1, dots), GCP = (g_attn ⊙ cam1)⁺;
+// the softmax backward G = p ⊙ (g_attn − inner)·scale. K sweep: g_q = G·K
+// (float32) and cq = S2·K (bf16, tensor cores). Emits g_q and cam_q = q ⊙
+// cq / 2, and writes G, S2, GCP and S1 for the column pass.
+template <bool RA>
+__global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ probs,
+    const float* __restrict__ dots, const float* __restrict__ out_m,
+    const float* __restrict__ g_o, const float* __restrict__ cam_o,
+    float* __restrict__ g_qkv, float* __restrict__ cam_qkv,
+    float* __restrict__ G, float* __restrict__ S2g,
+    float* __restrict__ GCP, float* __restrict__ S1g, int n, int H, int hd,
+    float scale) {
+  const BlkRowLayout lay(n);
+  const int lds = lay.lds, T = lay.Sp / kKeyT;
+  float* Rr = reinterpret_cast<float*>(te_smem);   // [kRowQ][lds]
+  float* Rg = Rr + kRowQ * lds;                    // [kRowQ][lds]
+  float* KVs = Rg + kRowQ * lds;                   // [2][kKeyT][kLdk]
+  float* Gs = KVs + 2 * kKeyT * kLdk;              // g_o tile
+  float* S1s = Gs + kRowQ * kLdk;                  // S1 tile
+  float* Ts = S1s + kRowQ * kLdk;                  // [kRowQ][kLdt]
+
+  const int t = threadIdx.x, tx = t % kRowTx, ty = t / kRowTx;
+  const int warp = t / kWarp, lane = t % kWarp, g = lane >> 2, t4 = lane & 3;
+  const int mw = 16 * (warp & 1), nw = 16 * (warp >> 1);
+  const int h = blockIdx.y, b = blockIdx.z, row0 = blockIdx.x * kRowQ;
+  const int nr = n - row0 < kRowQ ? n - row0 : kRowQ;
   const int D = H * hd, ld = 3 * D;
-  const float* base = qkv_pre + (size_t)b * n * ld;
-  const size_t nn = (size_t)n * n;
-  const size_t bh = (size_t)b * H + h;
+  const float* base = qkv + (size_t)b * n * ld + h * hd;
+  const bool vec = tile_vec_ok(base, ld, hd);
+  const size_t tile_o = ((size_t)b * H + h) * n * n + (size_t)row0 * n;
+  const bool vec_rows = tile_vec_ok(dots + tile_o, n, n) &&
+                        tile_vec_ok(probs + tile_o, n, n);
 
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int j = idx / hd, d = idx - j * hd;
-    Ks[j * ldk + d] = base[(size_t)j * ld + D + h * hd + d] + bqkv[D + h * hd + d];
-    Vs[j * ldk + d] =
-        base[(size_t)j * ld + 2 * D + h * hd + d] + bqkv[2 * D + h * hd + d];
+  // zeros where no copy writes: the columns hd … kMaxHeadDim of the stages
+  for (int idx = t; idx < 2 * kKeyT * kMaxHeadDim; idx += kRowThreads) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    if (c >= hd) KVs[r * kLdk + c] = 0.f;
   }
-  __syncthreads();
+  rows_stage_go_s1<RA>(Gs, S1s, S1g, g_o, cam_o, out_m, b, h, H, n, row0, nr,
+                       hd);
+  load_tile_async(Rr, lds, dots + tile_o, n, nr, n, vec_rows);
+  load_tile_async(Rg, lds, probs + tile_o, n, nr, n, vec_rows);
+  cp_async_commit();
 
-  const int row0 = blockIdx.x * rows_per_block;
-  const int row_end = row0 + rows_per_block < n ? row0 + rows_per_block : n;
-  for (int i = row0 + warp; i < row_end; i += nwarps) {
-    const size_t row_md = ((size_t)b * n + i) * D + h * hd;
-    const size_t row_q = ((size_t)b * n + i) * ld + h * hd;
-    for (int d = lane; d < hd; d += kWarp) {
-      qw[d] = qkv_pre[row_q + d] + bqkv[h * hd + d];
-      gw[d] = g_o[row_md + d];
-      const float s1 = safe_divide(cam_o[row_md + d], out_m[row_md + d]);
-      sw[d] = s1;
-      S1g[(bh * n + i) * hd + d] = s1;
-    }
-    for (int j = lane; j < n; j += kWarp) {
-      ra[j] = dots[(bh * n + i) * n + j];
-      rb[j] = probs[(bh * n + i) * n + j];
-    }
-    __syncwarp();
+  // stream tile s: V for s < T, then K
+  auto fetch = [&](int s) {
+    const int j0 = (s % T) * kKeyT;
+    stream_kv_tile(KVs + (s & 1) * kKeyT * kLdk,
+                   base + (size_t)j0 * ld + (s < T ? 2 * D : D), ld,
+                   n - j0 < kKeyT ? n - j0 : kKeyT, hd, vec);
+  };
 
-    // hook gradient, AV z-rule, QKᵀ denominator, (grad ⊙ cam)⁺
-    float inner = 0.f;
-    for (int j = lane; j < n; j += kWarp) {
-      const float* vr = Vs + j * ldk;
-      float ga = 0.f, t = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        ga = fmaf(rnd<RA>(gw[d]), rnd<RA>(vr[d]), ga);
-        t = fmaf(rnd<RR>(sw[d]), rnd<RR>(vr[d]), t);
+  uint32_t a1[4][4];                      // S1 as A fragments (V sweep)
+  float gq[2][4], cq[2][4];               // g_q (SIMT) and cq (mma) rows
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gq[e][i] = cq[e][i] = 0.f;
+  float inner = 0.f;
+
+  fetch(0);
+  for (int s = 0; s < 2 * T; ++s) {
+    if (s + 1 < 2 * T) {
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* st = KVs + (s & 1) * kKeyT * kLdk;
+    if (RA) {   // the gradient products take K and V as bf16
+      for (int idx = t; idx < kKeyT * kLdk; idx += kRowThreads)
+        st[idx] = round_bf16(st[idx]);
+      __syncthreads();
+    }
+    const int j0 = (s % T) * kKeyT;
+    if (s < T) {
+      if (s == 0) rows_s1_frags(S1s, mw, g, t4, a1);
+      float ga[8];
+      rows_av_products(a1, st, Gs, Ts, mw, nw, g, t4, ty, tx, ga);
+      __syncthreads();   // Ts complete
+      // the AV z-rule, the QKᵀ z-rule's S and (g_attn ⊙ cam1)⁺, per (i, j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int jl = tx + kRowTx * c, j = j0 + jl;
+        float* rr = Rr + ty * lds + j;
+        float* rg = Rg + ty * lds + j;
+        if (ty < nr && j < n) {
+          const float p = *rg;
+          inner = fmaf(ga[c], p, inner);
+          const float cam1 = p * Ts[ty * kLdt + jl] * 0.5f;
+          const float gcv = ga[c] * cam1;
+          GCP[tile_o + (size_t)ty * n + j] = gcv > 0.f ? gcv : 0.f;
+          *rr = safe_divide(cam1, *rr);
+          *rg = ga[c];
+        } else {
+          *rr = 0.f;
+          *rg = 0.f;
+        }
       }
-      const float a = rb[j];
-      inner = fmaf(ga, a, inner);
-      const float cam1 = a * t * 0.5f;
-      ra[j] = safe_divide(cam1, ra[j]);
-      rc[j] = ga;
-      const float gcv = ga * cam1;
-      GCP[bh * nn + (size_t)i * n + j] = gcv > 0.f ? gcv : 0.f;
+    } else {
+      rows_qk_products(Rr, Rg, lds, j0, st, mw, nw, g, t4, ty, tx, gq, cq);
     }
-    inner = warp_sum(inner);
-    for (int j = lane; j < n; j += kWarp) {
-      const float gd = rb[j] * (rc[j] - inner) * scale;
-      rc[j] = gd;
-      const size_t o = bh * nn + (size_t)i * n + j;
-      G[o] = gd;
-      S2g[o] = ra[j];
+    __syncthreads();   // the stage and Ts are consumed
+    if (s == T - 1) {
+      rows_softmax_bwd<RA>(inner, probs + tile_o, G + tile_o, S2g + tile_o,
+                           Rr, Rg, lds, n, nr, ty, tx, scale);
+      __syncthreads();
     }
-    __syncwarp();
-
-    // g_q = g_dots K, cam_q = q ⊙ (S2 K) / 2
-    for (int d = lane; d < hd; d += kWarp) {
-      float gq = 0.f, cq = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float kv = Ks[j * ldk + d];
-        gq = fmaf(rnd<RA>(rc[j]), rnd<RA>(kv), gq);
-        cq = fmaf(rnd<RR>(ra[j]), rnd<RR>(kv), cq);
-      }
-      g_qkv[row_q + d] = gq;
-      cam_qkv[row_q + d] = qw[d] * cq * 0.5f;
-    }
-    __syncwarp();  // the next row overwrites the warp's buffers
   }
+  rows_store_q(gq, cq, qkv, g_qkv, cam_qkv, b, h, H, n, row0, nr, hd, mw, nw,
+               g, t4, ty, tx);
 }
 
-template <bool RA, bool RR>
-int blk_attn_rev(const float* qkv_pre, const float* bqkv, const float* probs,
-                 const float* dots, const float* out_m, const float* g_o,
-                 const float* cam_o, float* g_qkv, float* cam_qkv, float* gc,
-                 float* G, float* S2, float* GCP, float* S1, int B, int n,
-                 int H, int hd, float scale, cudaStream_t stream) {
-  const int limit = max_smem_optin();
-  int warps = 8;
-  size_t smem_rows = 0;
-  for (; warps >= 1; warps /= 2) {
-    smem_rows = sizeof(float) * ((size_t)2 * n * (hd + 1) +
-                                 (size_t)warps * (3 * hd + 3 * n));
-    if (smem_rows <= (size_t)limit) break;
-  }
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  auto rows_kern = blk_attn_rev_rows_kernel<RA, RR>;
+template <bool RA>
+int blk_attn_rev(const float* qkv, const float* probs, const float* dots,
+                 const float* out_m, const float* g_o, const float* cam_o,
+                 float* g_qkv, float* cam_qkv, float* gc, float* G, float* S2,
+                 float* GCP, float* S1, int B, int n, int H, int hd,
+                 float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * BlkRowLayout(n).floats();
+  if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
+  auto kern = blk_attn_rev_rows_kernel<RA>;
   cudaError_t err = cudaFuncSetAttribute(
-      rows_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_rows);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = 4 * warps;
-  dim3 grid_rows((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(rows_kern, grid_rows, warps * kWarp, smem_rows, stream)(
-      qkv_pre, bqkv, probs, dots, out_m, g_o, cam_o, g_qkv, cam_qkv, G, S2,
-      GCP, S1, n, H, hd, scale, rows);
+  dim3 grid((n + kRowQ - 1) / kRowQ, H, B);
+  TE_LAUNCH(kern, grid, kRowThreads, smem, stream)(
+      qkv, probs, dots, out_m, g_o, cam_o, g_qkv, cam_qkv, G, S2, GCP, S1, n,
+      H, hd, scale);
   TE_TRY((int)cudaGetLastError());
-  return attn_rev_cols<RA, RR>(qkv_pre, bqkv, g_o, probs, G, S2, S1, GCP,
-                               g_qkv, cam_qkv, gc, B, n, H, hd, stream);
+  return attn_rev_cols<RA>(qkv, g_o, probs, G, S2, S1, GCP, g_qkv, cam_qkv,
+                           gc, B, n, H, hd, stream);
 }
 
 struct Saved {
@@ -181,7 +215,9 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
               char* work, size_t* work_bytes, int B, int n, int H, int hd,
               int M, float eps, int mxu, int attn_bf16, int rule_bf16,
               int rule, int mlp, cudaStream_t stream) {
-  if (hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
+  // the rule products run on the tensor cores in bf16 only (the wrapper's
+  // mode tables admit no other rule mode for this kernel)
+  if (hd > kMaxHeadDim || !rule_bf16) return (int)cudaErrorInvalidValue;
   const int D = H * hd, rows = B * n;
   const size_t rD = (size_t)rows * D;
   const size_t hnn = (size_t)B * H * n * n;
@@ -197,6 +233,7 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
   float* Ra2 = ws.take<float>(rD);
   float* Sp = ws.take<float>(rD);
   float* cam_o = ws.take<float>(rD);
+  float* qkv = ws.take<float>(3 * rD);
   float* g_qkv = ws.take<float>(3 * rD);
   float* cam_qkv = ws.take<float>(3 * rD);
   float* Sq = ws.take<float>(3 * rD);
@@ -233,12 +270,10 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
       EpiRuleNum{cam_o, out_m, D}, stream));
 
   // attention core
-  const int ra = attn_bf16 ? 1 : 0, rr = rule_bf16 ? 1 : 0;
-  const auto attn = ra ? (rr ? blk_attn_rev<true, true> : blk_attn_rev<true, false>)
-                       : (rr ? blk_attn_rev<false, true> : blk_attn_rev<false, false>);
-  TE_TRY(attn(sv.qkv_pre, w.bqkv, sv.probs, sv.dots, out_m, g_om, cam_o,
-              g_qkv, cam_qkv, gc, G, S2, GCP, S1, B, n, H, hd, scale,
-              stream));
+  TE_TRY(bias_add(sv.qkv_pre, w.bqkv, nullptr, qkv, 3 * rD, 3 * D, stream));
+  const auto attn = attn_bf16 ? blk_attn_rev<true> : blk_attn_rev<false>;
+  TE_TRY(attn(qkv, sv.probs, sv.dots, out_m, g_om, cam_o, g_qkv, cam_qkv, gc,
+              G, S2, GCP, S1, B, n, H, hd, scale, stream));
 
   // qkv-side tails
   TE_TRY(gemm<false, false, false>(

@@ -134,6 +134,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 #endif
 }
 
+// 4 bytes the same way (cp.async.ca), for rows that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+#ifdef __CUDACC__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+#else
+  __builtin_memcpy(dst, src, 4);
+#endif
+}
+
 __device__ __forceinline__ void cp_async_commit() {
 #ifdef __CUDACC__
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -166,6 +178,22 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src,
     for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
       const int r = idx / cols, c = idx - r * cols;
       dst[(size_t)r * lds + c] = src[(size_t)r * ld + c];
+    }
+  }
+}
+
+// load_tile for float32 with every copy asynchronous: 4-byte cp.async where
+// the rows do not allow 16-byte pieces
+__device__ __forceinline__ void load_tile_async(float* dst, int lds,
+                                                const float* src, size_t ld,
+                                                int rows, int cols,
+                                                bool vec) {
+  if (vec) {
+    load_tile(dst, lds, src, ld, rows, cols, true);
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+      const int r = idx / cols, c = idx - r * cols;
+      cp_async4(dst + (size_t)r * lds + c, src + (size_t)r * ld + c);
     }
   }
 }

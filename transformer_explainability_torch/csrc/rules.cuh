@@ -160,104 +160,411 @@ inline int add_rule(const float* a, const float* bpre, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// out = res + (pre + bias[c]) (res null: pre + bias[c]) over rows of width
+// N: the forward epilogues' sums (EpiQkv, EpiResidual), formed again from
+// their saved pre-bias products.
+static __global__ void bias_add_kernel(const float* __restrict__ pre,
+                                       const float* __restrict__ bias,
+                                       const float* __restrict__ res,
+                                       float* __restrict__ out, size_t total,
+                                       int N) {
+  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const float v = pre[o] + bias[o % N];
+  out[o] = res ? res[o] + v : v;
+}
+
+inline int bias_add(const float* pre, const float* bias, const float* res,
+                    float* out, size_t total, int N, cudaStream_t stream) {
+  const int threads = 256;
+  TE_LAUNCH(bias_add_kernel, (unsigned)((total + threads - 1) / threads),
+            threads, 0, stream)(pre, bias, res, out, total, N);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
-// The attention reverse's column pass and head mean, from the row pass's
-// (B, h, n, n) scratch: P (probs), G (g_dots), S2 (the QKᵀ z-rule's S) and
-// the (B, h, n, hd) S1 of the AV z-rule. RA: gradient products in bf16
-// (else float32); RR: rule products in bf16 (else float32). q, k, v =
-// qkv_pre + bqkv, formed with the forward's own add.
+// The attention reverse over a head's (n, n) maps, shared by block_rev.cu
+// (B3, ViT, from the saved probs and dots) and bert_attn_rev.cu (B9, BERT,
+// which recomputes them): the pieces of the row pass and the whole column
+// pass and head mean. q, k, v arrive with their bias added (qkv), as the
+// forward formed them. Every product runs over hd ≤ kMaxHeadDim columns; a
+// tile's columns hd … kMaxHeadDim are zero where they are summed over.
+//
+// What bounds them on the H100: operations, on the CUDA cores. At BERT-base
+// B=8, S=512 each of the attention's float32 products is 3.2 GFLOP (0.048
+// ms at 67 TFLOP/s); the (B, h, S, S) maps the passes exchange are 100 MB
+// each (0.03 ms at 3.35 TB/s). A float32 product as a register micro-tile
+// is bounded by shared memory, which serves 32 floats a clock per SM beside
+// 128 FMAs: a tile that reads r floats per FMA runs at most at 1/(4r) of
+// the FP32 rate. The row pass's 1 × 8 tiles read 1.1; the column pass's
+// 4 × 8 tiles 0.375, and it runs its two float32 products at 18 TFLOP/s
+// (0.36 ms at S=512, 0.13 ms at ViT-B/16's n = 197, B=8, on an H100 at 700
+// W). The bf16 rule products run on the tensor cores (mma.sync m16n8k16,
+// float32 accumulators), their operands rounded once, as they are packed
+// into fragments.
 // ---------------------------------------------------------------------------
 
-constexpr int kColTile = 32;   // columns j per block
-constexpr int kRowTile = 32;   // rows i per shared-memory stage
-constexpr int kDGroups = 8;    // threads per column; thread owns d = dg + 8k
-constexpr int kMaxDPerThread = 8;
-constexpr int kMaxHeadDim = kDGroups * kMaxDPerThread;   // 64
-constexpr int kColThreads = kColTile * kDGroups;         // 256
+constexpr int kMaxHeadDim = 64;
+constexpr int kKeyT = 64;                 // keys per streamed K/V tile
+constexpr int kLdk = kMaxHeadDim + 4;     // pitch of a tile of d columns
+constexpr int kRowQ = 32;                 // query rows per row-pass block
+constexpr int kRowThreads = 256;
+constexpr int kRowTx = 8;                 // row-pass threads per query row
+constexpr int kLdt = kKeyT + 8;           // pitch of the t tile
 
-// columns: g_v = Pᵀ g_o, g_k = Gᵀ q (RA); cam_v = v ⊙ (Pᵀ S1) / 2,
-// cam_k = k ⊙ (S2ᵀ q) / 2 (RR), tiled over the rows i
-template <bool RA, bool RR>
-__global__ void blk_attn_rev_cols_kernel(
-    const float* __restrict__ qkv_pre, const float* __restrict__ bqkv,
-    const float* __restrict__ g_o, const float* __restrict__ P,
-    const float* __restrict__ G, const float* __restrict__ S2,
-    const float* __restrict__ S1g, float* __restrict__ g_qkv,
-    float* __restrict__ cam_qkv, int n, int H, int hd) {
-  float* smem = reinterpret_cast<float*>(te_smem);
-  float* Pt = smem;                       // [kRowTile][kColTile]
-  float* Gt = Pt + kRowTile * kColTile;
-  float* St = Gt + kRowTile * kColTile;
-  float* gos = St + kRowTile * kColTile;  // [kRowTile][hd]
-  float* qs = gos + kRowTile * hd;
-  float* s1s = qs + kRowTile * hd;
+// The row pass streams a head's K or V in tiles of kKeyT keys through a
+// ring of two shared-memory stages; the tile's rows past n are zero (the
+// columns hd … kMaxHeadDim are zeroed once, by the caller). Commits the
+// copies as one batch.
+__device__ __forceinline__ void stream_kv_tile(float* st, const float* src,
+                                               size_t ld, int rows, int hd,
+                                               bool vec) {
+  for (int idx = threadIdx.x; idx < (kKeyT - rows) * hd; idx += blockDim.x)
+    st[(rows + idx / hd) * kLdk + idx % hd] = 0.f;
+  load_tile_async(st, kLdk, src, ld, rows, hd, vec);
+  cp_async_commit();
+}
 
-  const int t = threadIdx.x;
-  const int jl = t / kDGroups, dg = t % kDGroups;
-  const int j0 = blockIdx.x * kColTile, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * hd, ld = 3 * D;
-  const size_t nn = (size_t)n * n;
+// The row pass's g_o tile (as the gradient products take it) and S1 =
+// safe_divide(num, den), the AV z-rule's S over the head's context, for
+// query rows row0 … row0 + nr − 1 of sample b (rows of width D, the head's
+// hd columns at h·hd); S1 is also written to S1g (B, h, n, hd) for the
+// column pass. Rows past nr and columns past hd are zero.
+template <bool RA>
+__device__ __forceinline__ void rows_stage_go_s1(
+    float* Gs, float* S1s, float* __restrict__ S1g,
+    const float* __restrict__ g_o, const float* __restrict__ num,
+    const float* __restrict__ den, int b, int h, int H, int n, int row0,
+    int nr, int hd) {
+  const int D = H * hd;
   const size_t bh = (size_t)b * H + h;
-
-  float agv[kMaxDPerThread], acv[kMaxDPerThread];
-  float agk[kMaxDPerThread], ack[kMaxDPerThread];
-#pragma unroll
-  for (int k = 0; k < kMaxDPerThread; ++k) {
-    agv[k] = 0.f; acv[k] = 0.f; agk[k] = 0.f; ack[k] = 0.f;
+  for (int idx = threadIdx.x; idx < kRowQ * kMaxHeadDim; idx += blockDim.x) {
+    const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+    float gv = 0.f, s1 = 0.f;
+    if (r < nr && c < hd) {
+      const size_t o = ((size_t)b * n + row0 + r) * D + h * hd + c;
+      gv = g_o[o];
+      s1 = safe_divide(num[o], den[o]);
+      S1g[(bh * n + row0 + r) * hd + c] = s1;
+    }
+    Gs[r * kLdk + c] = rnd<RA>(gv);
+    S1s[r * kLdk + c] = s1;
   }
+}
 
-  for (int i0 = 0; i0 < n; i0 += kRowTile) {
-    __syncthreads();  // the previous stage is consumed
-    for (int idx = t; idx < kRowTile * kColTile; idx += blockDim.x) {
-      const int i = i0 + idx / kColTile, j = j0 + idx % kColTile;
-      const bool ok = i < n && j < n;
-      const size_t o = bh * nn + (size_t)i * n + j;
-      Pt[idx] = ok ? P[o] : 0.f;
-      Gt[idx] = ok ? G[o] : 0.f;
-      St[idx] = ok ? S2[o] : 0.f;
-    }
-    for (int idx = t; idx < kRowTile * hd; idx += blockDim.x) {
-      const int i = i0 + idx / hd, d = idx % hd;
-      const bool ok = i < n;
-      gos[idx] = ok ? g_o[((size_t)b * n + i) * D + h * hd + d] : 0.f;
-      qs[idx] = ok ? qkv_pre[((size_t)b * n + i) * ld + h * hd + d] + bqkv[h * hd + d]
-                   : 0.f;
-      s1s[idx] = ok ? S1g[(bh * n + i) * hd + d] : 0.f;
-    }
-    __syncthreads();
-    const int ilim = n - i0 < kRowTile ? n - i0 : kRowTile;
-    for (int il = 0; il < ilim; ++il) {
-      const float p = Pt[il * kColTile + jl];
-      const float g = Gt[il * kColTile + jl];
-      const float s = St[il * kColTile + jl];
+// The rows' S1 as the A fragments of t = S1·Vᵀ (warp rows mw … mw + 15)
+__device__ __forceinline__ void rows_s1_frags(const float* S1s, int mw, int g,
+                                              int t4, uint32_t (&a1)[4][4]) {
 #pragma unroll
-      for (int k = 0; k < kMaxDPerThread; ++k) {
-        const int d = dg + kDGroups * k;
-        if (d < hd) {
-          const float qv = qs[il * hd + d];
-          agv[k] = fmaf(rnd<RA>(p), rnd<RA>(gos[il * hd + d]), agv[k]);
-          acv[k] = fmaf(rnd<RR>(p), rnd<RR>(s1s[il * hd + d]), acv[k]);
-          agk[k] = fmaf(rnd<RA>(g), rnd<RA>(qv), agk[k]);
-          ack[k] = fmaf(rnd<RR>(s), rnd<RR>(qv), ack[k]);
-        }
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* r0 = S1s + (mw + g) * kLdk + 16 * kk + 2 * t4;
+    const float* r1 = r0 + 8 * kLdk;
+    a1[kk][0] = pack_bf16x2(r0[0], r0[1]);
+    a1[kk][1] = pack_bf16x2(r1[0], r1[1]);
+    a1[kk][2] = pack_bf16x2(r0[8], r0[9]);
+    a1[kk][3] = pack_bf16x2(r1[8], r1[9]);
+  }
+}
+
+// The V sweep's products on one tile st of kKeyT keys: t = S1·Vᵀ (bf16,
+// tensor cores: warp (mw, nw) owns rows mw … + 15 and keys nw … + 15) into
+// Ts, and the float32 micro-tile g_probs = g_o·Vᵀ of thread (ty, tx): row
+// ty, keys tx + 8c. The caller synchronises before it reads Ts.
+__device__ __forceinline__ void rows_av_products(
+    const uint32_t (&a1)[4][4], const float* st, const float* Gs, float* Ts,
+    int mw, int nw, int g, int t4, int ty, int tx, float (&ga)[8]) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    float dacc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* vr = st + (nw + 8 * nb + g) * kLdk + 2 * t4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t bf[2] = {pack_bf16x2(vr[16 * kk], vr[16 * kk + 1]),
+                              pack_bf16x2(vr[16 * kk + 8], vr[16 * kk + 9])};
+      mma_bf16_16816(dacc, a1[kk], bf);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      Ts[(mw + g + 8 * (i >> 1)) * kLdt + nw + 8 * nb + 2 * t4 + (i & 1)] =
+          dacc[i];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) ga[c] = 0.f;
+#pragma unroll
+  for (int d = 0; d < kMaxHeadDim; d += 4) {
+    float go[4], v[8][4];
+    lds4(Gs + ty * kLdk + d, go);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, v[c]);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ga[c] = fmaf(go[dd], v[c][dd], ga[c]);
+  }
+}
+
+// After the V sweep: inner_i = Σ_j g_probs·p over the row's kRowTx threads
+// (butterfly), then the softmax backward g_raw = p ⊙ (g_probs − inner) ·
+// scale for the rows' keys j < n, with p from the (B, h, n, n) map Pg (row
+// pitch n, at this block's rows): g_raw to Gg, the QKᵀ z-rule's S from Rr to
+// S2g, and g_raw (as the gradient products take it) over g_probs in Rg.
+template <bool RA>
+__device__ __forceinline__ void rows_softmax_bwd(
+    float inner, const float* __restrict__ Pg, float* __restrict__ Gg,
+    float* __restrict__ S2g, const float* Rr, float* Rg, int lds, int n,
+    int nr, int ty, int tx, float scale) {
+#pragma unroll
+  for (int o = kRowTx / 2; o > 0; o >>= 1)
+    inner += __shfl_xor_sync(0xffffffffu, inner, o);
+  if (ty < nr)
+    for (int j = tx; j < n; j += kRowTx) {
+      const size_t o = (size_t)ty * n + j;
+      const float gd = Pg[o] * (Rg[ty * lds + j] - inner) * scale;
+      Gg[o] = gd;
+      S2g[o] = Rr[ty * lds + j];
+      Rg[ty * lds + j] = rnd<RA>(gd);
+    }
+}
+
+// The K sweep's products on one tile st of keys j0 … j0 + kKeyT − 1: g_q +=
+// g_raw·K (float32 micro-tile of thread (ty, tx): row ty, columns 4tx +
+// 32e … + 3) and cq += S2·K (bf16, tensor cores: warp (mw, nw) owns rows
+// mw … + 15 and columns nw … + 15), from the rows' g_raw in Rg and S2 in Rr.
+__device__ __forceinline__ void rows_qk_products(
+    const float* Rr, const float* Rg, int lds, int j0, const float* st,
+    int mw, int nw, int g, int t4, int ty, int tx, float (&gq)[2][4],
+    float (&cq)[2][4]) {
+  for (int jj = 0; jj < kKeyT; jj += 4) {
+    float gr[4];
+    lds4(Rg + ty * lds + j0 + jj, gr);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float k[4];
+        lds4(st + (jj + u) * kLdk + 4 * tx + 32 * e, k);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)
+          gq[e][dd] = fmaf(gr[u], k[dd], gq[e][dd]);
+      }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* r0 = Rr + (mw + g) * lds + j0 + 16 * kk + 2 * t4;
+    const float* r1 = r0 + 8 * lds;
+    const uint32_t af[4] = {pack_bf16x2(r0[0], r0[1]),
+                            pack_bf16x2(r1[0], r1[1]),
+                            pack_bf16x2(r0[8], r0[9]),
+                            pack_bf16x2(r1[8], r1[9])};
+    const float* kr = st + (16 * kk + 2 * t4) * kLdk + g;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const float* kc = kr + nw + 8 * nb;
+      const uint32_t bf[2] = {pack_bf16x2(kc[0], kc[kLdk]),
+                              pack_bf16x2(kc[8 * kLdk], kc[9 * kLdk])};
+      mma_bf16_16816(cq[nb], af, bf);
+    }
+  }
+}
+
+// The row pass's q outputs: g_q into g_qkv and cam_q = q ⊙ cq / 2 into
+// cam_qkv, at the q columns of rows row0 … row0 + nr − 1 of sample b
+__device__ __forceinline__ void rows_store_q(
+    const float (&gq)[2][4], const float (&cq)[2][4],
+    const float* __restrict__ qkv, float* __restrict__ g_qkv,
+    float* __restrict__ cam_qkv, int b, int h, int H, int n, int row0,
+    int nr, int hd, int mw, int nw, int g, int t4, int ty, int tx) {
+  const size_t ld = (size_t)3 * H * hd;
+  if (ty < nr) {
+    const size_t row_q = ((size_t)b * n + row0 + ty) * ld + h * hd;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const int c = 4 * tx + 32 * e + dd;
+        if (c < hd) g_qkv[row_q + c] = gq[e][dd];
+      }
+  }
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mw + g + 8 * (i >> 1), c = nw + 8 * nb + 2 * t4 + (i & 1);
+      if (r < nr && c < hd) {
+        const size_t o = ((size_t)b * n + row0 + r) * ld + h * hd + c;
+        cam_qkv[o] = qkv[o] * cq[nb][i] * 0.5f;
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// Column pass: one block of 256 threads per (tile of kColJ = 64 keys j,
+// head, sample), over the query rows i streamed in stages of kColI = 32
+// through a ring of two shared-memory stages (cp.async: 16-byte pieces
+// where the rows allow, else 4-byte; the next stage in flight while the
+// block works on this one). A stage holds the rows' P (probs), G (g_raw)
+// and S2 at the block's keys, and their g_o, q and S1. It computes
+//   g_v = Pᵀ g_o and g_k = Gᵀ q (the gradient products: float32 register
+//     micro-tiles, or on bf16 operands (RA), rounded in the stage): warps
+//     0–3 g_v, 4–7 g_k; a thread owns keys 4jx … + 3 and columns 4dx … + 3,
+//     32 + 4dx … + 3 (three 16-byte reads per 32 FMAs); each output one
+//     FMA chain over i ascending;
+//   cam_v = v ⊙ (Pᵀ S1) / 2 and cam_k = k ⊙ (S2ᵀ q) / 2 (the rule
+//     products, bf16 on the tensor cores): warp w takes product w / 4,
+//     keys 16(w % 4) … + 15 and all 64 columns, 2 k-steps a stage.
+// Sums run in a fixed order (no atomics): bitwise repeatable.
+// ---------------------------------------------------------------------------
+
+constexpr int kColJ = 64;                 // keys per block
+constexpr int kColI = 32;                 // query rows per stage
+constexpr int kColThreads = 256;
+constexpr int kLdc = kColJ + 4;           // pitch of the P, G, S2 tiles
+constexpr int kColX = kColI * kLdc;       // floats of one P, G or S2 tile
+constexpr int kColY = kColI * kLdk;       // floats of one g_o, q or S1 tile
+constexpr int kColStage = 3 * kColX + 3 * kColY;
+
+template <bool RA>
+__global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ g_o,
+    const float* __restrict__ P, const float* __restrict__ G,
+    const float* __restrict__ S2, const float* __restrict__ S1g,
+    float* __restrict__ g_qkv, float* __restrict__ cam_qkv, int n, int H,
+    int hd) {
+  float* smem = reinterpret_cast<float*>(te_smem);   // [2][kColStage]
+  const int t = threadIdx.x, warp = t / kWarp, lane = t % kWarp;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int prod = t / 128, jx = t % 16, dx = (t % 128) / 16;
+  const int mt = warp % 4, mp = warp / 4;
+  const int j0 = blockIdx.x * kColJ, h = blockIdx.y, b = blockIdx.z;
+  const int jc = n - j0 < kColJ ? n - j0 : kColJ;
+  const int D = H * hd, ld = 3 * D;
+  const size_t nn = (size_t)n * n, bh = (size_t)b * H + h;
+  const float* maps[3] = {P + bh * nn + j0, G + bh * nn + j0,
+                          S2 + bh * nn + j0};
+  const float* rows[3] = {g_o + (size_t)b * n * D + h * hd,
+                          qkv + (size_t)b * n * ld + h * hd,
+                          S1g + bh * n * hd};
+  const size_t row_ld[3] = {(size_t)D, (size_t)ld, (size_t)hd};
+  const bool vec_x = tile_vec_ok(maps[0], n, jc) &&
+                     tile_vec_ok(maps[1], n, jc) &&
+                     tile_vec_ok(maps[2], n, jc);
+  const bool vec_y = tile_vec_ok(rows[0], D, hd) &&
+                     tile_vec_ok(rows[1], ld, hd) &&
+                     tile_vec_ok(rows[2], hd, hd);
+  const int stages = (n + kColI - 1) / kColI;
+
+  auto fetch = [&](int s) {
+    float* st = smem + (s & 1) * kColStage;
+    const int i0 = s * kColI, nr = n - i0 < kColI ? n - i0 : kColI;
+    // rows past n: zero in every tile (a product over them adds nothing)
+    for (int idx = t; idx < 3 * (kColI - nr) * kLdc; idx += kColThreads) {
+      const int k = idx / ((kColI - nr) * kLdc), r = idx % ((kColI - nr) * kLdc);
+      st[k * kColX + nr * kLdc + r] = 0.f;
+    }
+    for (int idx = t; idx < 3 * (kColI - nr) * kLdk; idx += kColThreads) {
+      const int k = idx / ((kColI - nr) * kLdk), r = idx % ((kColI - nr) * kLdk);
+      st[3 * kColX + k * kColY + nr * kLdk + r] = 0.f;
+    }
+    for (int k = 0; k < 3; ++k) {
+      load_tile_async(st + k * kColX, kLdc, maps[k] + (size_t)i0 * n, n, nr,
+                      jc, vec_x);
+      load_tile_async(st + 3 * kColX + k * kColY, kLdk,
+                      rows[k] + (size_t)i0 * row_ld[k], row_ld[k], nr, hd,
+                      vec_y);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][8], cm[8][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[a][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cm[nt][i] = 0.f;
+
+  fetch(0);
+  for (int s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* st = smem + (s & 1) * kColStage;
+    if (RA) {   // the gradient products take P, G, g_o and q as bf16
+      for (int idx = t; idx < kColStage; idx += kColThreads)
+        st[idx] = round_bf16(st[idx]);
+      __syncthreads();
+    }
+    // g_v = Pᵀ g_o (warps 0–3), g_k = Gᵀ q (warps 4–7)
+    const float* xf = st + prod * kColX + 4 * jx;
+    const float* yf = st + 3 * kColX + prod * kColY + 4 * dx;
+#pragma unroll 4
+    for (int i = 0; i < kColI; ++i) {
+      float x[4], y0[4], y1[4];
+      lds4(xf + i * kLdc, x);
+      lds4(yf + i * kLdk, y0);
+      lds4(yf + i * kLdk + 32, y1);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[a][e] = fmaf(x[a], y0[e], acc[a][e]);
+          acc[a][4 + e] = fmaf(x[a], y1[e], acc[a][4 + e]);
+        }
+    }
+    // cam_v's Pᵀ S1 (warps 0–3), cam_k's S2ᵀ q (warps 4–7)
+    const float* xm = st + (mp ? 2 : 0) * kColX + 16 * mt + g;
+    const float* ym = st + 3 * kColX + (mp ? 1 : 2) * kColY + g;
+#pragma unroll
+    for (int kk = 0; kk < kColI / 16; ++kk) {
+      const float* xa = xm + (16 * kk + 2 * t4) * kLdc;
+      const uint32_t af[4] = {pack_bf16x2(xa[0], xa[kLdc]),
+                              pack_bf16x2(xa[8], xa[kLdc + 8]),
+                              pack_bf16x2(xa[8 * kLdc], xa[9 * kLdc]),
+                              pack_bf16x2(xa[8 * kLdc + 8], xa[9 * kLdc + 8])};
+      const float* yb = ym + (16 * kk + 2 * t4) * kLdk;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint32_t bf[2] = {pack_bf16x2(yb[8 * nt], yb[8 * nt + kLdk]),
+                                pack_bf16x2(yb[8 * nt + 8 * kLdk],
+                                            yb[8 * nt + 9 * kLdk])};
+        mma_bf16_16816(cm[nt], af, bf);
+      }
+    }
+    __syncthreads();   // the stage is consumed
   }
 
-  const int j = j0 + jl;
-  if (j >= n) return;
-  const size_t row = ((size_t)b * n + j) * ld;
+  // g_v into the v columns of g_qkv (warps 0–3), g_k into the k columns
+  const int part = prod ? D : 2 * D;
 #pragma unroll
-  for (int k = 0; k < kMaxDPerThread; ++k) {
-    const int d = dg + kDGroups * k;
-    if (d < hd) {
-      const size_t ck = row + D + h * hd + d, cv = row + 2 * D + h * hd + d;
-      g_qkv[ck] = agk[k];
-      g_qkv[cv] = agv[k];
-      cam_qkv[ck] = (qkv_pre[ck] + bqkv[D + h * hd + d]) * ack[k] * 0.5f;
-      cam_qkv[cv] = (qkv_pre[cv] + bqkv[2 * D + h * hd + d]) * acv[k] * 0.5f;
+  for (int a = 0; a < 4; ++a) {
+    const int j = j0 + 4 * jx + a;
+    if (j >= n) continue;
+    const size_t row = ((size_t)b * n + j) * ld + part + h * hd;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = 4 * dx + (e < 4 ? e : 28 + e);
+      if (d < hd) g_qkv[row + d] = acc[a][e];
     }
   }
+  // cam_v = v ⊙ (Pᵀ S1) / 2 (warps 0–3), cam_k = k ⊙ (S2ᵀ q) / 2
+  const int mpart = mp ? D : 2 * D;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + 16 * mt + g + 8 * (i >> 1);
+      const int d = 8 * nt + 2 * t4 + (i & 1);
+      if (j < n && d < hd) {
+        const size_t o = ((size_t)b * n + j) * ld + mpart + h * hd + d;
+        cam_qkv[o] = qkv[o] * cm[nt][i] * 0.5f;
+      }
+    }
 }
 
 static __global__ void blk_head_mean_kernel(const float* __restrict__ GCP,
@@ -272,21 +579,19 @@ static __global__ void blk_head_mean_kernel(const float* __restrict__ GCP,
 }
 
 // The column pass, then the head mean gc = Σ_h GCP / h, over the batch.
-template <bool RA, bool RR>
-int attn_rev_cols(const float* qkv_pre, const float* bqkv, const float* g_o,
-                  const float* P, const float* G, const float* S2,
-                  const float* S1, const float* GCP, float* g_qkv,
-                  float* cam_qkv, float* gc, int B, int n, int H, int hd,
-                  cudaStream_t stream) {
-  const size_t smem_cols = sizeof(float) * ((size_t)3 * kRowTile * kColTile +
-                                            (size_t)3 * kRowTile * hd);
-  auto cols_kern = blk_attn_rev_cols_kernel<RA, RR>;
+template <bool RA>
+int attn_rev_cols(const float* qkv, const float* g_o, const float* P,
+                  const float* G, const float* S2, const float* S1,
+                  const float* GCP, float* g_qkv, float* cam_qkv, float* gc,
+                  int B, int n, int H, int hd, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * kColStage;
+  auto kern = blk_attn_rev_cols_kernel<RA>;
   cudaError_t err = cudaFuncSetAttribute(
-      cols_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_cols);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_cols((n + kColTile - 1) / kColTile, H, B);
-  TE_LAUNCH(cols_kern, grid_cols, kColThreads, smem_cols, stream)(
-      qkv_pre, bqkv, g_o, P, G, S2, S1, g_qkv, cam_qkv, n, H, hd);
+  dim3 grid((n + kColJ - 1) / kColJ, H, B);
+  TE_LAUNCH(kern, grid, kColThreads, smem, stream)(
+      qkv, g_o, P, G, S2, S1, g_qkv, cam_qkv, n, H, hd);
   TE_TRY((int)cudaGetLastError());
 
   const size_t nn = (size_t)n * n, total = (size_t)B * nn;
