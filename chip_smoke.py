@@ -18,7 +18,11 @@ result line):
      k = 1, 2, 4) in each preset's product modes, and the split path's MLP
      reverse (ViT-B at B=8) in its two mode pairs, all float32 results by
      the rule below against the float64 plain version (the MLP reverse by
-     its 2-norm form);
+     its 2-norm form); then the GEMM core alone (csrc/gemm.cu) at B8's
+     and B6's eight product shapes and the ViT and BERT qkv and proj
+     shapes, against precision.kdot on the same split operands in float64
+     (elementwise within 1e-4 of |A|·|W|); phase 2 has shown its
+     instances' registers, that none spills, and ptxas's remarks on wgmma;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -50,7 +54,10 @@ result line):
      from the profiler) and in the split path's bf16 mode, B7 and B9 at
      S=512 and S=128, B7's attention-core launch (profiler) beside
      ``scaled_dot_product_attention`` with the additive mask on the same
-     q, k, v at S=512, and explanations/s at B=8 for the
+     q, k, v at S=512, the GEMM core alone at the shapes checked in
+     phase 3 (device time, TFLOP/s of bf16 passes) beside torch.matmul on
+     the same bf16 operands (a yardstick: the port never calls it), and
+     explanations/s at B=8 for the
      exact-FP32 and the production paths, kernels and plain, the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
      (BERT at S=512 and S=128; the tensor-parallel program at k = 1).
@@ -82,6 +89,7 @@ F32_FLOOR = 1e-6
 F64_RTOL, F64_ATOL = 1e-9, 1e-12
 MIN_CORR = 0.999
 PROD_MIN_SLACK = 0.01
+CORE_RTOL = 1e-4
 TAIL_CORR = 0.99
 TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
 # the ViT methods whose map is a rollout chain (the rollout kernel B1)
@@ -182,25 +190,40 @@ def main() -> int:
         # registers and spills per kernel (-Xptxas -v): a summary line, a
         # line for each kernel that spills and for each instance of the
         # redesigned kernels (B4, B7's attention core, B9's and B3's row
-        # passes, the column pass)
-        entry, spill, regs = None, "", []
+        # passes, the column pass); the GEMM core's instances (wgmma) in a
+        # summary of their own, with every ptxas remark on wgmma (a
+        # serialised wgmma pipeline is named there), and none may spill
+        entry, spill, regs, core_regs, core_spills = None, "", [], [], []
+        remarks = []
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
+            elif "wgmma" in line:
+                remarks.append(line.strip())
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line and entry:
                 regs.append(int(line.split("Used")[1].split()[0]))
-                if (not spill.startswith("0 bytes stack frame, 0 bytes spill")
-                        or any(k in entry for k in (
-                            "attn_fwd_kernel", "bert_attn_rev_rows_kernel",
-                            "blk_attn_rev_rows_kernel",
-                            "blk_attn_rev_cols_kernel"))):
+                clean = spill.startswith("0 bytes stack frame, 0 bytes spill")
+                if "gemm_kernel" in entry:
+                    core_regs.append(regs[-1])
+                    if not clean:
+                        core_spills.append(entry)
+                if not clean or any(k in entry for k in (
+                        "attn_fwd_kernel", "bert_attn_rev_rows_kernel",
+                        "blk_attn_rev_rows_kernel",
+                        "blk_attn_rev_cols_kernel")):
                     print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
                           f"{spill}")
                 entry = None
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers; the others spill nothing")
+        print(f"  ptxas: {len(core_regs)} GEMM-core instances (wgmma), "
+              f"{min(core_regs)}-{max(core_regs)} registers, "
+              f"{len(core_spills)} spill")
+        print(f"  ptxas: {len(remarks)} remarks on wgmma"
+              + "".join(f"\n    {r[:300]}" for r in remarks[:4]))
+        require(not core_spills, f"GEMM-core instances spill: {core_spills}")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 3. kernels against their plain versions --------------------------------
@@ -597,6 +620,62 @@ def main() -> int:
             if mname == "bf16/bf16" and sname == "main":
                 b6_inputs = dict(a32=a32, p32=q32, mlp=mlp, rule=rule)
             del w1, w2, vecs, q64, q32, a64, a32, k32, p64, p32
+    torch.cuda.empty_cache()
+
+    # the GEMM core alone (csrc/gemm.cu, a store epilogue) at the main paths'
+    # shapes, in the instances and modes the layer kernels launch there: the
+    # eight products of B8 (BERT-base B=8, S=512) and of B6 (ViT-B/16 B=8,
+    # the split path), in bf16 as production and the split path run them,
+    # and the qkv and proj forward products of both models in bf16x3
+    # (production's matmul mode). Each is held to its plain version
+    # (precision.kdot on the same split operands) in float64, elementwise
+    # within CORE_RTOL of |A|·|W| (float32 accumulation over K ≤ 3072 on the
+    # tensor cores; a wrong layout, descriptor or ragged edge errs by the
+    # size of the product itself); the plain float32 version's error
+    # (cuBLAS on the same operands) and the mean signed relative error (the
+    # accumulation's bias) are printed beside it
+    def mlp_products(D_, M_):
+        # (label, wt, absolute, dual, N, K) of one MLP reverse's 8 launches
+        return [("x.W1t", 1, 0, 0, M_, D_), ("h.W2t", 1, 0, 0, D_, M_),
+                ("g.W2", 0, 0, 0, M_, D_), ("g.W1", 0, 0, 0, D_, M_),
+                ("|h|.|W2|t", 1, 1, 0, D_, M_), ("S.W2 dual", 0, 0, 1, M_, D_),
+                ("|x|.|W1|t", 1, 1, 0, M_, D_), ("S.W1 dual", 0, 0, 1, D_, M_)]
+    Dc, Mc, Sc = cfg.embed_dim, cfg.mlp_dim, bcfg.max_position_embeddings
+    core_shapes = []
+    for kname, rows in (("B8", 8 * Sc), ("B6", B * n)):
+        core_shapes += [(f"{kname} {lab}", rows, *prod_, "bfloat16")
+                        for lab, *prod_ in mlp_products(Dc, Mc)]
+    for mname, rows in (("ViT", B * n), ("BERT", 8 * Sc)):
+        core_shapes += [(f"{mname} qkv", rows, 1, 0, 0, 3 * Dc, Dc,
+                         "tensorfloat32"),
+                        (f"{mname} proj", rows, 1, 0, 0, Dc, Dc,
+                         "tensorfloat32")]
+    core_inputs = {}
+    for label, rows, wt, ab, du, N_, K_, mode in core_shapes:
+        a = randn(rows, K_, dtype=torch.float32)
+        w64 = randn(*((N_, K_) if wt else (K_, N_)),
+                    dtype=torch.float64) / K_ ** 0.5
+        w = prec.prepare_weight(w64, mode)
+        cargs = (mode, bool(wt), bool(ab), bool(du))
+        k32 = counted(K.gemm_core, a, w, *cargs)
+        p64 = K.gemm_core_plain(a.double(), w, *cargs)
+        p32 = K.gemm_core_plain(a, w, *cargs)
+        wv = sum(t.double() for t in w).abs()
+        mag = a.double().abs() @ (wv.t() if wt else wv)
+        outs = (lambda x: x if du else (x,))
+        for i, (k_, q64, q32) in enumerate(zip(outs(k32), outs(p64),
+                                               outs(p32))):
+            rel = (k_.double() - q64) / mag
+            relp = ((q32.double() - q64) / mag).abs().max().item()
+            e = rel.abs().max().item()
+            print(f"check core {label}[{i}] ({rows}, {N_}, {K_}) {mode}: "
+                  f"max|k-p64|/(|A||W|)={e:.3e} <= {CORE_RTOL:.0e} (plain "
+                  f"f32 {relp:.3e}); mean (k-p64)/(|A||W|) "
+                  f"{rel.mean().item():+.3e}")
+            require(e <= CORE_RTOL, f"core {label}[{i}]: error {e:.3e} of "
+                    f"|A|·|W| above {CORE_RTOL:.0e}")
+        core_inputs[label] = (a, w, cargs, (rows, N_, K_))
+        del w64, k32, p64, p32, wv, mag
     torch.cuda.empty_cache()
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
@@ -1057,6 +1136,26 @@ def main() -> int:
           f"path): kernel {b4_bf16[0]:.4f} ms, plain {b4_bf16[1]:.4f} ms {tag}")
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
     del b6_inputs, b6, b6_args
+    # the GEMM core alone at each checked shape: its launch's device time
+    # (profiler: a call of the core alone is shorter than the host's work
+    # around it) and rate in bf16 passes (bf16x3 three, a dual GEMM two
+    # products), beside torch.matmul on the same bf16-rounded operands, one
+    # call per pass (a yardstick, printed only: the port never calls it)
+    for label, (a, w, cargs, (rows, N_, K_)) in core_inputs.items():
+        mode, wt, ab, du = cargs
+        passes = (3 if mode == "tensorfloat32" else 1) * (2 if du else 1)
+        flop = 2.0 * rows * N_ * K_ * passes
+        t_k = device_ms(lambda: K.gemm_core(a, w, *cargs), 20)[0]
+        a16 = (a.abs() if ab else a).to(torch.bfloat16)
+        b16 = (w.abs if ab else w)[0]
+        b16 = b16.t() if wt else b16
+        t_mm = device_ms(lambda: torch.matmul(a16, b16), 20)[0]
+        print(f"time core {label} ({rows}, {N_}, {K_}) {mode}: kernel "
+              f"{t_k:.4f} ms, {flop / t_k / 1e9:.1f} TFLOP/s of bf16 passes; "
+              f"torch.matmul bf16 {t_mm:.4f} ms a pass, "
+              f"{2.0 * rows * N_ * K_ / t_mm / 1e9:.1f} TFLOP/s (profiler) "
+              f"{tag}")
+    del core_inputs, a16, b16
 
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
     idx_t = torch.as_tensor(batches[0][1], device=dev)

@@ -10,8 +10,13 @@
 // barriers. A thread that returns early drops out of both barriers, as a
 // finished CUDA thread no longer takes part in __syncthreads. The bf16
 // tensor-core product (mma.sync m16n8k16) is a warp-collective exchange of
-// the lanes' fragment registers through per-warp slots, and the bf16
-// conversions are plain round-to-nearest-even bit arithmetic.
+// the lanes' fragment registers through per-warp slots; the warpgroup
+// product (wgmma m64nNk16) is the same exchange across the 128 threads of a
+// warpgroup, with B read from the emulated shared memory by decoding the
+// matrix descriptor (128-byte swizzle) by the PTX ISA's rules; it completes
+// at once, so its
+// fence, commit and wait do nothing. The bf16 conversions are plain
+// round-to-nearest-even bit arithmetic.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -29,6 +34,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { unsigned int x, y, z, w; };
 struct alignas(8) uint2 { unsigned int x, y; };
@@ -58,6 +64,7 @@ struct BlockCtx {
   std::vector<std::unique_ptr<std::barrier<>>>* warp_bars;
   std::vector<double>* slots;
   std::vector<uint32_t>* frags;   // 6 fragment registers per lane
+  std::vector<std::unique_ptr<std::barrier<>>>* wg_bars;   // per warpgroup
 };
 inline thread_local BlockCtx ctx;
 }  // namespace emu
@@ -121,6 +128,63 @@ inline void te_emu_mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
   __syncwarp();
 }
 
+extern unsigned char te_smem[];
+
+// the shared-window address of a pointer into the emulated shared memory
+inline uint32_t te_emu_smem_u32(const void* p) {
+  return static_cast<uint32_t>(static_cast<const unsigned char*>(p) - te_smem);
+}
+
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 with A from registers,
+// for one warpgroup: every thread publishes its four A registers, then
+// computes its own N/2 accumulators from the whole 64 × 16 A and the 16 × N
+// B that the descriptor addresses. The descriptor is decoded by the PTX
+// ISA's rules for the 128-byte swizzle (layout type 1, base offset 0; any
+// other layout throws): B's element (n, k) lies, K-major (tb = 0), at
+// start + (n/8)·SBO + (n%8)·128 + (k/8)·16 + (k%8)·2, MN-major (tb = 1) at
+// start + (n/64)·LBO + (n%64)·2 + (k/8)·SBO + (k%8)·128, and the swizzle
+// XORs address bits 4-6 with bits 7-9. Sums run over k in ascending order.
+template <int N>
+inline void te_emu_wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t desc, int tb) {
+  if ((desc >> 62) != 1 || ((desc >> 49) & 7u) != 0)
+    throw std::runtime_error("wgmma descriptor: not a 128-byte swizzle");
+  const uint32_t start = static_cast<uint32_t>(desc & 0x3FFFu) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFFu) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFFu) << 4;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  std::barrier<>& bar = *(*emu::ctx.wg_bars)[wg];
+  uint32_t* s = emu::ctx.frags->data() + static_cast<std::size_t>(wg) * 128 * 6;
+  for (int i = 0; i < 4; ++i) s[t * 6 + i] = a[i];
+  bar.arrive_and_wait();
+  auto half = [](uint32_t reg, int k) {
+    return te_emu_bf2f(static_cast<uint16_t>(reg >> (16 * (k & 1))));
+  };
+  auto A = [&](int row, int k) {        // row in [0, 64), k in [0, 16)
+    const int owner = (row / 16) * 32 + (row % 8) * 4 + (k % 8) / 2;
+    const int reg = (row % 16) / 8 + 2 * (k / 8);
+    return half(s[owner * 6 + reg], k);
+  };
+  auto B = [&](int n, int k) {
+    uint32_t off =
+        tb ? start + (n / 64) * lbo + (n % 64) * 2 + (k / 8) * sbo + (k % 8) * 128
+           : start + (n / 8) * sbo + (n % 8) * 128 + (k / 8) * 16 + (k % 8) * 2;
+    off ^= ((off >> 7) & 7u) << 4;
+    uint16_t u;
+    std::memcpy(&u, te_smem + off, sizeof u);
+    return te_emu_bf2f(u);
+  };
+  const int w = t / 32, g = (t % 32) / 4, q = t % 4;
+  for (int idx = 0; idx < N / 2; ++idx) {
+    const int j = idx / 4, i = idx % 4;
+    const int row = 16 * w + g + 8 * (i / 2), col = 8 * j + 2 * q + i % 2;
+    float acc = d[idx];
+    for (int k = 0; k < 16; ++k) acc += A(row, k) * B(col, k);
+    d[idx] = acc;
+  }
+  bar.arrive_and_wait();
+}
+
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = static_cast<int>(emu::kSmemLimit);
@@ -135,8 +199,6 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid argument (emulated)";
 }
-
-extern unsigned char te_smem[];
 
 namespace emu {
 template <typename... KArgs>
@@ -158,8 +220,13 @@ struct Launch {
           for (unsigned w = 0; w < nwarps; ++w)
             warp_bars.emplace_back(
                 new std::barrier<>(std::min(32u, nthreads - 32 * w)));
+          const unsigned ngroups = (nthreads + 127) / 128;
+          std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
+          for (unsigned w = 0; w < ngroups; ++w)
+            wg_bars.emplace_back(
+                new std::barrier<>(std::min(128u, nthreads - 128 * w)));
           std::vector<double> slots(nwarps * 32);
-          std::vector<uint32_t> frags(nwarps * 32 * 6);
+          std::vector<uint32_t> frags(std::max(nwarps * 32, ngroups * 128) * 6);
           std::vector<std::thread> threads;
           for (unsigned t = 0; t < nthreads; ++t) {
             threads.emplace_back([&, t]() {
@@ -168,8 +235,9 @@ struct Launch {
               blockIdx = dim3(bx, by, bz);
               blockDim = block;
               gridDim = grid;
-              ctx = BlockCtx{&bar, &warp_bars, &slots, &frags};
+              ctx = BlockCtx{&bar, &warp_bars, &slots, &frags, &wg_bars};
               kernel(args...);
+              wg_bars[t / 128]->arrive_and_drop();
               warp_bars[t / 32]->arrive_and_drop();
               bar.arrive_and_drop();
             });

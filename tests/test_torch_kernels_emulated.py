@@ -523,3 +523,59 @@ def test_mlp_rev_kernel_matches_plain(lib, shape, modes):
     for k, p, q, name in zip(got, want32, want64, ["g_mid", "Rm"]):
         assert k.shape == q.shape, name
         _f32_rule(k, p, q, name)
+
+
+# ---------------------------------------------------------------------------
+# The GEMM core alone (csrc/gemm.cu: the core with a store epilogue): each
+# instance the layer kernels launch, in both modes and both tiles, held to
+# precision.kdot on the same split operands in float64
+# ---------------------------------------------------------------------------
+
+# (wt, absolute, dual): the forward products x·Wᵀ, the backward products
+# g·W, the rule denominators |x|·|W|ᵀ, the rule numerators S·W and S·|W|
+CORE_INSTANCES = [(True, False, False), (False, False, False),
+                  (True, True, False), (False, False, True)]
+# (tile, M, N, K): the large tile (128 rows × 192 / 128 / 64 columns for 1 /
+# 2 / 4 accumulator sets) and the small one (64 × 128 / 128 / 64), each at
+# a shape with a ragged last row tile, N a multiple of 8 but of no tile
+# width, and K not a multiple of the 64-deep stage; K = 264 takes five
+# stages through the ring of three
+CORE_SHAPES = [(0, 136, 200, 264), (1, 70, 136, 72)]
+
+
+@pytest.mark.parametrize("shape", CORE_SHAPES)
+@pytest.mark.parametrize("mode", sorted(K._GEMM_MODE))
+@pytest.mark.parametrize("instance", CORE_INSTANCES)
+def test_gemm_core_tiles_match_kdot(lib, shape, mode, instance):
+    tile, M, N, Kd = shape
+    wt, absolute, dual = instance
+    rng = np.random.RandomState(70 + tile)
+    a = torch.from_numpy(rng.randn(M, Kd)).float()
+    w = P.prepare_weight(torch.from_numpy(
+        rng.randn(*((N, Kd) if wt else (Kd, N))) / np.sqrt(Kd)), mode)
+    got = K._launch_gemm(lib, a, w, K._GEMM_MODE[mode], wt, absolute, dual,
+                         tile, None)
+    want = K.gemm_core_plain(a.double(), w, mode, wt, absolute, dual)
+    wv = sum(t.double() for t in w).abs()
+    mag = a.double().abs() @ (wv.t() if wt else wv)
+    got, want = (got, want) if dual else ((got,), (want,))
+    for g, q in zip(got, want):
+        assert g.shape == (M, N) and g.dtype == torch.float32
+        # float32 sums over K in the emulator: each output within
+        # K·2⁻²⁴ of Σ|a·w| of the float64 sum of the same bf16 products
+        err = ((g.double() - q).abs() / mag).max().item()
+        assert err <= Kd * 2.0 ** -24, err
+
+
+def test_gemm_core_rejects_what_it_does_not_take(lib):
+    """K and N multiples of 8, and a bf16x3 product needs its lo planes."""
+    a = torch.randn(16, 12)
+    w = P.prepare_weight(torch.randn(16, 12, dtype=torch.float64),
+                         "tensorfloat32")
+    with pytest.raises(RuntimeError, match="gemm_core"):
+        K._launch_gemm(lib, a, w, 1, True, False, False, -1, None)
+    w1 = P.prepare_weight(torch.randn(16, 16, dtype=torch.float64),
+                          "bfloat16")
+    with pytest.raises(RuntimeError, match="gemm_core"):
+        K._launch_gemm(lib, torch.randn(8, 16), w1, 1, True, False, False,
+                       -1, None)

@@ -280,10 +280,14 @@ static __global__ void mask_lambda_kernel(const float* __restrict__ sums,
 struct EpiRuleDenLam {
   float* S; const float* R; const float* y_pre; const float* lam; int N;
   int two_d; int n;
-  __device__ void operator()(int r, int c, float a, float) const {
+  struct In { float R, y_pre, lam; };
+  __device__ In load(int r, int c) const {
     const size_t o = (size_t)r * N + c;
-    const float Rv = c < two_d ? lam[r / n] * R[o] : R[o];
-    S[o] = safe_divide(Rv, 0.5f * (y_pre[o] + a));
+    return {R[o], y_pre[o], c < two_d ? lam[r / n] : 0.f};
+  }
+  __device__ void operator()(int r, int c, float a, float, const In& in) const {
+    const float Rv = c < two_d ? in.lam * in.R : in.R;
+    S[(size_t)r * N + c] = safe_divide(Rv, 0.5f * (in.y_pre + a));
   }
 };
 
@@ -291,12 +295,17 @@ struct EpiRuleDenLam {
 // with the residual branch: x ⊙ sd(x ⊙ sd(R_lin, x) + R2, x)
 struct EpiRuleClone2 {
   float* out; const float* x; const float* R2; int N;
-  __device__ void operator()(int r, int c, float a, float b) const {
+  struct In { float x, R2; };
+  __device__ In load(int r, int c) const {
     const size_t o = (size_t)r * N + c;
-    const float xv = x[o];
+    return {x[o], R2[o]};
+  }
+  __device__ void operator()(int r, int c, float a, float b,
+                             const In& in) const {
+    const float xv = in.x;
     const float rule = 0.5f * (xv * a + fabsf(xv) * b);
     const float R_h1 = xv * safe_divide(rule, xv);
-    out[o] = xv * safe_divide(R_h1 + R2[o], xv);
+    out[(size_t)r * N + c] = xv * safe_divide(R_h1 + in.R2, xv);
   }
 };
 
@@ -377,10 +386,11 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
   TE_TRY(add_rule(x_in, sv.dense_nb, w.bproj, R_att, partials, R2, R1, B, n,
                   D, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{sv.ctx, o_hi, o_lo, D, D, rows, D, D},
+      rule, GemmArgs{sv.ctx, w.wproj_ahi, w.wproj_alo, D, D, rows, D, D},
       EpiRuleDen{Sd, R1, sv.dense_nb, D}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sd, o_hi, o_lo, D, D, rows, D, D},
+      rule, GemmArgs{Sd, o_hi, o_lo, D, D, rows, D, D, w.wproj_ahi,
+                     w.wproj_alo},
       EpiRuleNum{R1f, sv.ctx, D}, stream));
 
   // per head: row pass, column pass, head mean
@@ -397,10 +407,11 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
       mxu, GemmArgs{g_qkv, q_hi, q_lo, 3 * D, D, rows, D, 3 * D},
       EpiAdd{g_in, g_sum1, D}, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{x_in, q_hi, q_lo, D, D, rows, 3 * D, D},
+      rule, GemmArgs{x_in, w.wqkv_ahi, w.wqkv_alo, D, D, rows, 3 * D, D},
       EpiRuleDenLam{Sq, cam_qkv, sv.qkv_pre, lam, 3 * D, 2 * D, n}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sq, q_hi, q_lo, 3 * D, D, rows, D, 3 * D},
+      rule, GemmArgs{Sq, q_hi, q_lo, 3 * D, D, rows, D, 3 * D, w.wqkv_ahi,
+                     w.wqkv_alo},
       EpiRuleClone2{R_in, x_in, R2, D}, stream));
   return 0;
 }
@@ -411,9 +422,9 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
 // n) additive; the slim anchors qkv_pre, ctx, dense_nb; the layer's vectors
 // attn_ln scale, bias, out_ln scale, bias, b_qkv, b_ao, b_i, b_o; the weight
 // planes (hi, lo) of qkv, attention output, inter, out (lo may be null for
-// one-pass modes; this kernel reads qkv and attention output); the outputs
-// g_in, R_in, gc (B, n, n); the workspace (null: only write its size to
-// *work_bytes). Modes: mxu and rule (the GEMMs) 0 = bf16, 1 = bf16×3;
+// one-pass modes; this kernel reads qkv and attention output), then the
+// same of |W| (precision.PreparedWeight.abs); the outputs g_in, R_in, gc
+// (B, n, n); the workspace (null: only write its size to *work_bytes). Modes: mxu and rule (the GEMMs) 0 = bf16, 1 = bf16×3;
 // attn_bf16 and rule_bf16 (the attention's gradient and rule products)
 // 1 = bf16 operands, 0 = float32.
 extern "C" int te_bert_attn_rev_f32(
@@ -423,7 +434,10 @@ extern "C" int te_bert_attn_rev_f32(
     const void* ln2s, const void* ln2b, const void* bqkv, const void* bao,
     const void* bi, const void* bo, const void* wqkv_hi, const void* wqkv_lo,
     const void* wao_hi, const void* wao_lo, const void* wi_hi,
-    const void* wi_lo, const void* wo_hi, const void* wo_lo, void* g_in,
+    const void* wi_lo, const void* wo_hi, const void* wo_lo,
+    const void* wqkv_ahi, const void* wqkv_alo, const void* wao_ahi,
+    const void* wao_alo, const void* wi_ahi, const void* wi_alo,
+    const void* wo_ahi, const void* wo_alo, void* g_in,
     void* R_in, void* gc, void* work, void* work_bytes, int B, int n, int H,
     int hd, double eps, int mxu, int attn_bf16, int rule_bf16, int rule,
     void* stream) {
@@ -436,6 +450,8 @@ extern "C" int te_bert_attn_rev_f32(
       static_cast<W>(wqkv_lo), static_cast<W>(wao_hi), static_cast<W>(wao_lo),
       static_cast<W>(wi_hi), static_cast<W>(wi_lo), static_cast<W>(wo_hi),
       static_cast<W>(wo_lo)};
+  te::set_abs_planes(w, {wqkv_ahi, wqkv_alo, wao_ahi, wao_alo, wi_ahi, wi_alo,
+                         wo_ahi, wo_alo});
   te::AttnSaved sv{static_cast<F>(qkv_pre), static_cast<F>(ctx),
                    static_cast<F>(dense_nb)};
   return te::bert_attn_rev(

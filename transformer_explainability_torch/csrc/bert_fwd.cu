@@ -19,8 +19,8 @@
 // share each weight read): the qkv GEMM, the masked attention core per
 // (query tile, head, sample), the dense GEMM with the residual, LayerNorm,
 // the inter GEMM with GELU, the out GEMM with the residual, LayerNorm. At
-// BERT-base B=8, S=512 in production modes the GEMM core sets the pace:
-// 0.79 of the layer's 1.29 ms on an H100 at 700 W, the attention core 0.48.
+// BERT-base B=8, S=512 in production modes the attention core sets the
+// pace: 0.48 of the layer's 0.85 ms on an H100 at 700 W, the GEMM core 0.36.
 // The attention core's two float32 products (6.4 GFLOP, 0.10 ms at 67
 // TFLOP/s) are bounded by shared memory: a 128-bit shared read is served a
 // quarter-warp at a time, so a register tile that reads r floats per FMA

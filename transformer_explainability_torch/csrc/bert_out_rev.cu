@@ -20,7 +20,11 @@
 // the GEMM core (gemm.cuh) with fused epilogues, the row kernel of the
 // LayerNorm backward, and the two-pass add rule (rules.cuh), through one
 // workspace. The recompute GEMMs repeat the forward's epilogues, so every
-// anchor a rule divides by is bitwise the forward's value.
+// anchor a rule divides by is bitwise the forward's value. Its ten bf16
+// products (193 GFLOP at BERT-base B=8, S=512) bound it: 0.195 ms at the
+// tensor cores' rate. On an H100 at 700 W the eight GEMM-core launches take
+// 0.91 of the call's 0.99 ms; a third of theirs is the epilogues', which
+// read and write the (B·S, I) intermediates in float32.
 #include "rules.cuh"
 
 namespace te {
@@ -69,16 +73,18 @@ int bert_out_rev(const float* att_ln, const float* g_out, const float* R,
   TE_TRY(add_rule(att_ln, dense2_nb, w.b2, R, partials, Ra, Rb, B, n, D,
                   stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{inter_g, w.w2_hi, w.w2_lo, I, I, rows, D, I},
+      rule, GemmArgs{inter_g, w.w2_ahi, w.w2_alo, I, I, rows, D, I},
       EpiRuleDen{So, Rb, dense2_nb, D}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{So, w.w2_hi, w.w2_lo, D, I, rows, I, D},
+      rule, GemmArgs{So, w.w2_hi, w.w2_lo, D, I, rows, I, D, w.w2_ahi,
+                     w.w2_alo},
       EpiRuleNum{R1, inter_g, I}, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{att_ln, w.w1_hi, w.w1_lo, D, D, rows, I, D},
+      rule, GemmArgs{att_ln, w.w1_ahi, w.w1_alo, D, D, rows, I, D},
       EpiRuleDen{t_I, R1, inter_pre, I}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{t_I, w.w1_hi, w.w1_lo, I, D, rows, D, I},
+      rule, GemmArgs{t_I, w.w1_hi, w.w1_lo, I, D, rows, D, I, w.w1_ahi,
+                     w.w1_alo},
       EpiRuleClone{R_att, att_ln, Ra, att_ln, D}, stream));
   return 0;
 }
@@ -88,17 +94,20 @@ int bert_out_rev(const float* att_ln, const float* g_out, const float* R,
 // Plain C entry point (float32). Pointers: att_ln, g_out, R; the layer's
 // vectors attn_ln scale, bias, out_ln scale, bias, b_qkv, b_ao, b_i, b_o;
 // the weight planes (hi, lo) of qkv, attention output, inter, out (lo may
-// be null for one-pass modes; this kernel reads inter and out); the outputs
-// g_attln, R_att; the workspace (null: only write its size to
-// *work_bytes). Modes: mlp (the four inter/out products) and rule (the rule
-// GEMMs) 0 = bf16, 1 = bf16×3.
+// be null for one-pass modes; this kernel reads inter and out), then the
+// same of |W| (precision.PreparedWeight.abs); the outputs g_attln, R_att;
+// the workspace (null: only write its size to *work_bytes). Modes: mlp
+// (the four inter/out products) and rule (the rule GEMMs) 0 = bf16,
+// 1 = bf16×3.
 extern "C" int te_bert_out_rev_f32(
     const void* att_ln, const void* g_out, const void* R, const void* ln1s,
     const void* ln1b, const void* ln2s, const void* ln2b, const void* bqkv,
     const void* bao, const void* bi, const void* bo, const void* wqkv_hi,
     const void* wqkv_lo, const void* wao_hi, const void* wao_lo,
     const void* wi_hi, const void* wi_lo, const void* wo_hi,
-    const void* wo_lo, void* g_attln, void* R_att, void* work,
+    const void* wo_lo, const void* wqkv_ahi, const void* wqkv_alo,
+    const void* wao_ahi, const void* wao_alo, const void* wi_ahi,
+    const void* wi_alo, const void* wo_ahi, const void* wo_alo, void* g_attln, void* R_att, void* work,
     void* work_bytes, int B, int n, int D, int I, double eps, int mlp,
     int rule, void* stream) {
   using F = const float*;
@@ -110,6 +119,8 @@ extern "C" int te_bert_out_rev_f32(
       static_cast<W>(wqkv_lo), static_cast<W>(wao_hi), static_cast<W>(wao_lo),
       static_cast<W>(wi_hi), static_cast<W>(wi_lo), static_cast<W>(wo_hi),
       static_cast<W>(wo_lo)};
+  te::set_abs_planes(w, {wqkv_ahi, wqkv_alo, wao_ahi, wao_alo, wi_ahi, wi_alo,
+                         wo_ahi, wo_alo});
   return te::bert_out_rev(
       static_cast<F>(att_ln), static_cast<F>(g_out), static_cast<F>(R), w,
       static_cast<float*>(g_attln), static_cast<float*>(R_att),

@@ -30,10 +30,9 @@
 // through one workspace in device memory. The rule epilogues, the add rule
 // and the attention reverse's passes live in rules.cuh, shared with the
 // BERT reverse kernels; the MLP half in mlp_rev.cuh, shared with mlp_rev.cu.
-// At ViT-B/16 B=8 in production modes the GEMM core sets the pace: its
-// launches take 1.40 of the step's 1.96 ms on an H100 at 700 W, the
-// attention reverse 0.45 (row pass 0.30, column pass 0.13, the bias add and
-// the head mean 0.02). The attention reverse is B9's row pass without the
+// At ViT-B/16 B=8 in production modes the GEMM core's launches take 0.62
+// of the step's 1.15 ms on an H100 at 700 W, the attention reverse 0.45
+// (row pass 0.30, column pass 0.13, the bias add and the head mean 0.02). The attention reverse is B9's row pass without the
 // recompute, and the column pass, with their float32 products as register
 // micro-tiles and their bf16 rule products on the tensor cores (rules.cuh
 // says what bounds them); the row pass's 1 × 8 tiles (1.1 floats read from
@@ -263,10 +262,11 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
   TE_TRY(add_rule(x_in, sv.proj_pre, w.bproj, Rm, partials, Ra1, Ra2, B, n,
                   D, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{out_m, p_hi, p_lo, D, D, rows, D, D},
+      rule, GemmArgs{out_m, w.wproj_ahi, w.wproj_alo, D, D, rows, D, D},
       EpiRuleDen{Sp, Ra2, sv.proj_pre, D}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sp, p_hi, p_lo, D, D, rows, D, D},
+      rule, GemmArgs{Sp, p_hi, p_lo, D, D, rows, D, D, w.wproj_ahi,
+                     w.wproj_alo},
       EpiRuleNum{cam_o, out_m, D}, stream));
 
   // attention core
@@ -281,10 +281,11 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
       EpiStore{t_D, D}, stream));
   TE_TRY(ln_bwd(t_D, x_in, w.ln1s, g_mid, g_in, rows, D, eps, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{xn1, q_hi, q_lo, D, D, rows, 3 * D, D},
+      rule, GemmArgs{xn1, w.wqkv_ahi, w.wqkv_alo, D, D, rows, 3 * D, D},
       EpiRuleDen{Sq, cam_qkv, sv.qkv_pre, 3 * D}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sq, q_hi, q_lo, 3 * D, D, rows, D, 3 * D},
+      rule, GemmArgs{Sq, q_hi, q_lo, 3 * D, D, rows, D, 3 * D, w.wqkv_ahi,
+                     w.wqkv_alo},
       EpiRuleClone{R_in, xn1, Ra1, x_in, D}, stream));
   return 0;
 }
@@ -294,7 +295,8 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
 // Plain C entry point (float32). Pointers: x_in, x_mid, out_m, g_out, R; the
 // saved anchors qkv_pre, proj_pre, dots, probs, fc1_pre, fc2_pre; ln1s,
 // ln1b, ln2s, ln2b, bqkv, bproj, b1, b2; the weight planes (hi, lo) of qkv,
-// proj, fc1, fc2 (lo may be null for one-pass modes); the outputs g_in,
+// proj, fc1, fc2 (lo may be null for one-pass modes), then the same of |W|
+// (precision.PreparedWeight.abs); the outputs g_in,
 // R_in, gc; the workspace (null: only write its size to *work_bytes).
 // Modes: mxu, rule (the rule GEMMs) and mlp 0 = bf16, 1 = bf16×3;
 // attn_bf16 and rule_bf16 (the attention's gradient and rule products)
@@ -307,8 +309,10 @@ extern "C" int te_block_rev_f32(
     const void* ln2s, const void* ln2b, const void* bqkv, const void* bproj,
     const void* b1, const void* b2, const void* wqkv_hi, const void* wqkv_lo,
     const void* wproj_hi, const void* wproj_lo, const void* w1_hi,
-    const void* w1_lo, const void* w2_hi, const void* w2_lo, void* g_in,
-    void* R_in, void* gc, void* work, void* work_bytes, int B, int n, int H,
+    const void* w1_lo, const void* w2_hi, const void* w2_lo,
+    const void* wqkv_ahi, const void* wqkv_alo, const void* wproj_ahi,
+    const void* wproj_alo, const void* w1_ahi, const void* w1_alo,
+    const void* w2_ahi, const void* w2_alo, void* g_in, void* R_in, void* gc, void* work, void* work_bytes, int B, int n, int H,
     int hd, int M, double eps, int mxu, int attn_bf16, int rule_bf16,
     int rule, int mlp, void* stream) {
   using F = const float*;
@@ -320,6 +324,8 @@ extern "C" int te_block_rev_f32(
       static_cast<W>(wqkv_lo), static_cast<W>(wproj_hi),
       static_cast<W>(wproj_lo), static_cast<W>(w1_hi), static_cast<W>(w1_lo),
       static_cast<W>(w2_hi), static_cast<W>(w2_lo)};
+  te::set_abs_planes(w, {wqkv_ahi, wqkv_alo, wproj_ahi, wproj_alo, w1_ahi,
+                         w1_alo, w2_ahi, w2_alo});
   te::Saved sv{static_cast<F>(qkv_pre), static_cast<F>(proj_pre),
                static_cast<F>(dots), static_cast<F>(probs),
                static_cast<F>(fc1_pre), static_cast<F>(fc2_pre)};

@@ -96,9 +96,14 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 
 // two floats rounded to bf16 and packed as one fragment register (lo in the
-// low half, as the lower k index of the pair)
+// low half, as the lower k index of the pair): one cvt.rn.bf16x2.f32
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+#ifdef __CUDACC__
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+#else
   return (uint32_t)f2bf(lo) | (uint32_t)f2bf(hi) << 16;
+#endif
 }
 
 // D += A·B on the tensor cores: one m16n8k16 tile, bf16 operands packed two
@@ -156,6 +161,194 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
 #ifdef __CUDACC__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// cp_async16 with zero fill: where ok is false nothing is read and the 16
+// bytes are written as zeros (the ragged edges of a GEMM tile)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+#ifdef __CUDACC__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+#else
+  if (ok) __builtin_memcpy(dst, src, 16);
+  else __builtin_memset(dst, 0, 16);
+#endif
+}
+
+// Makes this thread's completed generic-proxy writes to shared memory (plain
+// stores and cp.async) visible to the async proxy, which wgmma reads its
+// shared-memory operands through; a barrier after it extends that to the
+// other threads' wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+#ifdef __CUDACC__
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+}
+
+// The shared-window address of a pointer into shared memory (the emulator:
+// its offset in the emulated buffer).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+#ifdef __CUDACC__
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+#else
+  return te_emu_smem_u32(p);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): the warpgroup's asynchronous tensor-core product. Four
+// warps (128 threads, a warpgroup) issue it together; A comes from
+// registers, B from shared memory through a matrix descriptor, the float32
+// accumulators stay in registers. The emulator runs it at once as a
+// collective of the warpgroup and decodes the descriptor by the PTX ISA's
+// rules.
+// ---------------------------------------------------------------------------
+
+// Orders this warpgroup's register writes (A fragments, accumulators)
+// before the wgmma that follow it.
+__device__ __forceinline__ void wgmma_fence() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+// Closes the wgmma issued since the last commit into one group.
+__device__ __forceinline__ void wgmma_commit() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most N groups are in flight: their A registers and
+// accumulators may then be touched, their shared memory rewritten.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle (layout type
+// 1): the operand lies in atoms of 8 rows × 128 bytes, 1024-byte aligned,
+// in which the 16-byte chunk c of row r sits at chunk position c ^ r (the
+// XOR of address bits 4-6 with bits 7-9). The start address, lbo and sbo
+// are stored >> 4 in 14 bits each (bits 0-13, 16-29, 32-45; base offset
+// 49-51 zero). For a 16-bit operand, element (n, k) of the k16 slice at
+// start lies before the swizzle at
+//   K-major (the B of x·Wᵀ; a row is 64 k of one n):
+//     start + (n/8)·sbo + (n%8)·128 + (k/8)·16 + (k%8)·2   (lbo unused)
+//   MN-major (wgmma's transposed B; a row is 64 n of one k):
+//     start + (n/64)·lbo + (n%64)·2 + (k/8)·sbo + (k%8)·128
+// (the PTX ISA's canonical layouts with 128-byte swizzling).
+__host__ __device__ inline uint64_t wgmma_desc128(uint32_t start, uint32_t lbo,
+                                                  uint32_t sbo) {
+  return (uint64_t)((start >> 4) & 0x3FFFu) |
+         (uint64_t)((lbo >> 4) & 0x3FFFu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFFu) << 32 | (uint64_t)1 << 62;
+}
+
+// d (64 × N float32 per warpgroup) += a (64 × 16 bf16, registers) · b (16 ×
+// N bf16, descriptor): wgmma.mma_async m64nNk16 with float32 accumulation.
+// TB = 0 reads b K-major, 1 MN-major. Thread t of the warpgroup (warp w =
+// t/32, g = (t%32)/4, q = t%4) holds in a[0..3] the bf16 pairs A(16w + g,
+// 2q..2q+1), A(16w + g + 8, 2q..), A(16w + g, 2q + 8..), A(16w + g + 8, 2q +
+// 8..), the lower k in the low half; and in d[4j + i] the element (16w + g +
+// 8·(i/2), 8j + 2q + i%2). Issue between wgmma_fence() and wgmma_commit().
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  static_assert(N == 64 || N == 128 || N == 192, "wgmma width");
+#ifdef __CUDACC__
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87,"
+        "%88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
+  }
+
+#else
+  te_emu_wgmma<N>(d, a, desc, TB);
 #endif
 }
 

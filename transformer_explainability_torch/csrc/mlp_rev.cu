@@ -22,8 +22,10 @@
 // kernels (forward here, backward in the half), ten products in eight
 // GEMM-core launches (two dual GEMMs carry two products each), and the two
 // passes of the add rule. The products (2·B·n·D·M FLOP each, times the
-// passes of its mode) bound it. Every sum has a fixed order (no atomics): the
-// outputs are bitwise repeatable.
+// passes of its mode) bound it: 0.075 ms at the tensor cores' rate at
+// ViT-B/16 B=8 in bf16 modes; on an H100 at 700 W the GEMM-core launches
+// take 0.48 of the call's 0.52 ms, their epilogues much of that. Every sum
+// has a fixed order (no atomics): the outputs are bitwise repeatable.
 #include "mlp_rev.cuh"
 
 namespace te {
@@ -57,13 +59,16 @@ int mlp_rev(const float* x_mid, const float* g_out, const float* R,
 }  // namespace te
 
 // Plain C entry point (float32). Pointers: x_mid, g_out, R; ln2s, ln2b, b1,
-// b2; the (hi, lo) planes of W1 and W2; the outputs g_mid, Rm; the workspace
-// (null: only write its size to *work_bytes). Modes: mlp (the recompute and
-// backward products) and rule (the rule products) 0 = bf16, 1 = bf16×3.
+// b2; the (hi, lo) planes of W1 and W2, then of |W1| and |W2|; the outputs
+// g_mid, Rm; the workspace (null: only write its size to *work_bytes).
+// Modes: mlp (the recompute and backward products) and rule (the rule
+// products) 0 = bf16, 1 = bf16×3.
 extern "C" int te_mlp_rev_f32(
     const void* x_mid, const void* g_out, const void* R, const void* ln2s,
     const void* ln2b, const void* b1, const void* b2, const void* w1_hi,
-    const void* w1_lo, const void* w2_hi, const void* w2_lo, void* g_mid,
+    const void* w1_lo, const void* w2_hi, const void* w2_lo,
+    const void* w1_ahi, const void* w1_alo, const void* w2_ahi,
+    const void* w2_alo, void* g_mid,
     void* Rm, void* work, void* work_bytes, int B, int n, int D, int M,
     double eps, int mlp, int rule, void* stream) {
   using F = const float*;
@@ -74,6 +79,10 @@ extern "C" int te_mlp_rev_f32(
                      nullptr, nullptr, static_cast<W>(w1_hi),
                      static_cast<W>(w1_lo), static_cast<W>(w2_hi),
                      static_cast<W>(w2_lo)};
+  w.w1_ahi = static_cast<W>(w1_ahi);
+  w.w1_alo = static_cast<W>(w1_alo);
+  w.w2_ahi = static_cast<W>(w2_ahi);
+  w.w2_alo = static_cast<W>(w2_alo);
   return te::mlp_rev(static_cast<F>(x_mid), static_cast<F>(g_out),
                      static_cast<F>(R), w, static_cast<float*>(g_mid),
                      static_cast<float*>(Rm), static_cast<char*>(work),

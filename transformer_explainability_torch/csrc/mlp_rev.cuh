@@ -35,7 +35,8 @@ struct MlpRevWork {
         partials(ws.take<float>((size_t)B * kAddChunks * 3)) {}
 };
 
-// Uses w.ln2s, w.b1, w.b2 and the (hi, lo) planes of W1 and W2. x_mid,
+// Uses w.ln2s, w.b1, w.b2 and the (hi, lo) planes of W1 and W2 and of
+// |W1| and |W2|. x_mid,
 // xn2, g_out, R (B·n, D); fc1_pre (B·n, M), fc2_pre (B·n, D).
 inline int mlp_rev_half(const float* x_mid, const float* xn2,
                         const float* g_out, const float* R,
@@ -54,16 +55,18 @@ inline int mlp_rev_half(const float* x_mid, const float* xn2,
   TE_TRY(add_rule(x_mid, fc2_pre, w.b2, R, s.partials, s.Ca, s.Cb, B, n, D,
                   stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{s.hg, w.w2_hi, w.w2_lo, M, M, rows, D, M},
+      rule, GemmArgs{s.hg, w.w2_ahi, w.w2_alo, M, M, rows, D, M},
       EpiRuleDen{s.Sr, s.Cb, fc2_pre, D}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{s.Sr, w.w2_hi, w.w2_lo, D, M, rows, M, D},
+      rule, GemmArgs{s.Sr, w.w2_hi, w.w2_lo, D, M, rows, M, D, w.w2_ahi,
+                     w.w2_alo},
       EpiRuleNum{s.R2, s.hg, M}, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{xn2, w.w1_hi, w.w1_lo, D, D, rows, M, D},
+      rule, GemmArgs{xn2, w.w1_ahi, w.w1_alo, D, D, rows, M, D},
       EpiRuleDen{s.t_M, s.R2, fc1_pre, M}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{s.t_M, w.w1_hi, w.w1_lo, M, D, rows, D, M},
+      rule, GemmArgs{s.t_M, w.w1_hi, w.w1_lo, M, D, rows, D, M, w.w1_ahi,
+                     w.w1_alo},
       EpiRuleClone{Rm, xn2, s.Ca, x_mid, D}, stream));
   return 0;
 }

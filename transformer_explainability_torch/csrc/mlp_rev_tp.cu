@@ -27,11 +27,13 @@
 // What bounds it on the H100: as in block_rev.cu's MLP half, the shard's
 // weights and the (B·n, M/k) intermediates do not fit in shared memory, so
 // each phase is a sequence of launches over the whole batch through one
-// workspace: a LayerNorm row kernel and the GEMM core (gemm.cuh, mma.sync
+// workspace: a LayerNorm row kernel and the GEMM core (gemm.cuh, wgmma
 // bf16 / bf16×3 on the tensor cores) with the elementwise work in the
 // epilogues. Each phase is five products (2·B·n·D·M/k FLOP each, times the
-// passes of its mode) and is bound by the GEMM core's rate (≈ 80 TFLOP/s of
-// bf16 passes in PR 2's measurements), far from the tensor cores' peak.
+// passes of its mode) and is bound by the GEMM core (at ViT-B/16 B=8, k = 1,
+// on an H100 at 700 W: 0.24 and 0.22 ms a phase against 0.04 at the tensor
+// cores' rate; the epilogues' reads and writes of the (B·n, M/k) arrays
+// are much of it).
 // Every sum has a fixed order (no atomics): the outputs are bitwise
 // repeatable.
 #include "rules.cuh"
@@ -43,28 +45,23 @@ namespace te {
 // EpiGeluGrad
 struct EpiRuleNumGelu {
   float* out; const float* fc1_pre; const float* b1; int N;
-  __device__ void operator()(int r, int c, float a, float b) const {
-    const size_t o = (size_t)r * N + c;
-    const float h = fc1_pre[o] + b1[c];
-    const float hg = gelu(h);
-    out[o] = 0.5f * (hg * a + fabsf(hg) * b);
+  struct In { float pre, b1; };
+  __device__ In load(int r, int c) const {
+    return {fc1_pre[(size_t)r * N + c], b1[c]};
   }
-};
-
-// both products of a dual GEMM, stored apart (A·W and A·|W|)
-struct EpiStore2 {
-  float* C; float* Cabs; int N;
-  __device__ void operator()(int r, int c, float a, float b) const {
-    const size_t o = (size_t)r * N + c;
-    C[o] = a;
-    Cabs[o] = b;
+  __device__ void operator()(int r, int c, float a, float b,
+                             const In& in) const {
+    const float h = in.pre + in.b1;
+    const float hg = gelu(h);
+    out[(size_t)r * N + c] = 0.5f * (hg * a + fabsf(hg) * b);
   }
 };
 
 int mlp_rev_tp1(const float* x_mid, const float* g_out, const float* ln2s,
                 const float* ln2b, const float* b1, const uint16_t* w1_hi,
                 const uint16_t* w1_lo, const uint16_t* w2_hi,
-                const uint16_t* w2_lo, float* fc1_pre, float* fc2_pre,
+                const uint16_t* w2_lo, const uint16_t* w2_ahi,
+                const uint16_t* w2_alo, float* fc1_pre, float* fc2_pre,
                 float* axw2, float* gxn2, char* work, size_t* work_bytes,
                 int rows, int D, int Ml, float eps, int mlp, int rule,
                 cudaStream_t stream) {
@@ -87,7 +84,7 @@ int mlp_rev_tp1(const float* x_mid, const float* g_out, const float* ln2s,
       mlp, GemmArgs{hg, w2_hi, w2_lo, Ml, Ml, rows, D, Ml},
       EpiStore{fc2_pre, D}, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{hg, w2_hi, w2_lo, Ml, Ml, rows, D, Ml},
+      rule, GemmArgs{hg, w2_ahi, w2_alo, Ml, Ml, rows, D, Ml},
       EpiStore{axw2, D}, stream));
   TE_TRY(gemm<false, false, false>(
       mlp, GemmArgs{g_h1, w1_hi, w1_lo, Ml, D, rows, D, Ml},
@@ -98,7 +95,9 @@ int mlp_rev_tp1(const float* x_mid, const float* g_out, const float* ln2s,
 int mlp_rev_tp2(const float* x_mid, const float* Sr, const float* fc1_pre,
                 const float* ln2s, const float* ln2b, const float* b1,
                 const uint16_t* w1_hi, const uint16_t* w1_lo,
-                const uint16_t* w2_hi, const uint16_t* w2_lo, float* num_w,
+                const uint16_t* w2_hi, const uint16_t* w2_lo,
+                const uint16_t* w1_ahi, const uint16_t* w1_alo,
+                const uint16_t* w2_ahi, const uint16_t* w2_alo, float* num_w,
                 float* num_a, char* work, size_t* work_bytes, int rows, int D,
                 int Ml, float eps, int rule, cudaStream_t stream) {
   Carve ws{work};
@@ -111,13 +110,13 @@ int mlp_rev_tp2(const float* x_mid, const float* Sr, const float* fc1_pre,
   }
   TE_TRY(ln_fwd(x_mid, ln2s, ln2b, xn2, rows, D, eps, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{Sr, w2_hi, w2_lo, D, Ml, rows, Ml, D},
+      rule, GemmArgs{Sr, w2_hi, w2_lo, D, Ml, rows, Ml, D, w2_ahi, w2_alo},
       EpiRuleNumGelu{R2, fc1_pre, b1, Ml}, stream));
   TE_TRY(gemm<true, true, false>(
-      rule, GemmArgs{xn2, w1_hi, w1_lo, D, D, rows, Ml, D},
+      rule, GemmArgs{xn2, w1_ahi, w1_alo, D, D, rows, Ml, D},
       EpiRuleDen{S1, R2, fc1_pre, Ml}, stream));
   TE_TRY(gemm<false, false, true>(
-      rule, GemmArgs{S1, w1_hi, w1_lo, Ml, D, rows, D, Ml},
+      rule, GemmArgs{S1, w1_hi, w1_lo, Ml, D, rows, D, Ml, w1_ahi, w1_alo},
       EpiStore2{num_w, num_a, D}, stream));
   return 0;
 }
@@ -129,12 +128,12 @@ int mlp_rev_tp2(const float* x_mid, const float* Sr, const float* fc1_pre,
 // sizes (null: only write its size to *work_bytes). Modes: mlp (the
 // forward, backward and fc2 products) and rule (the rule products) 0 = bf16,
 // 1 = bf16×3.
-// phase 1 pointers: x_mid, g_out, ln2s, ln2b, b1, the (hi, lo) planes of W1
-// and W2; outputs fc1_pre, fc2_pre, axw2, g_xn2.
+// phase 1 pointers: x_mid, g_out, ln2s, ln2b, b1, the (hi, lo) planes of W1,
+// W2 and |W2|; outputs fc1_pre, fc2_pre, axw2, g_xn2.
 extern "C" int te_mlp_rev_tp1_f32(
     const void* x_mid, const void* g_out, const void* ln2s, const void* ln2b,
     const void* b1, const void* w1_hi, const void* w1_lo, const void* w2_hi,
-    const void* w2_lo, void* fc1_pre, void* fc2_pre, void* axw2, void* gxn2,
+    const void* w2_lo, const void* w2_ahi, const void* w2_alo, void* fc1_pre, void* fc2_pre, void* axw2, void* gxn2,
     void* work, void* work_bytes, int rows, int D, int Ml, double eps,
     int mlp, int rule, void* stream) {
   using F = const float*;
@@ -143,6 +142,7 @@ extern "C" int te_mlp_rev_tp1_f32(
       static_cast<F>(x_mid), static_cast<F>(g_out), static_cast<F>(ln2s),
       static_cast<F>(ln2b), static_cast<F>(b1), static_cast<W>(w1_hi),
       static_cast<W>(w1_lo), static_cast<W>(w2_hi), static_cast<W>(w2_lo),
+      static_cast<W>(w2_ahi), static_cast<W>(w2_alo),
       static_cast<float*>(fc1_pre), static_cast<float*>(fc2_pre),
       static_cast<float*>(axw2), static_cast<float*>(gxn2),
       static_cast<char*>(work), static_cast<size_t*>(work_bytes), rows, D,
@@ -150,12 +150,14 @@ extern "C" int te_mlp_rev_tp1_f32(
 }
 
 // phase 2 pointers: x_mid, Sr, fc1_pre (phase 1's anchor), ln2s, ln2b, b1,
-// the (hi, lo) planes of W1 and W2; outputs num_w, num_a.
+// the (hi, lo) planes of W1 and W2 and of |W1| and |W2|; outputs num_w,
+// num_a.
 extern "C" int te_mlp_rev_tp2_f32(
     const void* x_mid, const void* Sr, const void* fc1_pre, const void* ln2s,
     const void* ln2b, const void* b1, const void* w1_hi, const void* w1_lo,
-    const void* w2_hi, const void* w2_lo, void* num_w, void* num_a,
-    void* work, void* work_bytes, int rows, int D, int Ml, double eps,
+    const void* w2_hi, const void* w2_lo, const void* w1_ahi,
+    const void* w1_alo, const void* w2_ahi, const void* w2_alo, void* num_w,
+    void* num_a, void* work, void* work_bytes, int rows, int D, int Ml, double eps,
     int rule, void* stream) {
   using F = const float*;
   using W = const uint16_t*;
@@ -163,8 +165,10 @@ extern "C" int te_mlp_rev_tp2_f32(
       static_cast<F>(x_mid), static_cast<F>(Sr), static_cast<F>(fc1_pre),
       static_cast<F>(ln2s), static_cast<F>(ln2b), static_cast<F>(b1),
       static_cast<W>(w1_hi), static_cast<W>(w1_lo), static_cast<W>(w2_hi),
-      static_cast<W>(w2_lo), static_cast<float*>(num_w),
-      static_cast<float*>(num_a), static_cast<char*>(work),
+      static_cast<W>(w2_lo), static_cast<W>(w1_ahi), static_cast<W>(w1_alo),
+      static_cast<W>(w2_ahi), static_cast<W>(w2_alo),
+      static_cast<float*>(num_w), static_cast<float*>(num_a),
+      static_cast<char*>(work),
       static_cast<size_t*>(work_bytes), rows, D, Ml, (float)eps, rule,
       static_cast<cudaStream_t>(stream));
 }

@@ -8,28 +8,48 @@
 
 namespace te {
 
+// (the epilogues' two calls: gemm.cuh, before EpiQkv)
 struct EpiStore {
   float* C; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
+  struct In {};
+  __device__ In load(int, int) const { return {}; }
+  __device__ void operator()(int r, int c, float a, float, const In&) const {
     C[(size_t)r * N + c] = a;
+  }
+};
+
+// both products of a dual GEMM, stored apart (A·W and A·|W|)
+struct EpiStore2 {
+  float* C; float* Cabs; int N;
+  struct In {};
+  __device__ In load(int, int) const { return {}; }
+  __device__ void operator()(int r, int c, float a, float b, const In&) const {
+    const size_t o = (size_t)r * N + c;
+    C[o] = a;
+    Cabs[o] = b;
   }
 };
 
 // out = base + A·B (a backward product joining its residual branch)
 struct EpiAdd {
   float* out; const float* base; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
-    const size_t o = (size_t)r * N + c;
-    out[o] = base[o] + a;
+  struct In { float base; };
+  __device__ In load(int r, int c) const { return {base[(size_t)r * N + c]}; }
+  __device__ void operator()(int r, int c, float a, float, const In& in) const {
+    out[(size_t)r * N + c] = in.base + a;
   }
 };
 
 // g_h1 = (g_out·W2) ⊙ gelu′(h1), and hg = gelu(h1), h1 = fc1_pre + b1
 struct EpiGeluGrad {
   float* g_h1; float* hg; const float* fc1_pre; const float* b1; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
+  struct In { float pre, b1; };
+  __device__ In load(int r, int c) const {
+    return {fc1_pre[(size_t)r * N + c], b1[c]};
+  }
+  __device__ void operator()(int r, int c, float a, float, const In& in) const {
     const size_t o = (size_t)r * N + c;
-    const float h = fc1_pre[o] + b1[c];
+    const float h = in.pre + in.b1;
     g_h1[o] = a * gelu_grad(h);
     hg[o] = gelu(h);
   }
@@ -38,19 +58,25 @@ struct EpiGeluGrad {
 // the rule's S = safe_divide(R, (y_pre + |x|·|W|ᵀ) / 2)
 struct EpiRuleDen {
   float* S; const float* R; const float* y_pre; int N;
-  __device__ void operator()(int r, int c, float a, float) const {
+  struct In { float R, y_pre; };
+  __device__ In load(int r, int c) const {
     const size_t o = (size_t)r * N + c;
-    S[o] = safe_divide(R[o], 0.5f * (y_pre[o] + a));
+    return {R[o], y_pre[o]};
+  }
+  __device__ void operator()(int r, int c, float a, float, const In& in) const {
+    S[(size_t)r * N + c] = safe_divide(in.R, 0.5f * (in.y_pre + a));
   }
 };
 
 // the rule's relevance (x ⊙ S·W + |x| ⊙ S·|W|) / 2
 struct EpiRuleNum {
   float* out; const float* x; int N;
-  __device__ void operator()(int r, int c, float a, float b) const {
-    const size_t o = (size_t)r * N + c;
-    const float xv = x[o];
-    out[o] = 0.5f * (xv * a + fabsf(xv) * b);
+  struct In { float x; };
+  __device__ In load(int r, int c) const { return {x[(size_t)r * N + c]}; }
+  __device__ void operator()(int r, int c, float a, float b,
+                             const In& in) const {
+    const float xv = in.x;
+    out[(size_t)r * N + c] = 0.5f * (xv * a + fabsf(xv) * b);
   }
 };
 
@@ -58,11 +84,16 @@ struct EpiRuleNum {
 // xc ⊙ safe_divide(R_other + rule, xc)
 struct EpiRuleClone {
   float* out; const float* x; const float* R_other; const float* xc; int N;
-  __device__ void operator()(int r, int c, float a, float b) const {
+  struct In { float x, R_other, xc; };
+  __device__ In load(int r, int c) const {
     const size_t o = (size_t)r * N + c;
-    const float xv = x[o];
+    return {x[o], R_other[o], xc[o]};
+  }
+  __device__ void operator()(int r, int c, float a, float b,
+                             const In& in) const {
+    const float xv = in.x;
     const float rule = 0.5f * (xv * a + fabsf(xv) * b);
-    out[o] = xc[o] * safe_divide(R_other[o] + rule, xc[o]);
+    out[(size_t)r * N + c] = in.xc * safe_divide(in.R_other + rule, in.xc);
   }
 };
 

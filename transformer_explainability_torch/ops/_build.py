@@ -118,20 +118,22 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         roll.restype = I
     lib.te_block_fwd_f32.argtypes = [P] * 28 + [I] * 5 + [F, I, I, I, P]
     lib.te_block_fwd_f32.restype = I
-    lib.te_block_rev_f32.argtypes = [P] * 32 + [I] * 5 + [F] + [I] * 5 + [P]
+    lib.te_block_rev_f32.argtypes = [P] * 40 + [I] * 5 + [F] + [I] * 5 + [P]
     lib.te_block_rev_f32.restype = I
     lib.te_bert_fwd_f32.argtypes = [P] * 25 + [I] * 5 + [F] + [I] * 3 + [P]
     lib.te_bert_fwd_f32.restype = I
-    lib.te_bert_out_rev_f32.argtypes = [P] * 23 + [I] * 4 + [F] + [I] * 2 + [P]
+    lib.te_bert_out_rev_f32.argtypes = [P] * 31 + [I] * 4 + [F] + [I] * 2 + [P]
     lib.te_bert_out_rev_f32.restype = I
-    lib.te_bert_attn_rev_f32.argtypes = [P] * 28 + [I] * 4 + [F] + [I] * 4 + [P]
+    lib.te_bert_attn_rev_f32.argtypes = [P] * 36 + [I] * 4 + [F] + [I] * 4 + [P]
     lib.te_bert_attn_rev_f32.restype = I
-    lib.te_mlp_rev_tp1_f32.argtypes = [P] * 15 + [I] * 3 + [F, I, I, P]
+    lib.te_mlp_rev_tp1_f32.argtypes = [P] * 17 + [I] * 3 + [F, I, I, P]
     lib.te_mlp_rev_tp1_f32.restype = I
-    lib.te_mlp_rev_tp2_f32.argtypes = [P] * 14 + [I] * 3 + [F, I, P]
+    lib.te_mlp_rev_tp2_f32.argtypes = [P] * 18 + [I] * 3 + [F, I, P]
     lib.te_mlp_rev_tp2_f32.restype = I
-    lib.te_mlp_rev_f32.argtypes = [P] * 15 + [I] * 4 + [F, I, I, P]
+    lib.te_mlp_rev_f32.argtypes = [P] * 19 + [I] * 4 + [F, I, I, P]
     lib.te_mlp_rev_f32.restype = I
+    lib.te_gemm_f32.argtypes = [P] * 7 + [I] * 10 + [P]
+    lib.te_gemm_f32.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,6 +30,9 @@ phases (plain versions in :mod:`.tp_math`, same GEMM core). The ViT split
 path (``block_kernel=False`` at the ``bfloat16`` base) runs the attention
 kernels in bf16 modes with ``mlp_rev_core`` for the MLP half of the reverse
 (plain version :func:`.block_math.mlp_rev_math`, same GEMM core).
+``gemm_core`` runs that core alone (``csrc/gemm.cu``, a store epilogue),
+beside its plain version :func:`gemm_core_plain`, for its checks and
+timings; no path calls it.
 
 Each wrapper checks device, dtype (float32 or float64; the block kernels
 take float32 on the card), shape and contiguity, and raises on anything its kernel does not take. For a CPU
@@ -57,7 +60,8 @@ from transformer_explainability_torch.ops.bert_math import (
 from transformer_explainability_torch.ops.block_math import (
     BlockParams, attn_rev_math, block_fwd_core_plain, block_rev_core_plain,
     merge_heads, mlp_rev_math, split_heads)
-from transformer_explainability_torch.ops.precision import kdot
+from transformer_explainability_torch.ops.precision import (
+    PreparedWeight, kabs, kdot, transpose)
 from transformer_explainability_torch.ops.tp_math import (
     mlp_rev_tp_phase1_plain, mlp_rev_tp_phase2_plain)
 
@@ -256,7 +260,15 @@ def _check_block_params(name: str, p, like: Tensor, D: int, M: int) -> None:
 def _weight_ptrs(p):
     ptrs = []
     for w in p[8:]:
-        ptrs += [w[0].data_ptr(), w[1].data_ptr() if len(w) > 1 else None]
+        ptrs += _planes(w)
+    return ptrs
+
+
+def _abs_ptrs(name: str, p):
+    """The |W| planes of the four prepared weights, as ``_weight_ptrs``."""
+    ptrs = []
+    for w in p[8:]:
+        ptrs += _abs_planes(name, w)
     return ptrs
 
 
@@ -313,8 +325,9 @@ def _launch_block_rev(lib, x_in: Tensor, x_mid: Tensor, out_m: Tensor,
     work = _workspace(fn, dims, x_in.device)
     _raise_on_error("block_rev_core", lib, fn(
         *[t.data_ptr() for t in (x_in, x_mid, out_m, g_out, R, *saved)],
-        *_vec_ptrs(p), *_weight_ptrs(p), g_in.data_ptr(), R_in.data_ptr(),
-        gc.data_ptr(), work.data_ptr(), None, *dims, stream))
+        *_vec_ptrs(p), *_weight_ptrs(p), *_abs_ptrs("block_rev_core", p),
+        g_in.data_ptr(), R_in.data_ptr(), gc.data_ptr(), work.data_ptr(),
+        None, *dims, stream))
     return g_in, R_in, gc
 
 
@@ -350,8 +363,9 @@ def _launch_bert_out_rev(lib, att_ln: Tensor, g_out: Tensor, R: Tensor,
     work = _workspace(fn, dims, att_ln.device)
     _raise_on_error("bert_out_rev_core", lib, fn(
         att_ln.data_ptr(), g_out.data_ptr(), R.data_ptr(), *_vec_ptrs(p),
-        *_weight_ptrs(p), g_attln.data_ptr(), R_att.data_ptr(),
-        work.data_ptr(), None, *dims, stream))
+        *_weight_ptrs(p), *_abs_ptrs("bert_out_rev_core", p),
+        g_attln.data_ptr(), R_att.data_ptr(), work.data_ptr(), None, *dims,
+        stream))
     return g_attln, R_att
 
 
@@ -368,14 +382,25 @@ def _launch_bert_attn_rev(lib, x_in: Tensor, g_attln: Tensor, R_att: Tensor,
     work = _workspace(fn, dims, x_in.device)
     _raise_on_error("bert_attn_rev_core", lib, fn(
         *[t.data_ptr() for t in (x_in, g_attln, R_att, mask, *saved)],
-        *_vec_ptrs(p), *_weight_ptrs(p), g_in.data_ptr(), R_in.data_ptr(),
-        gc.data_ptr(), work.data_ptr(), None, *dims, stream))
+        *_vec_ptrs(p), *_weight_ptrs(p), *_abs_ptrs("bert_attn_rev_core", p),
+        g_in.data_ptr(), R_in.data_ptr(), gc.data_ptr(), work.data_ptr(),
+        None, *dims, stream))
     return g_in, R_in, gc
 
 
 def _planes(w):
-    """A shard weight's (hi, lo) pointers (lo null for a one-pass split)."""
+    """A prepared weight's (hi, lo) pointers (lo null for a one-pass
+    split)."""
     return [w[0].data_ptr(), w[1].data_ptr() if len(w) > 1 else None]
+
+
+def _abs_planes(name: str, w):
+    """The (hi, lo) pointers of a prepared weight's |W| planes
+    (:class:`..precision.PreparedWeight`), which the rule products read."""
+    if not isinstance(w, PreparedWeight):
+        raise ValueError(f"{name}: the kernel takes weights prepared by "
+                         "precision.prepare_weight (with their |W| planes)")
+    return _planes(w.abs)
 
 
 def _launch_mlp_rev_tp1(lib, x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
@@ -390,7 +415,8 @@ def _launch_mlp_rev_tp1(lib, x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
     work = _workspace(fn, dims, x_mid.device)
     _raise_on_error("mlp_rev_tp_phase1", lib, fn(
         *[t.data_ptr() for t in (x_mid, g_out, ln2s, ln2b, b1)],
-        *_planes(w1), *_planes(w2), fc1_pre.data_ptr(),
+        *_planes(w1), *_planes(w2), *_abs_planes("mlp_rev_tp_phase1", w2),
+        fc1_pre.data_ptr(),
         *[t.data_ptr() for t in parts], work.data_ptr(), None, *dims,
         stream))
     return (fc1_pre, *parts)
@@ -406,8 +432,9 @@ def _launch_mlp_rev_tp2(lib, x_mid: Tensor, Sr: Tensor, fc1_pre: Tensor,
     work = _workspace(fn, dims, x_mid.device)
     _raise_on_error("mlp_rev_tp_phase2", lib, fn(
         *[t.data_ptr() for t in (x_mid, Sr, fc1_pre, ln2s, ln2b, b1)],
-        *_planes(w1), *_planes(w2), num_w.data_ptr(), num_a.data_ptr(),
-        work.data_ptr(), None, *dims, stream))
+        *_planes(w1), *_planes(w2), *_abs_planes("mlp_rev_tp_phase2", w1),
+        *_abs_planes("mlp_rev_tp_phase2", w2), num_w.data_ptr(),
+        num_a.data_ptr(), work.data_ptr(), None, *dims, stream))
     return num_w, num_a
 
 
@@ -420,9 +447,25 @@ def _launch_mlp_rev(lib, x_mid: Tensor, g_out: Tensor, R: Tensor,
     work = _workspace(fn, dims, x_mid.device)
     _raise_on_error("mlp_rev_core", lib, fn(
         *[t.data_ptr() for t in (x_mid, g_out, R, p.ln2s, p.ln2b, p.b1, p.b2)],
-        *_planes(p.w1), *_planes(p.w2), g_mid.data_ptr(), Rm.data_ptr(),
+        *_planes(p.w1), *_planes(p.w2), *_abs_planes("mlp_rev_core", p.w1),
+        *_abs_planes("mlp_rev_core", p.w2), g_mid.data_ptr(), Rm.data_ptr(),
         work.data_ptr(), None, *dims, stream))
     return g_mid, Rm
+
+
+def _launch_gemm(lib, a: Tensor, w, flag: int, wt: bool, absolute: bool,
+                 dual: bool, tile: int, stream):
+    M, K = a.shape
+    N = w[0].shape[0] if wt else w[0].shape[1]
+    C = torch.empty(M, N, dtype=a.dtype, device=a.device)
+    C_abs = torch.empty_like(C) if dual else None
+    _raise_on_error("gemm_core", lib, lib.te_gemm_f32(
+        a.data_ptr(), *_planes(w.abs if absolute else w),
+        *_abs_planes("gemm_core", w), C.data_ptr(),
+        None if C_abs is None else C_abs.data_ptr(), M, N, K, K,
+        w[0].shape[1], flag, int(wt), int(absolute), int(dual), tile,
+        stream))
+    return (C, C_abs) if dual else C
 
 
 def _check_tp_weights(name: str, weights, like: Tensor, Ml: int) -> None:
@@ -834,6 +877,49 @@ def mlp_rev_core(x_mid: Tensor, g_out: Tensor, R: Tensor, p: BlockParams,
     return outs
 
 
+def gemm_core_plain(a: Tensor, w, mxu: str, wt: bool = True,
+                    absolute: bool = False, dual: bool = False):
+    """What the GEMM core computes (``csrc/gemm.cuh``; JAX ``_kdot`` of an
+    activation and a prepared weight): ``a (M, K)`` times ``wᵀ`` (``wt``,
+    ``w`` an ``(N, K)`` split) or ``w`` (``(K, N)``) in product mode
+    ``mxu``; ``absolute``: ``|a|`` times the same of ``|w|``; ``dual``:
+    ``(a·w, a·|w|)``. ``w`` is a :class:`..precision.PreparedWeight`."""
+    def op(planes):
+        return transpose(planes) if wt else planes
+
+    if absolute:
+        return kdot(a.abs(), op(kabs(w)), mxu)
+    out = kdot(a, op(tuple(w)), mxu)
+    return (out, kdot(a, op(kabs(w)), mxu)) if dual else out
+
+
+def gemm_core(a: Tensor, w, mxu: str, wt: bool = True,
+              absolute: bool = False, dual: bool = False, tile: int = -1):
+    """The GEMM core alone (``csrc/gemm.cu``, a store epilogue), as
+    :func:`gemm_core_plain`: the entry that holds the core to its plain
+    version at the layer kernels' shapes, in the instances they launch
+    (``(wt, absolute, dual)`` = (1, 0, 0), (0, 0, 0), (1, 1, 0), (0, 0, 1))
+    and both modes. ``a`` float32 on the card; ``tile`` -1 takes the tile
+    the layer kernels take for this shape, 0 the large, 1 the small one.
+    Not on any path: its launches are counted apart from the kernels'."""
+    name = "gemm_core"
+    if a.ndim != 2 or not isinstance(w, PreparedWeight) or w[0].ndim != 2:
+        raise ValueError(f"{name}: a (M, K) and a prepared weight")
+    M, K = a.shape
+    if (w[0].shape[1] if wt else w[0].shape[0]) != K:
+        raise ValueError(f"{name}: weight {tuple(w[0].shape)} does not "
+                         f"match a {tuple(a.shape)} (wt={wt})")
+    device = _check(name, [a], [(M, K)])
+    if device == "cpu":
+        return gemm_core_plain(a, w, mxu, wt, absolute, dual)
+    flag = _tp_modes(name, a, (w,), mxu=mxu)["mxu"]
+    with torch.cuda.device(a.device):
+        outs = _launch_gemm(_lib(), a, w, flag, wt, absolute, dual, tile,
+                            _stream(a))
+    gemm_core.launches += 1
+    return outs
+
+
 attn_fwd_core.launches = 0
 attn_rev_core.launches = 0
 rollout_from_grad_cam.launches = 0
@@ -845,6 +931,7 @@ bert_attn_rev_core.launches = 0
 mlp_rev_tp_phase1.launches = 0
 mlp_rev_tp_phase2.launches = 0
 mlp_rev_core.launches = 0
+gemm_core.launches = 0
 
 WRAPPERS = (attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
             block_fwd_core, block_rev_core, bert_layer_fwd_core,

@@ -16,7 +16,9 @@ names its counterpart). A product runs in one of three modes:
 Weights enter the kernels prepared once (:func:`prepare_weight`): a bf16
 ``(hi,)`` for ``"bfloat16"`` or a ``(hi, lo)`` pair for
 ``"tensorfloat32"``, in the ``nn.Linear`` layout ``(out, in)``, so the
-kernels read bf16 operands at half the bytes of float32.
+kernels read bf16 operands at half the bytes of float32; beside them the
+planes of ``|w|`` (:func:`kabs` of the split), which the rule products
+read (:class:`PreparedWeight`).
 
 float64 activations are cast to float32 before any bf16 rounding, as
 ``_kdot`` casts them; torch's float64 → bf16 conversion rounds through
@@ -68,7 +70,10 @@ def split_hi_lo(x: Tensor) -> Tuple[Tensor, Tensor]:
 
 def kabs(w: Weight) -> Weight:
     """abs that understands bf16 splits: ``|hi + lo|`` as
-    ``(|hi|, sign(hi)·lo)`` (JAX ``_kabs``)."""
+    ``(|hi|, sign(hi)·lo)`` (JAX ``_kabs``); a :class:`PreparedWeight`
+    returns the planes it made once."""
+    if isinstance(w, PreparedWeight):
+        return w.abs
     if isinstance(w, tuple):
         neg = w[0].to(torch.float32) < 0
         return (w[0].abs(),) + tuple(torch.where(neg, -t, t) for t in w[1:])
@@ -81,14 +86,31 @@ def transpose(w: Weight) -> Weight:
     return w.transpose(-1, -2)
 
 
-def prepare_weight(w: Tensor, mode: str) -> Tuple[Tensor, ...]:
+class PreparedWeight(tuple):
+    """A weight's bf16 split, ``(hi,)`` or ``(hi, lo)`` (a tuple, as
+    :func:`kdot` takes it), with the split of ``|w|``, ``kabs(planes)``,
+    made once beside it as ``.abs``: the GEMM core's tensor-core products
+    read their B operand from shared memory, so the rule products'
+    ``|W|`` operands come prepared rather than formed on the fly."""
+
+    abs: Tuple[Tensor, ...]
+
+    def __new__(cls, planes):
+        self = super().__new__(cls, tuple(planes))
+        self.abs = tuple(t.contiguous() for t in kabs(tuple(self)))
+        return self
+
+
+def prepare_weight(w: Tensor, mode: str) -> PreparedWeight:
     """One weight prepared for the block kernels (JAX ``_flatten_weights``
     per matrix): ``(bf16(w),)`` for ``"bfloat16"``, ``split_hi_lo(w)`` for
-    ``"tensorfloat32"``; contiguous, in ``w``'s layout."""
+    ``"tensorfloat32"``; contiguous, in ``w``'s layout; with its abs planes
+    (:class:`PreparedWeight`)."""
     if mode == "bfloat16":
-        return (w.to(torch.float32).to(torch.bfloat16).contiguous(),)
+        return PreparedWeight(
+            (w.to(torch.float32).to(torch.bfloat16).contiguous(),))
     if mode == "tensorfloat32":
-        return tuple(t.contiguous() for t in split_hi_lo(w))
+        return PreparedWeight(t.contiguous() for t in split_hi_lo(w))
     raise ValueError(f"block weights are prepared for 'bfloat16' or "
                      f"'tensorfloat32', not {mode!r}")
 
@@ -125,4 +147,5 @@ def kdot(a: Tensor, b: Weight, mode: str) -> Tensor:
 
 
 __all__ = ["MODES", "mxu_name", "islands_exceed_base", "bf16_head",
-           "split_hi_lo", "kabs", "transpose", "prepare_weight", "kdot"]
+           "split_hi_lo", "kabs", "transpose", "PreparedWeight",
+           "prepare_weight", "kdot"]
