@@ -22,7 +22,11 @@ result line):
      and B6's eight product shapes and the ViT and BERT qkv and proj
      shapes, against precision.kdot on the same split operands in float64
      (elementwise within 1e-4 of |A|·|W|); phase 2 has shown its
-     instances' registers, that none spills, and ptxas's remarks on wgmma;
+     instances' registers, that none spills, and ptxas's remarks on wgmma,
+     and that no instance of B5's row pass, of the column pass or of B4's
+     tile as B2 instantiates it spills; B4 and B5 in the TP modes also at
+     n = 29 and n = 261, and B5's probabilities bitwise B2's probs anchor
+     from B2's own qkv;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -51,7 +55,10 @@ result line):
      slice is printed);
   5. times: each kernel beside its plain version and its bound, B4 beside
      ``scaled_dot_product_attention`` (and the CUDA kernel that call ran,
-     from the profiler) and in the split path's bf16 mode, B7 and B9 at
+     from the profiler) and in the split path's bf16 mode, B5 in exact
+     FP32 and in the TP production and split path modes (its launches
+     from the profiler) and B2's attention-core launch, each beside its
+     bound, B7 and B9 at
      S=512 and S=128, B7's attention-core launch (profiler) beside
      ``scaled_dot_product_attention`` with the additive mask on the same
      q, k, v at S=512, the GEMM core alone at the shapes checked in
@@ -71,6 +78,7 @@ kernel, plain, bound and library times).
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -189,12 +197,15 @@ def main() -> int:
     if log.exists():
         # registers and spills per kernel (-Xptxas -v): a summary line, a
         # line for each kernel that spills and for each instance of the
-        # redesigned kernels (B4, B7's attention core, B9's and B3's row
-        # passes, the column pass); the GEMM core's instances (wgmma) in a
+        # redesigned kernels (B4's tile, also as B2 instantiates it, B7's
+        # attention core, B5's, B9's and B3's row passes, the column pass
+        # B3, B5 and B9 share); the GEMM core's instances (wgmma) in a
         # summary of their own, with every ptxas remark on wgmma (a
-        # serialised wgmma pipeline is named there), and none may spill
+        # serialised wgmma pipeline is named there). No GEMM-core instance
+        # may spill, and no instance of B5's row pass, of the column pass
+        # or of B4's tile as B2 instantiates it
         entry, spill, regs, core_regs, core_spills = None, "", [], [], []
-        remarks = []
+        remarks, redesign_spills = [], []
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
@@ -209,10 +220,18 @@ def main() -> int:
                     core_regs.append(regs[-1])
                     if not clean:
                         core_spills.append(entry)
-                if not clean or any(k in entry for k in (
+                # B2's instances of B4's tile (the anchors: the last
+                # template argument true), B5's row pass, the column pass
+                redesigned = bool(re.search(
+                    r"attn_fwd_kernelI[fd]Lb[01]ELi\d+ELb1E", entry)) or (
+                    "blk_attn_rev_cols_kernel" in entry) or (
+                    "attn_rev_rows_kernel" in entry
+                    and "blk_attn" not in entry and "bert_attn" not in entry)
+                if redesigned and not clean:
+                    redesign_spills.append(entry)
+                if not clean or redesigned or any(k in entry for k in (
                         "attn_fwd_kernel", "bert_attn_rev_rows_kernel",
-                        "blk_attn_rev_rows_kernel",
-                        "blk_attn_rev_cols_kernel")):
+                        "blk_attn_rev_rows_kernel")):
                     print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
                           f"{spill}")
                 entry = None
@@ -224,6 +243,9 @@ def main() -> int:
         print(f"  ptxas: {len(remarks)} remarks on wgmma"
               + "".join(f"\n    {r[:300]}" for r in remarks[:4]))
         require(not core_spills, f"GEMM-core instances spill: {core_spills}")
+        require(not redesign_spills,
+                f"B2's attention core, B5's row or column pass spill: "
+                f"{redesign_spills}")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 3. kernels against their plain versions --------------------------------
@@ -512,8 +534,12 @@ def main() -> int:
     tp_attn = {"production": ("float32", "bfloat16"),
                "bfloat16": ("bfloat16", "bfloat16")}
     for preset, (attn, rule) in tp_attn.items():
+        # also at the ragged shape and above 256 keys (B4's and B5's
+        # softmax over shared memory, B5's smaller query tiles)
         for sname, shp in (("h=12", (B, n, h, hd)),
-                           ("h=6", (B, n, h // 2, hd))):
+                           ("h=6", (B, n, h // 2, hd)),
+                           ("ragged", shapes["ragged"]),
+                           ("n=261", (2, 261, 3, hd))):
             label = f"{preset} {sname} {tuple(shp)}"
             make, kern, plain = cases["attn_fwd_core"]
             check_f64_f32("attn_fwd_core", kern, plain,
@@ -522,6 +548,35 @@ def main() -> int:
             check_f64_f32("attn_rev_core", kern, plain,
                           make(*shp, torch.float64), label, False,
                           attn_mxu=attn, rule_mxu=rule)
+    # B5 recomputes the probabilities by B4's tile, the function whose
+    # anchor instance saves B2's: from B2's own qkv (qkv_pre + bqkv, as its
+    # epilogue adds them) B5's P must be bitwise B2's probs (a direct call
+    # of B5's C entry, which keeps its scratch maps; not counted)
+    lib = _build.load_library()
+    for preset, (mxu, attn, rule, mlp) in block_modes.items():
+        _, p32, x, _, _ = block_case(B, n, h, hd, mxu)
+        fwd = K.block_fwd_core(x.float(), p32, h, hd, vit_eps, mxu, attn,
+                               mlp, save_attn=True)
+        qkv = fwd[3] + p32.bqkv
+        g_o, cam_o = (randn(B, n, h * hd, dtype=torch.float32)
+                      for _ in range(2))
+        outs = [torch.empty_like(qkv), torch.empty_like(qkv),
+                torch.empty(B, n, n, device=dev)]
+        maps = [torch.empty(B, h, n, n, device=dev) for _ in range(4)]
+        S1 = torch.empty(B, h, n, hd, device=dev)
+        code = lib.te_attn_rev_f32(
+            *[t.data_ptr() for t in (qkv, g_o, cam_o, *outs, *maps, S1)], B,
+            n, h, hd, hd ** -0.5, K._ATTN_BF16[attn], K._ATTN_BF16[rule],
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        require(code == 0, f"attn_rev_core C entry failed ({code})")
+        same = torch.equal(maps[0].view(torch.int32),
+                           fwd[6].view(B, h, n, n).view(torch.int32))
+        print(f"check B5's P vs B2's probs {preset} {(B, n, h, hd)}: "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        require(same, f"B5's probabilities are not bitwise B2's ({preset})")
+        del p32, x, fwd, qkv, g_o, cam_o, outs, maps, S1
+
     # (weight preparation, MLP mode, rule mode) of the presets
     tp_mlp = {"production": ("tensorfloat32", "bfloat16", "bfloat16"),
               "bfloat16": ("bfloat16", "bfloat16", "bfloat16")}
@@ -1134,8 +1189,38 @@ def main() -> int:
                                                      hd ** -0.5, "bfloat16")))
     print(f"time attn_fwd_core {tuple(shapes['main'])} f32 bf16 mode (split "
           f"path): kernel {b4_bf16[0]:.4f} ms, plain {b4_bf16[1]:.4f} ms {tag}")
+    # B5 at ViT-B/16 B=8, 12 heads, in exact FP32 and in the modes of the
+    # tensor-parallel production preset (float32 recompute and gradient
+    # products, bf16 rules) and of the split path (bf16 both); each with
+    # its launches' device time (profiler: the row pass, the column pass,
+    # the head mean); bounds below
+    b5_args = cases["attn_rev_core"][0](*shapes["main"], torch.float32)
+    b5_modes = {"exact FP32": ("float32", "float32"),
+                "TP production": ("float32", "bfloat16"),
+                "split path": ("bfloat16", "bfloat16")}
+    b5_times = {}
+    for label, (attn, rule) in b5_modes.items():
+        kw = dict(attn_mxu=attn, rule_mxu=rule)
+        b5_times[label] = (
+            time_ms(lambda: K.attn_rev_core(*b5_args, **kw)),
+            time_ms(lambda: K.attn_rev_core_plain(*b5_args, **kw)))
+        per = device_ms(lambda: K.attn_rev_core(*b5_args, **kw))[2]
+        print(f"time attn_rev_core {tuple(shapes['main'])} f32 {label} modes "
+              f"(attn {attn}, rule {rule}): kernel {b5_times[label][0]:.4f} "
+              f"ms, plain {b5_times[label][1]:.4f} ms; launches (profiler) "
+              + "; ".join(f"{nm[:48]} {ms:.4f}" for nm, ms in sorted(
+                  per.items(), key=lambda kv: -kv[1])) + f" {tag}")
+    # B2's attention core (B4's tile with the anchors) alone: its launch's
+    # device time in one block_fwd_core call, production modes (profiler)
+    b2_launches = device_ms(lambda: K.block_fwd_core(bi["x"], bi["p32"],
+                                                     *bi["fargs"]))[2]
+    b2_core = sum(ms for nm, ms in b2_launches.items()
+                  if "attn_fwd_kernel" in nm)
+    print(f"time B2 attention core {tuple(shapes['main'])} f32 production "
+          f"modes: launch {b2_core:.4f} ms of {sum(b2_launches.values()):.4f}"
+          f" ms of B2's launches (profiler) {tag}")
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
-    del b6_inputs, b6, b6_args
+    del b6_inputs, b6, b6_args, b5_args
     # the GEMM core alone at each checked shape: its launch's device time
     # (profiler: a call of the core alone is shorter than the host's work
     # around it) and rate in bf16 passes (bf16x3 three, a dual GEMM two
@@ -1408,6 +1493,19 @@ def main() -> int:
     for name in sources:
         print(f"bound {name}: {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
               f"kernel {times[name][0]:.4f} ms {tag}")
+    # B5's ten products by mode: the recompute and gradient products (six)
+    # at the attention mode's rate, the rule products (four) at the rule
+    # mode's; B2's attention core: B4's two products and its stores
+    for label, (attn, rule) in b5_modes.items():
+        ops = {"f32": 0, "bf16": 0}
+        ops["bf16" if attn == "bfloat16" else "f32"] += 12 * att
+        ops["bf16" if rule == "bfloat16" else "f32"] += 8 * att
+        bd = bound(work["attn_rev_core"][0], **ops)
+        print(f"bound attn_rev_core {label} modes: {bd[0]:.4f} ms ({bd[1]}); "
+              f"kernel {b5_times[label][0]:.4f} ms {tag}")
+    bd = bound(f4 * (4 * R * Dm + 2 * B * h * n * n), f32=4 * att)
+    print(f"bound B2 attention core (float32 products, dots and probs "
+          f"stored): {bd[0]:.4f} ms ({bd[1]}); launch {b2_core:.4f} ms {tag}")
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     slices = (launches, launches_prod, launches_split, launches_bf16,
               *method_launches, blaunches, blaunches_prod, *tp_launches)

@@ -5,9 +5,9 @@ on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
                                              [--precision float32|production|bfloat16]
                                              [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
-    python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b6] [--b7] [--b8]
-                                             [--b9] [--b10a] [--b10b] [--seq 512]
-                                             [--precision production]
+    python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b4] [--b5] [--b6]
+                                             [--b7] [--b8] [--b9] [--b10a] [--b10b]
+                                             [--seq 512] [--precision production]
 
 ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
@@ -20,11 +20,14 @@ and the MLP reverse kernel per block instead of the megakernels).
 ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
 single-rank NCCL process group instead of the single-device path.
 ``--b2`` … ``--b10b`` profile one call of a layer kernel alone (B2, B3, B6,
-B10a, B10b at ViT-B/16 B=8; B7, B8, B9 at BERT-base B=8 and length
-``--seq``; see ``layer_call``), each in the preset's modes, and print every
-launch the call makes (the attention passes, each GEMM-core instance, the
-LayerNorm, add-rule and other row kernels) with its device time per call,
-and the GEMM core's share.
+B10a, B10b and the attention kernels B4, B5 at ViT-B/16 B=8; B7, B8, B9 at
+BERT-base B=8 and length ``--seq``; see ``layer_call``), each in the
+preset's modes (B5 at ``float32``: exact FP32; ``production``: the
+tensor-parallel production preset's float32 gradient and bf16 rule
+products; ``bfloat16``: the split path's), and print every launch the call
+makes (the attention passes, B5's row pass, column pass and head mean,
+each GEMM-core instance, the LayerNorm, add-rule and other row kernels)
+with its device time per call, and the GEMM core's share.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -175,13 +178,16 @@ def bert_case(dev, S, prec):
                                ("plain", K.BERT_PLAIN_OPS))]
 
 
-LAYER_KERNELS = ("b2", "b3", "b6", "b7", "b8", "b9", "b10a", "b10b")
+LAYER_KERNELS = ("b2", "b3", "b4", "b5", "b6", "b7", "b8", "b9", "b10a",
+                 "b10b")
 
 
 def layer_call(which, dev, S, prec):
     """``(label, call)``: one call of the layer kernel ``which`` in the
     preset's modes, on random inputs from a seeded generator: at ViT-B/16,
-    B=8, B2 ``block_fwd_core``, B3 ``block_rev_core`` (from B2's anchors),
+    B=8, B4 ``attn_fwd_core`` and B5 ``attn_rev_core`` (q, k, v offset by
+    1, as ``chip_smoke.py`` draws them), B2 ``block_fwd_core``, B3
+    ``block_rev_core`` (from B2's anchors),
     B6 ``mlp_rev_core`` and the tensor-parallel MLP phases B10a / B10b at
     k = 1; at BERT-base, B=8, length S (the samples' masks cut at lengths
     S … S/8), B7 ``bert_layer_fwd_core``, B8 ``bert_out_rev_core`` and B9
@@ -207,9 +213,20 @@ def layer_call(which, dev, S, prec):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    vit = which in ("b2", "b3", "b6", "b10a", "b10b")
+    vit = which in ("b2", "b3", "b4", "b5", "b6", "b10a", "b10b")
     cfg = vcfg if vit else bcfg
     D, h, hd = cfg.num_heads * cfg.head_dim, cfg.num_heads, cfg.head_dim
+    if which in ("b4", "b5"):
+        n = vcfg.num_tokens
+        qkv, g_o, cam_o = randn(8, n, 3 * D) + 1.0, randn(8, n, D), randn(
+            8, n, D)
+        where = f"ViT-B/16 B=8 n={n} (modes attn {attn}, rule {rule})"
+        if which == "b4":
+            return (f"attn_fwd_core {where}",
+                    lambda: K.attn_fwd_core(qkv, h, hd, hd ** -0.5, attn))
+        return (f"attn_rev_core {where}",
+                lambda: K.attn_rev_core(qkv, g_o, cam_o, h, hd, hd ** -0.5,
+                                        attn, rule))
     inter = vcfg.mlp_dim if vit else bcfg.intermediate_size
     ws = [P.prepare_weight(randn(o, i).double() / i ** 0.5, mxu)
           for o, i in ((3 * D, D), (D, D), (inter, D), (D, inter))]

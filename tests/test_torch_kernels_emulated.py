@@ -8,8 +8,9 @@ kernel is held to its plain PyTorch version: float64 at rtol 1e-9 /
 atol 1e-12, float32 (forward only; the reverse's safe-divide chains make
 float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels, the
 BERT layer kernels and the tensor-parallel MLP kernels (float32 only), and
-the float32 attention kernels in their bf16 modes, are held to their plain
-versions in float64 by the rule of ``chip_smoke.py``: the kernel's distance to the
+the float32 attention kernels in their bf16 modes, and B5 in float32 in
+every mode, are held to their plain versions in float64 by the rule of
+``chip_smoke.py``: the kernel's distance to the
 float64 plain result is at most 10 × the plain float32 version's plus 1e-6
 of the output's magnitude. This checks the kernels' indexing, tiling,
 masking of ragged edges and padded attention masks, and reductions; timing,
@@ -71,18 +72,39 @@ def test_attn_fwd_kernel_matches_plain(lib, shape, dtype):
     torch.testing.assert_close(got, want, **tol)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_attn_rev_kernel_matches_plain(lib, shape):
+# B5's row pass across its tiles: n = 2·64 + 5 spans three 64-row query
+# tiles (the last ragged), two 128-key steps of the V sweep and nine 16-key
+# steps of the K sweep's tensor-core product, and three 64-key column tiles;
+# n = 256 + 5 takes the shared-memory softmax pass of B4's tile (above 256
+# keys), smaller query tiles (shared memory) and hd 8
+B5_SHAPES = SHAPES + [(1, 2 * 64 + 5, 2, 64), (1, 256 + 5, 1, 8)]
+
+
+def _check_attn_rev(lib, shape, attn, rule, seeds):
+    """float64 at rtol 1e-9, float32 by the rule below, from one set of
+    inputs."""
     b, n, h, d = shape
     # q, k, v offset from 0 so that the z-rule denominators (q·k, attn·v)
     # stay away from 0, where float64 summation order alone moves results
     # by more than 1e-9 (the comparison would measure conditioning)
-    qkv = _randn(1, b, n, 3 * h * d) + 1.0
-    g_o, cam_o = _randn(2, b, n, h * d), _randn(3, b, n, h * d)
-    got = K._launch_attn_rev(lib, qkv, g_o, cam_o, h, d, d ** -0.5, None)
-    want = K.attn_rev_core_plain(qkv, g_o, cam_o, h, d, d ** -0.5)
-    for g, w, name in zip(got, want, ["g_qkv", "cam_qkv", "gc"]):
+    qkv = _randn(seeds[0], b, n, 3 * h * d) + 1.0
+    g_o, cam_o = _randn(seeds[1], b, n, h * d), _randn(seeds[2], b, n, h * d)
+    flags = (K._ATTN_BF16[attn], K._ATTN_BF16[rule])
+    got = K._launch_attn_rev(lib, qkv, g_o, cam_o, h, d, d ** -0.5, None,
+                             *flags)
+    want = K.attn_rev_core_plain(qkv, g_o, cam_o, h, d, d ** -0.5, attn, rule)
+    args32 = tuple(t.float() for t in (qkv, g_o, cam_o))
+    got32 = K._launch_attn_rev(lib, *args32, h, d, d ** -0.5, None, *flags)
+    want32 = K.attn_rev_core_plain(*args32, h, d, d ** -0.5, attn, rule)
+    for g, g32, w, w32, name in zip(got, got32, want, want32,
+                                    ["g_qkv", "cam_qkv", "gc"]):
         torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12, msg=name)
+        _f32_rule(g32, w32, w, name)
+
+
+@pytest.mark.parametrize("shape", B5_SHAPES)
+def test_attn_rev_kernel_matches_plain(lib, shape):
+    _check_attn_rev(lib, shape, "float32", "float32", (1, 2, 3))
 
 
 @pytest.mark.parametrize("start_layer", [0, 1, 3])
@@ -146,8 +168,18 @@ def _f32_rule(k32, p32, p64, name):
     assert ek <= lim, f"{name}: kernel error {ek:.3e} above {lim:.3e}"
 
 
+# B3's attention reverse across its tiles: n = 2·64 + 5 spans five 32-row
+# query tiles of the row pass, three streamed 64-key tiles and three 64-key
+# column tiles, the last of each ragged, its (n, n) rows copied in 4-byte
+# pieces; n = 64 + 8 two of each (three query tiles) in 16-byte pieces, hd 8
+BLOCK_TILE_SHAPES = [(1, 2 * 64 + 5, 1, 64), (2, 64 + 8, 2, 8)]
 
-@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+
+# B2's attention core is B4's tile: also across its 64-row query tiles
+# (three at n = 2·64 + 5, two at 64 + 8), and at n = 256 + 5, above the keys
+# whose softmax stays in registers
+@pytest.mark.parametrize("shape", BLOCK_SHAPES + BLOCK_TILE_SHAPES
+                         + [(1, 256 + 5, 1, 8)])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_block_fwd_kernel_matches_plain(lib, shape, preset):
     b, n, h, hd = shape
@@ -195,13 +227,6 @@ def _check_block_rev(lib, shape, preset):
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_block_rev_kernel_matches_plain(lib, shape, preset):
     _check_block_rev(lib, shape, preset)
-
-
-# B3's attention reverse across its tiles: n = 2·64 + 5 spans five 32-row
-# query tiles of the row pass, three streamed 64-key tiles and three 64-key
-# column tiles, the last of each ragged, its (n, n) rows copied in 4-byte
-# pieces; n = 64 + 8 two of each (three query tiles) in 16-byte pieces, hd 8
-BLOCK_TILE_SHAPES = [(1, 2 * 64 + 5, 1, 64), (2, 64 + 8, 2, 8)]
 
 
 @pytest.mark.parametrize("shape", BLOCK_TILE_SHAPES)
@@ -417,24 +442,46 @@ def test_attn_fwd_kernel_tiles_match_plain(lib, shape, dtype, mode):
                                        atol=2 ** -8 * v_max)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("preset", sorted(ATTN_MODES))
+# B5's mode pairs beyond exact FP32: the presets' and the pair no preset
+# runs (bf16 gradient products, float32 rules), which rounds the operands
+# its products share as they are loaded
+B5_MODES = {**ATTN_MODES, "bf16-attn-f32-rule": ("bfloat16", "float32")}
+
+
+@pytest.mark.parametrize("shape", B5_SHAPES)
+@pytest.mark.parametrize("preset", sorted(B5_MODES))
 def test_attn_rev_kernel_modes_match_plain(lib, shape, preset):
-    b, n, h, d = shape
-    attn, rule = ATTN_MODES[preset]
-    qkv = _randn(41, b, n, 3 * h * d) + 1.0
-    g_o, cam_o = _randn(42, b, n, h * d), _randn(43, b, n, h * d)
-    flags = (K._ATTN_BF16[attn], K._ATTN_BF16[rule])
-    got = K._launch_attn_rev(lib, qkv, g_o, cam_o, h, d, d ** -0.5, None,
-                             *flags)
-    want = K.attn_rev_core_plain(qkv, g_o, cam_o, h, d, d ** -0.5, attn, rule)
-    args32 = tuple(t.float() for t in (qkv, g_o, cam_o))
-    got32 = K._launch_attn_rev(lib, *args32, h, d, d ** -0.5, None, *flags)
-    want32 = K.attn_rev_core_plain(*args32, h, d, d ** -0.5, attn, rule)
-    for g, g32, w, w32, name in zip(got, got32, want, want32,
-                                    ["g_qkv", "cam_qkv", "gc"]):
-        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12, msg=name)
-        _f32_rule(g32, w32, w, name)
+    _check_attn_rev(lib, shape, *B5_MODES[preset], (41, 42, 43))
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_attn_rev_probs_are_b2_anchors(lib, preset):
+    """B5 recomputes the probabilities by B4's tile, the function whose
+    anchor instance saves B2's: from B2's own qkv (qkv_pre + bqkv, as its
+    epilogue adds them) B5's P is bitwise B2's probs, at a shape that takes
+    the in-register softmax and at one above 256 keys."""
+    mxu, attn, rule, mlp = PRESETS[preset]
+    for b, n, h, hd in [(1, 2 * 64 + 5, 2, 64), (1, 256 + 5, 1, 8)]:
+        _, p32, x = _block_case(23, b, n, h, hd, mxu)
+        flags = K._block_modes("block_fwd_core", p32, mxu=mxu,
+                               mlp=mlp or mxu, attn_bf16=attn)
+        fwd = K._launch_block_fwd(lib, x.float(), p32, h, hd, EPS, flags,
+                                  None)
+        qkv = fwd[3] + p32.bqkv
+        probs = fwd[6].reshape(b, h, n, n)
+        g_o, cam_o = (torch.from_numpy(np.random.RandomState(24 + i).randn(
+            b, n, h * hd)).float() for i in range(2))
+        outs = [torch.empty_like(qkv), torch.empty_like(qkv),
+                torch.empty(b, n, n)]
+        maps = [torch.empty(b, h, n, n) for _ in range(4)]   # P, G, S2, GCP
+        S1 = torch.empty(b, h, n, hd)
+        code = lib.te_attn_rev_f32(
+            *[t.data_ptr() for t in (qkv, g_o, cam_o, *outs, *maps, S1)],
+            b, n, h, hd, hd ** -0.5, K._ATTN_BF16[attn], K._ATTN_BF16[rule],
+            None)
+        assert code == 0
+        assert torch.equal(maps[0].view(torch.int32),
+                           probs.view(torch.int32)), (b, n, h, hd)
 
 
 # ---------------------------------------------------------------------------

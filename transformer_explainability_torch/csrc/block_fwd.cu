@@ -19,108 +19,18 @@
 // attention core per (row tile, head, sample), the proj GEMM, LN2, the fc1
 // GEMM with GELU in its epilogue, the fc2 GEMM; intermediates go through a
 // workspace in device memory (mostly L2-resident at B=8). The four GEMMs
-// (gemm.cuh) run on the tensor cores; the attention core is scalar FP32 from
-// shared memory as in attn_fwd.cu, with the operands rounded to bf16 when
-// attn_mxu is bfloat16.
+// (gemm.cuh) run on the tensor cores. The attention core is B4's kernel
+// (attn_fwd.cuh: 64-row query tiles, 8 × 8 register tiles for the scores
+// and P·V, the softmax in registers up to 256 keys; FP32 off the tensor
+// cores, the operands rounded to bf16 when attn_mxu is bfloat16) in an
+// instance that also stores, from its register tiles, the pre-scale dots
+// and the probabilities before any rounding, and sums P·V in one chain per
+// output: the operation order of the per-row core it replaced, so dots,
+// probs and out_m are that core's.
+#include "attn_fwd.cuh"
 #include "gemm.cuh"
 
 namespace te {
-
-// One block per (row tile, head, sample); K and V of the head (rounded as
-// the products take them) in shared memory; one warp per query row.
-template <bool RA>
-__global__ void blk_attn_fwd_kernel(const float* __restrict__ qkv,
-                                    float* __restrict__ dots,
-                                    float* __restrict__ probs,
-                                    float* __restrict__ out, int n, int H,
-                                    int hd, float scale, int rows_per_block) {
-  float* smem = reinterpret_cast<float*>(te_smem);
-  const int ldk = hd + 1;
-  float* Ks = smem;
-  float* Vs = Ks + (size_t)n * ldk;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  float* qw = Vs + (size_t)n * ldk + (size_t)warp * (hd + n);
-  float* pw = qw + hd;
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int D = H * hd, ld = 3 * D;
-  const float* base = qkv + (size_t)b * n * ld;
-  const size_t bh = (size_t)b * H + h;
-
-  for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
-    const int j = idx / hd, d = idx - j * hd;
-    Ks[j * ldk + d] = rnd<RA>(base[(size_t)j * ld + D + h * hd + d]);
-    Vs[j * ldk + d] = rnd<RA>(base[(size_t)j * ld + 2 * D + h * hd + d]);
-  }
-  __syncthreads();
-
-  const int row0 = blockIdx.x * rows_per_block;
-  const int row_end = row0 + rows_per_block < n ? row0 + rows_per_block : n;
-  for (int i = row0 + warp; i < row_end; i += nwarps) {
-    const float* qrow = base + (size_t)i * ld + h * hd;
-    for (int d = lane; d < hd; d += kWarp) qw[d] = rnd<RA>(qrow[d]);
-    __syncwarp();
-
-    float* drow = dots + (bh * n + i) * n;
-    float* prow = probs + (bh * n + i) * n;
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += kWarp) {
-      const float* kr = Ks + j * ldk;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qw[d], kr[d], s);
-      drow[j] = s;
-      s = s * scale;
-      pw[j] = s;
-      m = s > m ? s : m;
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += kWarp) {
-      const float e = expf(pw[j] - m);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < n; j += kWarp) {
-      const float p = pw[j] / sum;
-      prow[j] = p;
-      pw[j] = rnd<RA>(p);
-    }
-    __syncwarp();
-
-    float* orow = out + ((size_t)b * n + i) * D + h * hd;
-    for (int d = lane; d < hd; d += kWarp) {
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc = fmaf(pw[j], Vs[j * ldk + d], acc);
-      orow[d] = acc;
-    }
-    __syncwarp();  // the next row overwrites qw and pw
-  }
-}
-
-template <bool RA>
-int blk_attn_fwd(const float* qkv, float* dots, float* probs, float* out,
-                 int B, int n, int H, int hd, float scale,
-                 cudaStream_t stream) {
-  const int limit = max_smem_optin();
-  int warps = 8;
-  size_t smem = 0;
-  for (; warps >= 1; warps /= 2) {
-    smem = sizeof(float) * ((size_t)2 * n * (hd + 1) + (size_t)warps * (hd + n));
-    if (smem <= (size_t)limit) break;
-  }
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  auto kern = blk_attn_fwd_kernel<RA>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = 4 * warps;
-  dim3 grid((n + rows - 1) / rows, H, B);
-  TE_LAUNCH(kern, grid, warps * kWarp, smem, stream)(qkv, dots, probs, out, n,
-                                                     H, hd, scale, rows);
-  return (int)cudaGetLastError();
-}
 
 int block_fwd(const float* x, const BlockWeights& w, float* x_out,
               float* x_mid, float* out_m, float* qkv_pre, float* proj_pre,
@@ -143,10 +53,11 @@ int block_fwd(const float* x, const BlockWeights& w, float* x_out,
   TE_TRY(gemm<true, false, false>(
       mxu, GemmArgs{xn, w.wqkv_hi, w.wqkv_lo, D, D, rows, 3 * D, D},
       EpiQkv{qkv_pre, qkv, w.bqkv, 3 * D}, stream));
-  TE_TRY(attn_bf16 ? blk_attn_fwd<true>(qkv, dots, probs, out_m, B, n, H, hd,
-                                        scale, stream)
-                   : blk_attn_fwd<false>(qkv, dots, probs, out_m, B, n, H, hd,
-                                         scale, stream));
+  TE_TRY(attn_bf16 ? attn_fwd_launch<float, true, true>(
+                         qkv, out_m, dots, probs, B, n, H, hd, scale, stream)
+                   : attn_fwd_launch<float, false, true>(
+                         qkv, out_m, dots, probs, B, n, H, hd, scale,
+                         stream));
   TE_TRY(gemm<true, false, false>(
       mxu, GemmArgs{out_m, w.wproj_hi, w.wproj_lo, D, D, rows, D, D},
       EpiResidual{proj_pre, x_mid, x, w.bproj, D}, stream));

@@ -1,7 +1,8 @@
 // Pieces of the reverse kernels shared by block_rev.cu (ViT) and
 // bert_out_rev.cu / bert_attn_rev.cu (BERT): the GEMM epilogues of the LRP
 // rules, the 'ours' add rule with deterministic per-sample sums, and the
-// column and head-mean passes of the attention reverse.
+// column and head-mean passes of the attention reverse (also B5's,
+// attn_rev.cu).
 #pragma once
 
 #include "gemm.cuh"
@@ -217,9 +218,10 @@ inline int bias_add(const float* pre, const float* bias, const float* res,
 // The attention reverse over a head's (n, n) maps, shared by block_rev.cu
 // (B3, ViT, from the saved probs and dots) and bert_attn_rev.cu (B9, BERT,
 // which recomputes them): the pieces of the row pass and the whole column
-// pass and head mean. q, k, v arrive with their bias added (qkv), as the
-// forward formed them. Every product runs over hd ≤ kMaxHeadDim columns; a
-// tile's columns hd … kMaxHeadDim are zero where they are summed over.
+// pass and head mean, which attn_rev.cu (B5) runs too. q, k, v arrive with
+// their bias added (qkv), as the forward formed them. Every product runs
+// over hd ≤ kMaxHeadDim columns; a tile's columns hd … kMaxHeadDim are zero
+// where they are summed over.
 //
 // What bounds them on the H100: operations, on the CUDA cores. At BERT-base
 // B=8, S=512 each of the attention's float32 products is 3.2 GFLOP (0.048
@@ -441,8 +443,15 @@ __device__ __forceinline__ void rows_store_q(
 //     32 + 4dx … + 3 (three 16-byte reads per 32 FMAs); each output one
 //     FMA chain over i ascending;
 //   cam_v = v ⊙ (Pᵀ S1) / 2 and cam_k = k ⊙ (S2ᵀ q) / 2 (the rule
-//     products, bf16 on the tensor cores): warp w takes product w / 4,
-//     keys 16(w % 4) … + 15 and all 64 columns, 2 k-steps a stage.
+//     products). bf16 rules (RR) in float32: on the tensor cores, warp w
+//     takes product w / 4, keys 16(w % 4) … + 15 and all 64 columns, 2
+//     k-steps a stage. float32 rules (exact FP32, B5 only), and every rule
+//     product in double (the checks' instances): register micro-tiles
+//     beside the gradient product that shares their operand (warps 0–3 Pᵀ
+//     S1 beside Pᵀ g_o, 4–7 S2ᵀ q beside Gᵀ q, the same tile shape; six
+//     16-byte reads per 64 FMAs). Where the two products of a warp take
+//     their shared operand in different precisions (B5's mixed modes), each
+//     rounds it as it is loaded; else the stage is rounded once.
 // Sums run in a fixed order (no atomics): bitwise repeatable.
 // ---------------------------------------------------------------------------
 
@@ -454,14 +463,31 @@ constexpr int kColX = kColI * kLdc;       // floats of one P, G or S2 tile
 constexpr int kColY = kColI * kLdk;       // floats of one g_o, q or S1 tile
 constexpr int kColStage = 3 * kColX + 3 * kColY;
 
-template <bool RA>
-__global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ g_o,
-    const float* __restrict__ P, const float* __restrict__ G,
-    const float* __restrict__ S2, const float* __restrict__ S1g,
-    float* __restrict__ g_qkv, float* __restrict__ cam_qkv, int n, int H,
-    int hd) {
-  float* smem = reinterpret_cast<float*>(te_smem);   // [2][kColStage]
+// a tile of the column pass's stage: asynchronous copies in float32, plain
+// ones in double where the rows do not allow 16-byte pieces
+template <typename T>
+__device__ __forceinline__ void col_load(T* dst, int lds, const T* src,
+                                         size_t ld, int rows, int cols,
+                                         bool vec) {
+  if constexpr (sizeof(T) == sizeof(float))
+    load_tile_async(dst, lds, src, ld, rows, cols, vec);
+  else
+    load_tile(dst, lds, src, ld, rows, cols, vec);
+}
+
+template <typename T, bool RA, bool RR>
+__global__ void __launch_bounds__(kColThreads, sizeof(T) == sizeof(float) ? 2 : 1)
+blk_attn_rev_cols_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ g_o,
+    const T* __restrict__ P, const T* __restrict__ G,
+    const T* __restrict__ S2, const T* __restrict__ S1g,
+    T* __restrict__ g_qkv, T* __restrict__ cam_qkv, int n, int H, int hd) {
+  // the rule products on the tensor cores (bf16 rules in float32)
+  constexpr bool MMA = RR && sizeof(T) == sizeof(float);
+  // the two products of a warp take their shared operand in different
+  // precisions: rounded as loaded, not in the stage
+  constexpr bool MIX = RA != RR && !MMA;
+  T* smem = reinterpret_cast<T*>(te_smem);   // [2][kColStage]
   const int t = threadIdx.x, warp = t / kWarp, lane = t % kWarp;
   const int g = lane >> 2, t4 = lane & 3;
   const int prod = t / 128, jx = t % 16, dx = (t % 128) / 16;
@@ -470,11 +496,9 @@ __global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
   const int jc = n - j0 < kColJ ? n - j0 : kColJ;
   const int D = H * hd, ld = 3 * D;
   const size_t nn = (size_t)n * n, bh = (size_t)b * H + h;
-  const float* maps[3] = {P + bh * nn + j0, G + bh * nn + j0,
-                          S2 + bh * nn + j0};
-  const float* rows[3] = {g_o + (size_t)b * n * D + h * hd,
-                          qkv + (size_t)b * n * ld + h * hd,
-                          S1g + bh * n * hd};
+  const T* maps[3] = {P + bh * nn + j0, G + bh * nn + j0, S2 + bh * nn + j0};
+  const T* rows[3] = {g_o + (size_t)b * n * D + h * hd,
+                      qkv + (size_t)b * n * ld + h * hd, S1g + bh * n * hd};
   const size_t row_ld[3] = {(size_t)D, (size_t)ld, (size_t)hd};
   const bool vec_x = tile_vec_ok(maps[0], n, jc) &&
                      tile_vec_ok(maps[1], n, jc) &&
@@ -485,32 +509,32 @@ __global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
   const int stages = (n + kColI - 1) / kColI;
 
   auto fetch = [&](int s) {
-    float* st = smem + (s & 1) * kColStage;
+    T* st = smem + (s & 1) * kColStage;
     const int i0 = s * kColI, nr = n - i0 < kColI ? n - i0 : kColI;
     // rows past n: zero in every tile (a product over them adds nothing)
     for (int idx = t; idx < 3 * (kColI - nr) * kLdc; idx += kColThreads) {
       const int k = idx / ((kColI - nr) * kLdc), r = idx % ((kColI - nr) * kLdc);
-      st[k * kColX + nr * kLdc + r] = 0.f;
+      st[k * kColX + nr * kLdc + r] = T(0);
     }
     for (int idx = t; idx < 3 * (kColI - nr) * kLdk; idx += kColThreads) {
       const int k = idx / ((kColI - nr) * kLdk), r = idx % ((kColI - nr) * kLdk);
-      st[3 * kColX + k * kColY + nr * kLdk + r] = 0.f;
+      st[3 * kColX + k * kColY + nr * kLdk + r] = T(0);
     }
     for (int k = 0; k < 3; ++k) {
-      load_tile_async(st + k * kColX, kLdc, maps[k] + (size_t)i0 * n, n, nr,
-                      jc, vec_x);
-      load_tile_async(st + 3 * kColX + k * kColY, kLdk,
-                      rows[k] + (size_t)i0 * row_ld[k], row_ld[k], nr, hd,
-                      vec_y);
+      col_load(st + k * kColX, kLdc, maps[k] + (size_t)i0 * n, n, nr, jc,
+               vec_x);
+      col_load(st + 3 * kColX + k * kColY, kLdk,
+               rows[k] + (size_t)i0 * row_ld[k], row_ld[k], nr, hd, vec_y);
     }
     cp_async_commit();
   };
 
-  float acc[4][8], cm[8][4];
+  T acc[4][8], acc2[4][8];   // the gradient product; the float rule product
+  float cm[8][4];            // the bf16 rule product (MMA)
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[a][e] = 0.f;
+    for (int e = 0; e < 8; ++e) acc[a][e] = acc2[a][e] = T(0);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -525,46 +549,82 @@ __global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    float* st = smem + (s & 1) * kColStage;
-    if (RA) {   // the gradient products take P, G, g_o and q as bf16
+    T* st = smem + (s & 1) * kColStage;
+    if (RA && !MIX) {   // the gradient products take P, G, g_o and q as bf16
       for (int idx = t; idx < kColStage; idx += kColThreads)
-        st[idx] = round_bf16(st[idx]);
+        st[idx] = rnd<true>(st[idx]);
       __syncthreads();
     }
-    // g_v = Pᵀ g_o (warps 0–3), g_k = Gᵀ q (warps 4–7)
-    const float* xf = st + prod * kColX + 4 * jx;
-    const float* yf = st + 3 * kColX + prod * kColY + 4 * dx;
-#pragma unroll 4
-    for (int i = 0; i < kColI; ++i) {
-      float x[4], y0[4], y1[4];
+    // g_v = Pᵀ g_o (warps 0–3), g_k = Gᵀ q (warps 4–7); beside them, in
+    // float32 rules, Pᵀ S1 and S2ᵀ q
+    const T* xf = st + prod * kColX + 4 * jx;
+    const T* yf = st + 3 * kColX + prod * kColY + 4 * dx;
+    const T* xr = st + (prod ? 2 : 0) * kColX + 4 * jx;       // P or S2
+    const T* yr = st + 3 * kColX + (prod ? 1 : 2) * kColY + 4 * dx;  // S1 or q
+    auto step = [&](int i) {
+      T x[4], y0[4], y1[4];
       lds4(xf + i * kLdc, x);
       lds4(yf + i * kLdk, y0);
       lds4(yf + i * kLdk + 32, y1);
+      if constexpr (MMA) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[a][e] = fmaf(x[a], y0[e], acc[a][e]);
-          acc[a][4 + e] = fmaf(x[a], y1[e], acc[a][4 + e]);
+          for (int e = 0; e < 4; ++e) {
+            acc[a][e] = fma(x[a], y0[e], acc[a][e]);
+            acc[a][4 + e] = fma(x[a], y1[e], acc[a][4 + e]);
+          }
+      } else {
+        T u[4], z0[4], z1[4];
+        lds4(xr + i * kLdc, u);
+        lds4(yr + i * kLdk, z0);
+        lds4(yr + i * kLdk + 32, z1);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          x[a] = rnd<MIX && RA>(x[a]);
+          u[a] = rnd<MIX && RR>(u[a]);
+          y0[a] = rnd<MIX && RA>(y0[a]);
+          y1[a] = rnd<MIX && RA>(y1[a]);
+          z0[a] = rnd<MIX && RR>(z0[a]);
+          z1[a] = rnd<MIX && RR>(z1[a]);
         }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[a][e] = fma(x[a], y0[e], acc[a][e]);
+            acc[a][4 + e] = fma(x[a], y1[e], acc[a][4 + e]);
+            acc2[a][e] = fma(u[a], z0[e], acc2[a][e]);
+            acc2[a][4 + e] = fma(u[a], z1[e], acc2[a][4 + e]);
+          }
+      }
+    };
+    if constexpr (sizeof(T) == sizeof(float)) {
+#pragma unroll 4
+      for (int i = 0; i < kColI; ++i) step(i);
+    } else {   // double: fewer live registers
+#pragma unroll 1
+      for (int i = 0; i < kColI; ++i) step(i);
     }
-    // cam_v's Pᵀ S1 (warps 0–3), cam_k's S2ᵀ q (warps 4–7)
-    const float* xm = st + (mp ? 2 : 0) * kColX + 16 * mt + g;
-    const float* ym = st + 3 * kColX + (mp ? 1 : 2) * kColY + g;
+    if constexpr (MMA) {
+      // cam_v's Pᵀ S1 (warps 0–3), cam_k's S2ᵀ q (warps 4–7)
+      const float* xm = st + (mp ? 2 : 0) * kColX + 16 * mt + g;
+      const float* ym = st + 3 * kColX + (mp ? 1 : 2) * kColY + g;
 #pragma unroll
-    for (int kk = 0; kk < kColI / 16; ++kk) {
-      const float* xa = xm + (16 * kk + 2 * t4) * kLdc;
-      const uint32_t af[4] = {pack_bf16x2(xa[0], xa[kLdc]),
-                              pack_bf16x2(xa[8], xa[kLdc + 8]),
-                              pack_bf16x2(xa[8 * kLdc], xa[9 * kLdc]),
-                              pack_bf16x2(xa[8 * kLdc + 8], xa[9 * kLdc + 8])};
-      const float* yb = ym + (16 * kk + 2 * t4) * kLdk;
+      for (int kk = 0; kk < kColI / 16; ++kk) {
+        const float* xa = xm + (16 * kk + 2 * t4) * kLdc;
+        const uint32_t af[4] = {pack_bf16x2(xa[0], xa[kLdc]),
+                                pack_bf16x2(xa[8], xa[kLdc + 8]),
+                                pack_bf16x2(xa[8 * kLdc], xa[9 * kLdc]),
+                                pack_bf16x2(xa[8 * kLdc + 8], xa[9 * kLdc + 8])};
+        const float* yb = ym + (16 * kk + 2 * t4) * kLdk;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint32_t bf[2] = {pack_bf16x2(yb[8 * nt], yb[8 * nt + kLdk]),
-                                pack_bf16x2(yb[8 * nt + 8 * kLdk],
-                                            yb[8 * nt + 9 * kLdk])};
-        mma_bf16_16816(cm[nt], af, bf);
+        for (int nt = 0; nt < 8; ++nt) {
+          const uint32_t bf[2] = {pack_bf16x2(yb[8 * nt], yb[8 * nt + kLdk]),
+                                  pack_bf16x2(yb[8 * nt + 8 * kLdk],
+                                              yb[8 * nt + 9 * kLdk])};
+          mma_bf16_16816(cm[nt], af, bf);
+        }
       }
     }
     __syncthreads();   // the stage is consumed
@@ -580,43 +640,52 @@ __global__ void __launch_bounds__(kColThreads, 2) blk_attn_rev_cols_kernel(
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int d = 4 * dx + (e < 4 ? e : 28 + e);
-      if (d < hd) g_qkv[row + d] = acc[a][e];
-    }
-  }
-  // cam_v = v ⊙ (Pᵀ S1) / 2 (warps 0–3), cam_k = k ⊙ (S2ᵀ q) / 2
-  const int mpart = mp ? D : 2 * D;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = j0 + 16 * mt + g + 8 * (i >> 1);
-      const int d = 8 * nt + 2 * t4 + (i & 1);
-      if (j < n && d < hd) {
-        const size_t o = ((size_t)b * n + j) * ld + mpart + h * hd + d;
-        cam_qkv[o] = qkv[o] * cm[nt][i] * 0.5f;
+      if (d < hd) {
+        g_qkv[row + d] = acc[a][e];
+        if constexpr (!MMA)
+          cam_qkv[row + d] = qkv[row + d] * acc2[a][e] * T(0.5);
       }
     }
+  }
+  if constexpr (MMA) {
+    // cam_v = v ⊙ (Pᵀ S1) / 2 (warps 0–3), cam_k = k ⊙ (S2ᵀ q) / 2
+    const int mpart = mp ? D : 2 * D;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + 16 * mt + g + 8 * (i >> 1);
+        const int d = 8 * nt + 2 * t4 + (i & 1);
+        if (j < n && d < hd) {
+          const size_t o = ((size_t)b * n + j) * ld + mpart + h * hd + d;
+          cam_qkv[o] = qkv[o] * cm[nt][i] * 0.5f;
+        }
+      }
+  }
 }
 
-static __global__ void blk_head_mean_kernel(const float* __restrict__ GCP,
-                                     float* __restrict__ gc, int B, int H,
+template <typename T>
+__global__ void blk_head_mean_kernel(const T* __restrict__ GCP,
+                                     T* __restrict__ gc, int B, int H,
                                      size_t nn) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)B * nn) return;
   const size_t b = idx / nn, r = idx - b * nn;
-  float s = 0.f;
+  T s = T(0);
   for (int h = 0; h < H; ++h) s += GCP[(b * H + h) * nn + r];
-  gc[idx] = s / (float)H;
+  gc[idx] = s / T(H);
 }
 
 // The column pass, then the head mean gc = Σ_h GCP / h, over the batch.
-template <bool RA>
-int attn_rev_cols(const float* qkv, const float* g_o, const float* P,
-                  const float* G, const float* S2, const float* S1,
-                  const float* GCP, float* g_qkv, float* cam_qkv, float* gc,
-                  int B, int n, int H, int hd, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * kColStage;
-  auto kern = blk_attn_rev_cols_kernel<RA>;
+// B3 and B9 run the bf16 rules in float32 (the defaults); B5 every mode
+// pair, in float32 and double.
+template <bool RA, typename T = float, bool RR = true>
+int attn_rev_cols(const T* qkv, const T* g_o, const T* P, const T* G,
+                  const T* S2, const T* S1, const T* GCP, T* g_qkv,
+                  T* cam_qkv, T* gc, int B, int n, int H, int hd,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(T) * 2 * kColStage;
+  auto kern = blk_attn_rev_cols_kernel<T, RA, RR>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -627,8 +696,9 @@ int attn_rev_cols(const float* qkv, const float* g_o, const float* P,
 
   const size_t nn = (size_t)n * n, total = (size_t)B * nn;
   const int threads = 256;
-  TE_LAUNCH(blk_head_mean_kernel, (unsigned)((total + threads - 1) / threads),
-            threads, 0, stream)(GCP, gc, B, H, nn);
+  TE_LAUNCH(blk_head_mean_kernel<T>,
+            (unsigned)((total + threads - 1) / threads), threads, 0, stream)(
+      GCP, gc, B, H, nn);
   return (int)cudaGetLastError();
 }
 

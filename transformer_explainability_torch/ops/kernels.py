@@ -68,7 +68,7 @@ from transformer_explainability_torch.ops.tp_math import (
 Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-MAX_HEAD_DIM = 64        # attn_rev's column pass keeps ≤ 8 columns a thread
+MAX_HEAD_DIM = 64        # the attention tiles hold 64 head columns
 
 
 # ---------------------------------------------------------------------------
