@@ -21,8 +21,13 @@ result line):
      its 2-norm form); then the GEMM core alone (csrc/gemm.cu) at B8's
      and B6's eight product shapes and the ViT and BERT qkv and proj
      shapes, against precision.kdot on the same split operands in float64
-     (elementwise within 1e-4 of |A|·|W|); phase 2 has shown its
-     instances' registers, that none spills, and ptxas's remarks on wgmma,
+     (elementwise within 1e-4 of |A|·|W|), and its instances of the
+     tensor-parallel MLP kernels at their shapes (the fused passes, the
+     grouped launch, bf16 A rows) the same way and bitwise the core's
+     separate launches, and B10a / B10b bitwise their separate launches
+     (fused = 0); phase 2 has shown its instances' registers (those of
+     B10 by name), that none spills, and ptxas's remarks on wgmma and
+     setmaxnreg,
      and that no instance of B5's row pass, of the column pass or of B4's
      tile as B2 instantiates it spills; B4 and B5 in the TP modes also at
      n = 29 and n = 261, and B5's probabilities bitwise B2's probs anchor
@@ -63,7 +68,9 @@ result line):
      ``scaled_dot_product_attention`` with the additive mask on the same
      q, k, v at S=512, the GEMM core alone at the shapes checked in
      phase 3 (device time, TFLOP/s of bf16 passes) beside torch.matmul on
-     the same bf16 operands (a yardstick: the port never calls it), and
+     the same bf16 operands (a yardstick: the port never calls it), B10a
+     and B10b beside one bf16 torch.matmul per product over each phase's
+     five products (summed), and
      explanations/s at B=8 for the
      exact-FP32 and the production paths, kernels and plain, the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
@@ -209,7 +216,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif "wgmma" in line:
+            elif "wgmma" in line or "setmaxnreg" in line:
                 remarks.append(line.strip())
             elif "spill" in line:
                 spill = line.strip()
@@ -220,6 +227,14 @@ def main() -> int:
                     core_regs.append(regs[-1])
                     if not clean:
                         core_spills.append(entry)
+                    # the tensor-parallel MLP kernels' instances: the fused
+                    # passes, the grouped launch (two GemmItems) and the
+                    # products on bf16 A rows (SpecStd's last flag true)
+                    if re.search(r"SpecTwoA|SpecDualAbsA|SpecThree|"
+                                 r"SpecStdILi0ELb[01]ELb[01]ELb[01]ELb1E",
+                                 entry):
+                        print(f"  ptxas core (B10) {entry[:96]}: "
+                              f"{regs[-1]} registers; {spill}")
                 # B2's instances of B4's tile (the anchors: the last
                 # template argument true), B5's row pass, the column pass
                 redesigned = bool(re.search(
@@ -240,7 +255,7 @@ def main() -> int:
         print(f"  ptxas: {len(core_regs)} GEMM-core instances (wgmma), "
               f"{min(core_regs)}-{max(core_regs)} registers, "
               f"{len(core_spills)} spill")
-        print(f"  ptxas: {len(remarks)} remarks on wgmma"
+        print(f"  ptxas: {len(remarks)} remarks on wgmma or setmaxnreg"
               + "".join(f"\n    {r[:300]}" for r in remarks[:4]))
         require(not core_spills, f"GEMM-core instances spill: {core_spills}")
         require(not redesign_spills,
@@ -614,6 +629,28 @@ def main() -> int:
             q32 = K.mlp_rev_tp_phase2_plain(*b32, w1, w2, vit_eps, rule)
             check_all("mlp_rev_tp_phase2", preset, sname, shp, k32, q32, q64,
                       ["num_w", "num_a"])
+            # the fused passes (the presets' modes) bitwise the separate
+            # launches (fused = 0) on the same inputs (direct calls of the
+            # C entries: not counted)
+            flags = K._tp_modes("mlp_rev_tp_phase1", a32[0], (w1, w2),
+                                mlp=mlp, rule=rule)
+            st = torch.cuda.current_stream().cuda_stream
+            f1 = K._launch_mlp_rev_tp1(lib, *a32, w1, w2, vit_eps, flags, st)
+            u1 = K._launch_mlp_rev_tp1(lib, *a32, w1, w2, vit_eps, flags, st,
+                                       fused=False)
+            f2 = K._launch_mlp_rev_tp2(lib, *b32, w1, w2, vit_eps,
+                                       {"rule": flags["rule"]}, st)
+            u2 = K._launch_mlp_rev_tp2(lib, *b32, w1, w2, vit_eps,
+                                       {"rule": flags["rule"]}, st,
+                                       fused=False)
+            torch.cuda.synchronize()
+            same = [torch.equal(x_.view(torch.int32), y_.view(torch.int32))
+                    for x_, y_ in zip((*f1, *f2), (*u1, *u2))]
+            print(f"check mlp_rev_tp {preset} {sname} {shp}: fused passes "
+                  f"vs separate launches, outputs bitwise equal: {same}")
+            require(all(same), f"mlp_rev_tp {preset} {sname}: the fused "
+                    f"passes are not bitwise the separate launches")
+            del f1, u1, f2, u2
             if preset == "production" and sname == "main":
                 tp_inputs = dict(a32=a32, b32=b32, w=(w1, w2), mlp=mlp,
                                  rule=rule)
@@ -731,6 +768,84 @@ def main() -> int:
                     f"|A|·|W| above {CORE_RTOL:.0e}")
         core_inputs[label] = (a, w, cargs, (rows, N_, K_))
         del w64, k32, p64, p32, wv, mag
+    # the tensor-parallel MLP kernels' instances of the core at B10's shapes
+    # (ViT-B/16 B=8, k = 1; bf16 products): the fused passes (kernels.
+    # FUSED_KINDS: B10a's two-operand pass and its grouped launch, the dual
+    # pass on |A| alone, B10b's three-set pass) and the dual on bf16 A rows
+    # (B10b's last launch), each held to its plain version as above and
+    # bitwise to the core's separate launches on float32 rows holding the
+    # same bf16 values (each output's chain over k is the same)
+    R10, D10, M10 = B * n, Dc, Mc
+
+    def tp_weight(*shape):
+        return prec.prepare_weight(randn(*shape, dtype=torch.float64)
+                                   / shape[0 if len(shape) == 1 else 1] ** 0.5,
+                                   "bfloat16")
+
+    def rows_bf16(k_):
+        return randn(R10, k_, dtype=torch.float32).to(torch.bfloat16)
+
+    # kind: (a0, w0, a1, w1, (M, N, K), each output's (A, W, transposed))
+    fused_cases = {}
+    a0, w0, a1, w1 = (rows_bf16(D10), tp_weight(M10, D10), rows_bf16(D10),
+                      tp_weight(D10, M10))
+    fused_cases["two_a"] = (a0, w0, a1, w1, (R10, M10, D10),
+                            [(a0, w0, True), (a1, w1, False)])
+    a0, w0, a1, w1 = (rows_bf16(M10), tp_weight(D10, M10), rows_bf16(M10),
+                      tp_weight(M10, D10))
+    fused_cases["dual_abs_a"] = (a0, w0, None, None, (R10, D10, M10),
+                                 [(a0, w0, True)] * 2)
+    fused_cases["group"] = (a0, w0, a1, w1, (R10, D10, M10),
+                            [(a0, w0, True)] * 2 + [(a1, w1, False)])
+    a0, w0, a1, w1 = (rows_bf16(D10), tp_weight(D10, M10), rows_bf16(D10),
+                      tp_weight(M10, D10))
+    fused_cases["three"] = (a0, w0, a1, w1, (R10, M10, D10),
+                            [(a0, w0, False)] * 2 + [(a1, w1, True)])
+    a0, w0 = rows_bf16(M10), tp_weight(M10, D10)
+    fused_cases["bf16 A dual"] = (a0, w0, None, None, (R10, D10, M10),
+                                  [(a0, w0, False)] * 2)
+    fused_inputs = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    sep = lambda a, w, wt, ab=False, du=False: K._launch_gemm(
+        lib, a.float(), w, 0, wt, ab, du, -1, stream)
+    for kind, (a0, w0, a1, w1, (M_, N_, K_), ops) in fused_cases.items():
+        if kind == "bf16 A dual":
+            k_ = counted(K.gemm_core, a0, w0, "bfloat16", False, False, True)
+            p_ = K.gemm_core_plain(a0.double(), w0, "bfloat16", False, False,
+                                   True)
+            s_ = sep(a0, w0, False, du=True)
+        else:
+            before = K.gemm_core.launches
+            k_ = K.gemm_core_fused(kind, a0, w0, a1, w1)
+            torch.cuda.synchronize()
+            require(K.gemm_core.launches == before + 1,
+                    "gemm_core_fused: launch count did not rise")
+            p_ = K.gemm_core_fused_plain(
+                kind, a0.double(), w0, None if a1 is None else a1.double(),
+                w1)
+            s_ = {"two_a": lambda: (sep(a0, w0, True), sep(a1, w1, False)),
+                  "dual_abs_a": lambda: (sep(a0, w0, True),
+                                         sep(a0, w0, True, True)),
+                  "three": lambda: (*sep(a0, w0, False, du=True),
+                                    sep(a1, w1, True, True)),
+                  "group": lambda: (sep(a0, w0, True), sep(a0, w0, True, True),
+                                    sep(a1, w1, False))}[kind]()
+        torch.cuda.synchronize()
+        for i, (kk, pp, ss, (a_, w_, t_)) in enumerate(zip(k_, p_, s_, ops)):
+            wv = sum(t.double() for t in w_).abs()
+            mag = a_.double().abs() @ (wv.t() if t_ else wv)
+            e = ((kk.double() - pp) / mag).abs().max().item()
+            same = torch.equal(kk.view(torch.int32), ss.view(torch.int32))
+            print(f"check core B10 {kind}[{i}] ({M_}, {N_}, {K_}) bfloat16: "
+                  f"max|k-p64|/(|A||W|)={e:.3e} <= {CORE_RTOL:.0e}; "
+                  f"{'bitwise' if same else 'NOT bitwise'} the separate "
+                  f"launch")
+            require(e <= CORE_RTOL, f"core B10 {kind}[{i}]: error {e:.3e} "
+                    f"of |A|·|W| above {CORE_RTOL:.0e}")
+            require(same, f"core B10 {kind}[{i}]: not bitwise the separate "
+                    f"launch")
+        fused_inputs[kind] = (a0, w0, a1, w1, (M_, N_, K_), len(ops))
+        del k_, p_, s_
     torch.cuda.empty_cache()
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
@@ -1219,6 +1334,45 @@ def main() -> int:
     print(f"time B2 attention core {tuple(shapes['main'])} f32 production "
           f"modes: launch {b2_core:.4f} ms of {sum(b2_launches.values()):.4f}"
           f" ms of B2's launches (profiler) {tag}")
+    # the library yardstick of B10a and B10b: one bf16 torch.matmul per
+    # product over each phase's five products, on the phase's own bf16
+    # operands (phase 1: xn2·W1ᵀ, g_out·W2, hg·W2ᵀ, |hg|·|W2|ᵀ, g_h1·W1;
+    # phase 2: Sr·W2, Sr·|W2|, |xn2|·|W1|ᵀ, S1·W1, S1·|W1|), the operands
+    # formed by the plain versions' steps; device times summed (profiler;
+    # printed only: the port never calls it)
+    x_mid, g_out, ln2s_, ln2b_, b1_ = ti["a32"]
+    w1_, w2_ = ti["w"]
+    bf = "bfloat16"
+    xn2 = bm.ln_fwd(x_mid, ln2s_, ln2b_, vit_eps)[0]
+    fc1 = prec.kdot(xn2, prec.transpose(w1_), bf)
+    h1 = fc1 + b1_
+    hg = bm.gelu_exact(h1)
+    g_h1 = prec.kdot(g_out, w2_, bf) * bm.gelu_grad(h1)
+    Sr, fc1_b = ti["b32"][1], ti["b32"][2]
+    hg2 = bm.gelu_exact(fc1_b + b1_)
+    R2 = 0.5 * (hg2 * prec.kdot(Sr, w2_, bf)
+                + hg2.abs() * prec.kdot(Sr, prec.kabs(w2_), bf))
+    S1 = rp.safe_divide(R2, 0.5 * (fc1_b + prec.kdot(
+        xn2.abs(), prec.transpose(prec.kabs(w1_)), bf)))
+    W1, W2, aW1, aW2 = w1_[0], w2_[0], w1_.abs[0], w2_.abs[0]
+    to16 = lambda t: t.reshape(-1, t.shape[-1]).to(torch.bfloat16)
+    b10_mm = {"mlp_rev_tp_phase1": [(to16(xn2), W1.t()), (to16(g_out), W2),
+                                    (to16(hg), W2.t()), (to16(hg.abs()),
+                                                        aW2.t()),
+                                    (to16(g_h1), W1)],
+              "mlp_rev_tp_phase2": [(to16(Sr), W2), (to16(Sr), aW2),
+                                    (to16(xn2.abs()), aW1.t()), (to16(S1), W1),
+                                    (to16(S1), aW1)]}
+    for name, pairs in b10_mm.items():
+        parts = [device_ms(lambda: torch.matmul(x_, y_), 20)[0]
+                 for x_, y_ in pairs]
+        k_dev = device_ms(lambda: getattr(K, name)(*tp_args[name]), 20)
+        print(f"time {name} {tp_shapes['main']} production modes: kernel "
+              f"{times[name][0]:.4f} ms (events), {k_dev[0]:.4f} ms of "
+              f"launches (profiler); torch.matmul bf16 on its five "
+              f"products' bf16 operands, one call each: {sum(parts):.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in parts)}) (profiler) {tag}")
+    del x_mid, g_out, xn2, fc1, h1, hg, g_h1, Sr, fc1_b, hg2, R2, S1, b10_mm
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
     del b6_inputs, b6, b6_args, b5_args
     # the GEMM core alone at each checked shape: its launch's device time
@@ -1240,7 +1394,25 @@ def main() -> int:
               f"torch.matmul bf16 {t_mm:.4f} ms a pass, "
               f"{2.0 * rows * N_ * K_ / t_mm / 1e9:.1f} TFLOP/s (profiler) "
               f"{tag}")
-    del core_inputs, a16, b16
+    # the tensor-parallel MLP kernels' instances of the core at B10's shapes
+    # (phase 3's): device time and rate of their bf16 products, beside one
+    # torch.matmul a product on bf16 operands of the same shapes
+    for kind, (a0, w0, a1, w1, (M_, N_, K_), nprod) in fused_inputs.items():
+        if kind == "bf16 A dual":
+            call = lambda: K.gemm_core(a0, w0, "bfloat16", False, False, True)
+        else:
+            call = lambda: K.gemm_core_fused(kind, a0, w0, a1, w1)
+        t_k = device_ms(call, 20)[0]
+        x16 = a0.to(torch.bfloat16)
+        y16 = w0[0].t() if w0[0].shape[1] == K_ else w0[0]
+        t_mm = device_ms(lambda: torch.matmul(x16, y16), 20)[0]
+        flop = 2.0 * M_ * N_ * K_ * nprod
+        print(f"time core B10 {kind} ({M_}, {N_}, {K_}) x{nprod} bfloat16: "
+              f"kernel {t_k:.4f} ms, {flop / t_k / 1e9:.1f} TFLOP/s; "
+              f"torch.matmul bf16 {t_mm:.4f} ms a product, "
+              f"{2.0 * M_ * N_ * K_ / t_mm / 1e9:.1f} TFLOP/s (profiler) "
+              f"{tag}")
+    del core_inputs, fused_inputs, a16, b16, x16, y16
 
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
     idx_t = torch.as_tensor(batches[0][1], device=dev)

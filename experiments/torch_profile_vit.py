@@ -27,7 +27,9 @@ tensor-parallel production preset's float32 gradient and bf16 rule
 products; ``bfloat16``: the split path's), and print every launch the call
 makes (the attention passes, B5's row pass, column pass and head mean,
 each GEMM-core instance, the LayerNorm, add-rule and other row kernels)
-with its device time per call, and the GEMM core's share.
+with its device time per call, and the GEMM core's share; the core's fused
+passes, grouped launches and products on bf16 A rows (B10a, B10b) are
+tagged.
 
 Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
@@ -42,6 +44,7 @@ from a seeded generator; needs no JAX.
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -305,7 +308,24 @@ def kernel_launches(which, dev, S, prec, card, calls=10):
           f"{sum(r[1] for r in rows):.0f} launches; GEMM core "
           f"{gemm / 1e3:.4f} ms ({gemm / total:.1%})")
     for us, count, name in sorted(rows, key=lambda r: -r[0]):
-        print(f"  {us / 1e3:9.4f} ms  x{count:.0f}  {name[:150]}")
+        print(f"  {us / 1e3:9.4f} ms  x{count:.0f}  {launch_tag(name)}"
+              f"{name[:200]}")
+
+
+# the GEMM core's launches that are not one plain product (gemm.cuh): the
+# tensor-parallel MLP kernels' fused passes and grouped launch, and products
+# on bf16 A rows
+def launch_tag(name: str) -> str:
+    if "gemm_kernel" not in name:
+        return ""
+    if "GemmNone" not in name:
+        return "[grouped launch] "
+    for spec, tag in (("SpecTwoA", "two-operand pass"),
+                      ("SpecDualAbsA", "dual pass, |A| second"),
+                      ("SpecThree", "three-set pass")):
+        if spec in name:
+            return f"[{tag}] "
+    return "[bf16 A] " if re.search(r"SpecStd<[^>]*true>", name) else ""
 
 
 def main():

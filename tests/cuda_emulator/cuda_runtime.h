@@ -16,18 +16,28 @@
 // matrix descriptor (128-byte swizzle) by the PTX ISA's rules; it completes
 // at once, so its
 // fence, commit and wait do nothing. The bf16 conversions are plain
-// round-to-nearest-even bit arithmetic.
+// round-to-nearest-even bit arithmetic. The Hopper pipeline pieces of the
+// GEMM core: an mbarrier is a record beside the emulated shared memory
+// (expected and pending arrivals, a transaction count, the phase bit) under
+// one lock, and a wait blocks on a condition variable until the phase with
+// the given parity has completed; a TMA load copies its box at once (zeros
+// outside the tensor, the 128-byte swizzle applied to the shared-memory
+// offsets) and then completes its bytes on the barrier; setmaxnreg does
+// nothing.
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <condition_variable>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <math.h>
 #include <memory>
+#include <mutex>
 #include <stdexcept>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 struct dim3 {
@@ -40,7 +50,8 @@ struct alignas(16) uint4 { unsigned int x, y, z, w; };
 struct alignas(8) uint2 { unsigned int x, y; };
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum { cudaDevAttrMultiProcessorCount = 16,
+       cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
 
@@ -52,6 +63,7 @@ typedef void* cudaStream_t;
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -185,9 +197,101 @@ inline void te_emu_wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
   bar.arrive_and_wait();
 }
 
+// mbarrier (shared::cta): init, arrive (with an optional expect-tx of
+// `tx` bytes), complete-tx, and the parity wait
+namespace emu {
+struct Mbar {
+  int expected = 0, pending = 0;
+  long tx = 0;
+  unsigned phase = 0;
+};
+inline std::mutex mbar_mu;
+inline std::condition_variable mbar_cv;
+inline std::unordered_map<const void*, Mbar> mbars;
+inline void mbar_settle(Mbar& b) {     // under mbar_mu
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.pending = b.expected;
+    mbar_cv.notify_all();
+  }
+}
+}  // namespace emu
+
+inline void te_emu_mbar_init(void* bar, int count) {
+  std::lock_guard<std::mutex> lk(emu::mbar_mu);
+  emu::mbars[bar] = emu::Mbar{count, count, 0, 0};
+}
+inline void te_emu_mbar_arrive(void* bar, long tx) {
+  std::lock_guard<std::mutex> lk(emu::mbar_mu);
+  emu::Mbar& b = emu::mbars.at(bar);
+  b.tx += tx;
+  if (--b.pending < 0) throw std::runtime_error("mbarrier: too many arrivals");
+  emu::mbar_settle(b);
+}
+inline void te_emu_mbar_complete_tx(void* bar, long bytes) {
+  std::lock_guard<std::mutex> lk(emu::mbar_mu);
+  emu::Mbar& b = emu::mbars.at(bar);
+  b.tx -= bytes;
+  emu::mbar_settle(b);
+}
+// returns once the phase of parity `parity` has completed (the barrier's
+// current phase bit differs from it)
+inline void te_emu_mbar_wait(void* bar, unsigned parity) {
+  std::unique_lock<std::mutex> lk(emu::mbar_mu);
+  emu::mbar_cv.wait(lk, [&] { return emu::mbars.at(bar).phase != parity; });
+}
+
+// A 2D tensor map for the TMA load: a row-major array of dim1 rows of dim0
+// elements of esize bytes at a pitch of stride1 bytes, boxes of box0 × box1
+// elements, 128-byte swizzle (box0 · esize ≤ 128).
+struct te_emu_tma_map {
+  const unsigned char* base;
+  int esize;
+  uint64_t dim0, dim1, stride1;
+  uint32_t box0, box1;
+};
+
+inline int te_emu_tma_encode(te_emu_tma_map* m, const void* base, int esize,
+                             uint64_t dim0, uint64_t dim1, uint64_t stride1,
+                             uint32_t box0, uint32_t box1) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || stride1 % 16 ||
+      stride1 < dim0 * esize || box0 * esize > 128 || box0 * esize % 16 ||
+      box1 == 0 || box1 > 256)
+    return 1;
+  *m = te_emu_tma_map{static_cast<const unsigned char*>(base), esize, dim0,
+                      dim1, stride1, box0, box1};
+  return 0;
+}
+
+extern unsigned char te_smem[];
+
+// the box at element (c0, c1) into shared memory at dst (1024-byte aligned):
+// row r of the box is the 128-byte row r, its 16-byte chunks placed by the
+// 128-byte swizzle (chunk ^= row mod 8); elements outside the tensor read as
+// zeros; then the box's bytes complete on the barrier
+inline void te_emu_tma_load_2d(void* dst, const te_emu_tma_map* m, int c0,
+                               int c1, void* bar) {
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  if ((d - te_smem) % 1024) throw std::runtime_error("TMA: unaligned box");
+  const uint32_t row = m->box0 * m->esize;
+  for (uint32_t r = 0; r < m->box1; ++r)
+    for (uint32_t i = 0; i < m->box0; ++i) {
+      const uint32_t off = r * row + i * m->esize;
+      unsigned char* to = d + (off ^ (((off >> 7) & 7u) << 4));
+      const long x = static_cast<long>(c0) + i, y = static_cast<long>(c1) + r;
+      if (x >= 0 && y >= 0 && static_cast<uint64_t>(x) < m->dim0 &&
+          static_cast<uint64_t>(y) < m->dim1)
+        std::memcpy(to, m->base + y * m->stride1 + x * m->esize, m->esize);
+      else
+        std::memset(to, 0, m->esize);
+    }
+  te_emu_mbar_complete_tx(bar, static_cast<long>(row) * m->box1);
+}
+
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
-  *v = static_cast<int>(emu::kSmemLimit);
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? 132
+                                               : static_cast<int>(emu::kSmemLimit);
   return cudaSuccess;
 }
 template <typename F>

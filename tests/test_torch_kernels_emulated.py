@@ -489,7 +489,10 @@ def test_attn_rev_probs_are_b2_anchors(lib, preset):
 # plain versions), at one shard's widths
 # ---------------------------------------------------------------------------
 
-TP_SHAPES = [(2, 13, 16, 24), (1, 37, 24, 40)]     # (B, n, D, M/k)
+# (B, n, D, M/k); the third: a ragged last row tile (133 = 128 + 5 rows),
+# D and M/k multiples of 8 but of no tile width, and K deeper than the
+# rings of the fused passes (D = 136 > 2 stages of 64, M/k = 264 > 4)
+TP_SHAPES = [(2, 13, 16, 24), (1, 37, 24, 40), (1, 133, 136, 264)]
 
 
 @pytest.mark.parametrize("shape", TP_SHAPES)
@@ -530,6 +533,43 @@ def test_mlp_rev_tp_kernels_match_plain(lib, shape, preset):
     want32 = K.mlp_rev_tp_phase2_plain(*a32, *vecs32, w1, w2, EPS, rule)
     for k, p, q, name in zip(got, want32, want64, ["num_w", "num_a"]):
         _f32_rule(k, p, q, name)
+
+
+@pytest.mark.parametrize("grid", [0, 1])
+@pytest.mark.parametrize("shape", TP_SHAPES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_mlp_rev_tp_fused_passes_are_bitwise_separate(lib, shape, preset,
+                                                       grid):
+    """In the presets' modes each phase runs the core's fused passes (phase
+    1: the two-operand pass and one grouped launch; phase 2: the three-set
+    pass and the dual, with hg, g_h1 and S1 stored as bf16): every output
+    is bitwise what the separate launches give (fused = 0), also when one
+    persistent block walks every tile (grid = 1)."""
+    b, n, D, Ml = shape
+    base, _, rule, mlp = PRESETS[preset]
+    mlp = mlp or base
+    rng = np.random.RandomState(51)
+    w1, w2 = (P.prepare_weight(torch.from_numpy(rng.randn(o, i) / np.sqrt(i)),
+                               base) for o, i in ((Ml, D), (D, Ml)))
+    vecs = [torch.from_numpy(c + 0.1 * rng.randn(k)).float()
+            for c, k in ((1.0, D), (0.0, D), (0.0, Ml))]
+    x, g = (torch.from_numpy(rng.randn(b, n, D) + c).float()
+            for c in (0.5, 0.0))
+    flags = K._tp_modes("mlp_rev_tp_phase1", x, (w1, w2), mlp=mlp, rule=rule)
+    prev = lib.te_gemm_grid_cap(grid)
+    try:
+        p1 = [K._launch_mlp_rev_tp1(lib, x, g, *vecs, w1, w2, EPS, flags, None,
+                                    fused=f) for f in (True, False)]
+        Sr = torch.from_numpy(rng.randn(b, n, D)).float()
+        p2 = [K._launch_mlp_rev_tp2(lib, x, Sr, p1[0][0], *vecs, w1, w2, EPS,
+                                    {"rule": flags["rule"]}, None, fused=f)
+              for f in (True, False)]
+    finally:
+        lib.te_gemm_grid_cap(prev)
+    names = ["fc1_pre", "fc2_pre", "axw2", "g_xn2", "num_w", "num_a"]
+    for f, s_, name in zip((*p1[0], *p2[0]), (*p1[1], *p2[1]), names):
+        assert torch.isfinite(f).all(), name
+        assert torch.equal(f.view(torch.int32), s_.view(torch.int32)), name
 
 
 # ---------------------------------------------------------------------------
@@ -579,32 +619,76 @@ def test_mlp_rev_kernel_matches_plain(lib, shape, modes):
 # ---------------------------------------------------------------------------
 
 # (wt, absolute, dual): the forward products x·Wᵀ, the backward products
-# g·W, the rule denominators |x|·|W|ᵀ, the rule numerators S·W and S·|W|
+# g·W, the rule denominators |x|·|W|ᵀ, the rule numerators S·W and S·|W|;
+# then the tensor-parallel MLP kernels' instances, bf16 products only: g·W
+# and S·W / S·|W| on bf16 A rows ("bf16 A"), and the fused passes (kernels.
+# FUSED_KINDS: two A operands, the dual whose second product takes |A|,
+# three sets, and the grouped launch)
 CORE_INSTANCES = [(True, False, False), (False, False, False),
-                  (True, True, False), (False, False, True)]
-# (tile, M, N, K): the large tile (128 rows × 192 / 128 / 64 columns for 1 /
-# 2 / 4 accumulator sets) and the small one (64 × 128 / 128 / 64), each at
-# a shape with a ragged last row tile, N a multiple of 8 but of no tile
-# width, and K not a multiple of the 64-deep stage; K = 264 takes five
-# stages through the ring of three
-CORE_SHAPES = [(0, 136, 200, 264), (1, 70, 136, 72)]
+                  (True, True, False), (False, False, True),
+                  "bf16 A", "bf16 A dual", "two_a", "dual_abs_a", "three",
+                  "group"]
+# (tile, M, N, K, grid): the large tile (128 rows × 192 / 128 / 64 columns
+# for 1 / 2 / 4 accumulator sets) and the small one (64 × 128 / 128 / 64),
+# each at a shape with a ragged last row tile, N a multiple of 8 but of no
+# tile width, and K not a multiple of the 64-deep stage; K = 264 takes five
+# stages through a ring of two to four. grid 1: one persistent block walks
+# every tile (four or more; a grouped launch's, of both products). The
+# fused passes take the large tile.
+CORE_SHAPES = [(0, 136, 200, 264, 0), (1, 70, 136, 72, 0),
+               (0, 136, 200, 264, 1), (1, 70, 136, 72, 1)]
+
+
+def _fused_case(rng, kind, M, N, Kd):
+    """Operands of one fused pass: a0, w0, a1, w1 (bf16 rows; weights (N, K)
+    where transposed, else (K, N)), and whether each output's weight is
+    transposed."""
+    def weight(shape):
+        return P.prepare_weight(torch.from_numpy(rng.randn(*shape)
+                                                 / np.sqrt(Kd)), "bfloat16")
+
+    def rows(bf16):
+        a = torch.from_numpy(rng.randn(M, Kd)).float()
+        return a.to(torch.bfloat16) if bf16 else a
+
+    tk, kn = (N, Kd), (Kd, N)
+    return {"two_a": (rows(True), weight(tk), rows(True), weight(kn),
+                      (True, False)),
+            "dual_abs_a": (rows(True), weight(tk), None, None, (True, True)),
+            "three": (rows(True), weight(kn), rows(True), weight(tk),
+                      (False, False, True)),
+            "group": (rows(True), weight(tk), rows(True), weight(kn),
+                      (True, True, False))}[kind]
+
+
+def _core_mag(a, w, wt):
+    """|a|·|w| (float64), the scale of one output's accumulation error."""
+    wv = sum(t.double() for t in w).abs()
+    return a.double().abs() @ (wv.t() if wt else wv)
 
 
 @pytest.mark.parametrize("shape", CORE_SHAPES)
 @pytest.mark.parametrize("mode", sorted(K._GEMM_MODE))
 @pytest.mark.parametrize("instance", CORE_INSTANCES)
 def test_gemm_core_tiles_match_kdot(lib, shape, mode, instance):
-    tile, M, N, Kd = shape
-    wt, absolute, dual = instance
+    tile, M, N, Kd, grid = shape
     rng = np.random.RandomState(70 + tile)
-    a = torch.from_numpy(rng.randn(M, Kd)).float()
-    w = P.prepare_weight(torch.from_numpy(
-        rng.randn(*((N, Kd) if wt else (Kd, N))) / np.sqrt(Kd)), mode)
-    got = K._launch_gemm(lib, a, w, K._GEMM_MODE[mode], wt, absolute, dual,
-                         tile, None)
+    prev = lib.te_gemm_grid_cap(grid)
+    try:
+        if isinstance(instance, str):
+            _check_core_bf16_instance(lib, rng, instance, mode, tile, M, N,
+                                      Kd)
+            return
+        wt, absolute, dual = instance
+        a = torch.from_numpy(rng.randn(M, Kd)).float()
+        w = P.prepare_weight(torch.from_numpy(
+            rng.randn(*((N, Kd) if wt else (Kd, N))) / np.sqrt(Kd)), mode)
+        got = K._launch_gemm(lib, a, w, K._GEMM_MODE[mode], wt, absolute,
+                             dual, tile, None)
+    finally:
+        lib.te_gemm_grid_cap(prev)
     want = K.gemm_core_plain(a.double(), w, mode, wt, absolute, dual)
-    wv = sum(t.double() for t in w).abs()
-    mag = a.double().abs() @ (wv.t() if wt else wv)
+    mag = _core_mag(a, w, wt)
     got, want = (got, want) if dual else ((got,), (want,))
     for g, q in zip(got, want):
         assert g.shape == (M, N) and g.dtype == torch.float32
@@ -612,6 +696,89 @@ def test_gemm_core_tiles_match_kdot(lib, shape, mode, instance):
         # K·2⁻²⁴ of Σ|a·w| of the float64 sum of the same bf16 products
         err = ((g.double() - q).abs() / mag).max().item()
         assert err <= Kd * 2.0 ** -24, err
+
+
+def _check_core_bf16_instance(lib, rng, instance, mode, tile, M, N, Kd):
+    """The tensor-parallel MLP kernels' instances: one-pass bf16 products,
+    held to kdot in float64 as above; in bf16×3 the core refuses them."""
+    flag = K._GEMM_MODE[mode]
+    if instance.startswith("bf16 A"):
+        dual = instance.endswith("dual")
+        a = torch.from_numpy(rng.randn(M, Kd)).to(torch.bfloat16)
+        w = P.prepare_weight(torch.from_numpy(rng.randn(Kd, N)
+                                              / np.sqrt(Kd)), mode)
+        run = lambda: K._launch_gemm(lib, a, w, flag, False, False, dual,
+                                     tile, None)
+        if mode != "bfloat16":
+            with pytest.raises(RuntimeError, match="gemm_core"):
+                run()
+            return
+        got = run()
+        got = got if dual else (got,)
+        want = K.gemm_core_plain(a.double(), w, mode, False, False, dual)
+        want = want if dual else (want,)
+        mags = [_core_mag(a, w, False)] * len(got)
+    else:
+        a0, w0, a1, w1, wts = _fused_case(rng, instance, M, N, Kd)
+        run = lambda: K._launch_gemm_fused(lib, instance, flag, a0, w0, a1,
+                                           w1, None)
+        if mode != "bfloat16":
+            with pytest.raises(RuntimeError, match="gemm_core"):
+                run()
+            return
+        got = run()
+        want = K.gemm_core_fused_plain(
+            instance, a0.double(), w0, None if a1 is None else a1.double(),
+            w1)
+        ops = {"two_a": [(a0, w0), (a1, w1)],
+               "dual_abs_a": [(a0, w0), (a0, w0)],
+               "three": [(a0, w0), (a0, w0), (a1, w1)],
+               "group": [(a0, w0), (a0, w0), (a1, w1)]}[instance]
+        mags = [_core_mag(a, w, wt) for (a, w), wt in zip(ops, wts)]
+    assert len(got) == len(want)
+    for g, q, mag in zip(got, want, mags):
+        assert g.shape == (M, N) and g.dtype == torch.float32
+        err = ((g.double() - q).abs() / mag).max().item()
+        assert err <= Kd * 2.0 ** -24, err
+
+
+@pytest.mark.parametrize("grid", [0, 1])
+@pytest.mark.parametrize("kind", sorted(K.FUSED_KINDS) + ["bf16 A"])
+def test_gemm_core_fused_passes_are_bitwise_separate(lib, kind, grid):
+    """Each fused pass (and a product on bf16 A rows) gives bitwise what the
+    core's separate launches give on the same operands (float32 rows that
+    hold the bf16 values): each output's chain over k is the same."""
+    M, N, Kd = 136, 200, 264
+    rng = np.random.RandomState(71)
+    prev = lib.te_gemm_grid_cap(grid)
+    try:
+        if kind == "bf16 A":
+            a = torch.from_numpy(rng.randn(M, Kd)).to(torch.bfloat16)
+            w = P.prepare_weight(torch.from_numpy(rng.randn(Kd, N)
+                                                  / np.sqrt(Kd)), "bfloat16")
+            got = K._launch_gemm(lib, a, w, 0, False, False, True, -1, None)
+            want = K._launch_gemm(lib, a.float(), w, 0, False, False, True,
+                                  -1, None)
+        else:
+            a0, w0, a1, w1, _ = _fused_case(rng, kind, M, N, Kd)
+            got = K._launch_gemm_fused(lib, kind, 0, a0, w0, a1, w1, None)
+            f0 = a0.float()
+            f1 = None if a1 is None else a1.float()
+            sep = lambda a, w, wt, ab=False, du=False: K._launch_gemm(
+                lib, a, w, 0, wt, ab, du, -1, None)
+            want = {"two_a": lambda: (sep(f0, w0, True), sep(f1, w1, False)),
+                    "dual_abs_a": lambda: (sep(f0, w0, True),
+                                           sep(f0, w0, True, True)),
+                    "three": lambda: (*sep(f0, w0, False, du=True),
+                                      sep(f1, w1, True, True)),
+                    "group": lambda: (sep(f0, w0, True),
+                                      sep(f0, w0, True, True),
+                                      sep(f1, w1, False))}[kind]()
+    finally:
+        lib.te_gemm_grid_cap(prev)
+    assert len(got) == len(want)
+    for i, (g, q) in enumerate(zip(got, want)):
+        assert torch.equal(g.view(torch.int32), q.view(torch.int32)), i
 
 
 def test_gemm_core_rejects_what_it_does_not_take(lib):

@@ -13,6 +13,7 @@
 #include <stdint.h>
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
+#include <cudaTypedefs.h>   // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #endif
 
 // The launch syntax sits behind a macro so that the sources also compile as
@@ -161,31 +162,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
 #ifdef __CUDACC__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
-// cp_async16 with zero fill: where ok is false nothing is read and the 16
-// bytes are written as zeros (the ragged edges of a GEMM tile)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 bool ok) {
-#ifdef __CUDACC__
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-#else
-  if (ok) __builtin_memcpy(dst, src, 16);
-  else __builtin_memset(dst, 0, 16);
-#endif
-}
-
-// Makes this thread's completed generic-proxy writes to shared memory (plain
-// stores and cp.async) visible to the async proxy, which wgmma reads its
-// shared-memory operands through; a barrier after it extends that to the
-// other threads' wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-#ifdef __CUDACC__
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #endif
 }
 
@@ -349,6 +325,155 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
 
 #else
   te_emu_wgmma<N>(d, a, desc, TB);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper pipeline pieces of the GEMM core (gemm.cuh): mbarriers in
+// shared memory, the TMA's 2D tensor loads that complete on them, and the
+// warpgroups' register budgets. The emulator gives each a plain counterpart
+// (tests/cuda_emulator/cuda_runtime.h).
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+using TmaMap = CUtensorMap;
+#else
+using TmaMap = te_emu_tma_map;
+#endif
+
+// A tensor map for 2D TMA loads of a row-major array of dim1 rows of dim0
+// elements (esize 4: float32, 2: bf16) at a pitch of pitch bytes, in boxes
+// of box0 × box1 elements (box0 · esize = 128 bytes: one swizzle row) with
+// the 128-byte swizzle; elements outside the array load as zeros. Returns
+// a CUDA error code (cuTensorMapEncodeTiled is looked up through the
+// runtime's entry-point query, so nothing links against libcuda).
+inline int tma_map_2d(TmaMap* m, const void* base, int esize, uint64_t dim0,
+                      uint64_t dim1, uint64_t pitch, uint32_t box0,
+                      uint32_t box1) {
+#ifdef __CUDACC__
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {dim0, dim1};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box0, box1};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(
+      m, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+#else
+  return te_emu_tma_encode(m, base, esize, dim0, dim1, pitch, box0, box1);
+#endif
+}
+
+// mbarrier.init with `count` expected arrivals a phase (one thread), then
+// mbar_fence_init() and a block barrier before any use
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+#else
+  te_emu_mbar_init(bar, count);
+#endif
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+#ifdef __CUDACC__
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+// one arrival (release: this thread's shared-memory reads and writes before
+// it are ordered before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+#else
+  te_emu_mbar_arrive(bar, 0);
+#endif
+}
+
+// one arrival that also expects `bytes` of asynchronous copies to complete
+// on the barrier before its phase does
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+#else
+  te_emu_mbar_arrive(bar, bytes);
+#endif
+}
+
+// waits until the barrier's phase of parity `parity` has completed
+// (acquire: what was written before it completed is visible after)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+#ifdef __CUDACC__
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+#else
+  te_emu_mbar_wait(bar, parity);
+#endif
+}
+
+// TMA: the box of the map at element (c0, c1) into shared memory at dst
+// (1024-byte aligned for the swizzle), its bytes completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const TmaMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+#else
+  te_emu_tma_load_2d(dst, map, c0, c1, bar);
+#endif
+}
+
+// A warpgroup's register budget: all four warps call it together, the
+// producer to give registers back, the consumers to take them
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+#ifdef __CUDACC__
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+#ifdef __CUDACC__
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 #endif
 }
 

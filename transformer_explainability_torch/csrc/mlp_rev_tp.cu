@@ -26,14 +26,31 @@
 //
 // What bounds it on the H100: as in block_rev.cu's MLP half, the shard's
 // weights and the (B·n, M/k) intermediates do not fit in shared memory, so
-// each phase is a sequence of launches over the whole batch through one
-// workspace: a LayerNorm row kernel and the GEMM core (gemm.cuh, wgmma
+// each phase is a short sequence of launches over the whole batch through
+// one workspace: a LayerNorm row kernel and the GEMM core (gemm.cuh, wgmma
 // bf16 / bf16×3 on the tensor cores) with the elementwise work in the
 // epilogues. Each phase is five products (2·B·n·D·M/k FLOP each, times the
-// passes of its mode) and is bound by the GEMM core (at ViT-B/16 B=8, k = 1,
-// on an H100 at 700 W: 0.24 and 0.22 ms a phase against 0.04 at the tensor
-// cores' rate; the epilogues' reads and writes of the (B·n, M/k) arrays
-// are much of it).
+// passes of its mode): operations-bound (0.04 ms a phase at ViT-B/16 B=8,
+// k = 1 at the tensor cores' rate), and the (B·n, M/k) intermediates'
+// round trips through device memory are as many bytes again. So in the
+// presets' modes (every product one-pass bf16) each phase runs as few
+// passes as its dependencies allow, on the core's fused passes:
+//   phase 1: LN2 (xn2, and g_out rounded, as bf16); one pass of fc1 and
+//     g_out·W2 on their common (rows, M/k) tile (two A operands, W1
+//     K-major, W2 MN-major), whose epilogue forms fc1_pre, hg and g_h1 from
+//     registers; then one grouped launch of fc2 with |hg|·|W2|ᵀ (one staged
+//     hg, the second product on |hg|) and g_h1·W1, which fill the card
+//     together;
+//   phase 2: LN2 (xn2, and Sr rounded, as bf16); one pass of Sr·W2,
+//     Sr·|W2| and |xn2|·|W1|ᵀ (three accumulator sets), whose epilogue
+//     forms R2 and S1 at once (R2 never reaches device memory); then the
+//     dual S1·W1 / S1·|W1|.
+// xn2, g_out, Sr, hg, g_h1 and S1 are read only as one-pass bf16 A operands
+// there, so they are staged as bf16, rounded as the core rounds a float32
+// A (half the bytes and a deeper ring, no split in the consumers'
+// registers): every product is bitwise the separate launches'
+// (mlp_rev_tp1/2 with fused = 0, which the bf16×3 modes run). fc1_pre is
+// an output and stays float32.
 // Every sum has a fixed order (no atomics): the outputs are bitwise
 // repeatable.
 #include "rules.cuh"
@@ -43,17 +60,56 @@ namespace te {
 // phase 2's fc2 rule numerator with hg re-formed from the anchor:
 // (hg ⊙ Sr·W2 + |hg| ⊙ Sr·|W2|) / 2, hg = gelu(fc1_pre + b1) as in
 // EpiGeluGrad
+__device__ __forceinline__ float rule_num_gelu(float pre, float b1, float a,
+                                               float b) {
+  const float hg = gelu(pre + b1);
+  return 0.5f * (hg * a + fabsf(hg) * b);
+}
+
 struct EpiRuleNumGelu {
   float* out; const float* fc1_pre; const float* b1; int N;
+  static constexpr bool kLong = true;
   struct In { float pre, b1; };
   __device__ In load(int r, int c) const {
     return {fc1_pre[(size_t)r * N + c], b1[c]};
   }
   __device__ void operator()(int r, int c, float a, float b,
                              const In& in) const {
-    const float h = in.pre + in.b1;
-    const float hg = gelu(h);
-    out[(size_t)r * N + c] = 0.5f * (hg * a + fabsf(hg) * b);
+    out[(size_t)r * N + c] = rule_num_gelu(in.pre, in.b1, a, b);
+  }
+};
+
+// phase 1's first pass (a = xn2·W1ᵀ, b = g_out·W2): fc1_pre, and from h1 =
+// fc1_pre + b1 as EpiGeluGrad forms them, g_h1 and hg as bf16
+struct EpiFc1Grad {
+  float* fc1_pre; uint16_t* g_h1; uint16_t* hg; const float* b1; int N;
+  static constexpr bool kLong = true;
+  struct In { float b1; };
+  __device__ In load(int, int c) const { return {b1[c]}; }
+  __device__ void operator()(int r, int c, float a, float b,
+                             const In& in) const {
+    const size_t o = (size_t)r * N + c;
+    fc1_pre[o] = a;
+    const float h = a + in.b1;
+    g_h1[o] = f2bf(b * gelu_grad(h));
+    hg[o] = f2bf(gelu(h));
+  }
+};
+
+// phase 2's three-set pass (a = Sr·W2, b = Sr·|W2|, d = |xn2|·|W1|ᵀ): R2
+// as EpiRuleNumGelu forms it, S1 = safe_divide(R2, (fc1_pre + d) / 2) as
+// EpiRuleDen, stored as bf16
+struct EpiRuleS1 {
+  uint16_t* S1; const float* fc1_pre; const float* b1; int N;
+  static constexpr bool kLong = true;
+  struct In { float pre, b1; };
+  __device__ In load(int r, int c) const {
+    return {fc1_pre[(size_t)r * N + c], b1[c]};
+  }
+  __device__ void operator()(int r, int c, float a, float b, float d,
+                             const In& in) const {
+    const float R2 = rule_num_gelu(in.pre, in.b1, a, b);
+    S1[(size_t)r * N + c] = f2bf(safe_divide(R2, 0.5f * (in.pre + d)));
   }
 };
 
@@ -64,8 +120,36 @@ int mlp_rev_tp1(const float* x_mid, const float* g_out, const float* ln2s,
                 const uint16_t* w2_alo, float* fc1_pre, float* fc2_pre,
                 float* axw2, float* gxn2, char* work, size_t* work_bytes,
                 int rows, int D, int Ml, float eps, int mlp, int rule,
-                cudaStream_t stream) {
+                int fused, cudaStream_t stream) {
   Carve ws{work};
+  if (fused && mlp == kBf16 && rule == kBf16) {
+    uint16_t* xn2 = ws.take<uint16_t>((size_t)rows * D);
+    uint16_t* g16 = ws.take<uint16_t>((size_t)rows * D);
+    uint16_t* g_h1 = ws.take<uint16_t>((size_t)rows * Ml);
+    uint16_t* hg = ws.take<uint16_t>((size_t)rows * Ml);
+    if (work == nullptr) {
+      *work_bytes = ws.used;
+      return 0;
+    }
+    if (D % 8 || Ml % 8) return (int)cudaErrorInvalidValue;
+    TE_TRY(ln_fwd(x_mid, ln2s, ln2b, xn2, rows, D, eps, stream, g_out, g16));
+    GemmItem<FusedTile<SpecTwoA>, EpiFc1Grad> p1;
+    TE_TRY(gemm_item(p1, EpiFc1Grad{fc1_pre, g_h1, hg, b1, Ml}, rows, Ml, D,
+                     {xn2, g16}, {D, D}, {w1_hi, w2_hi, nullptr, nullptr},
+                     {D, Ml, 0, 0}));
+    TE_TRY(gemm_run(p1, stream));
+    using Fc2 = SpecDualAbsA;
+    using Gxn2 = SpecStd<kBf16, false, false, false, true>;
+    GemmItem<FusedTile<Fc2>, EpiStore2> p2;
+    GemmItem<FusedTile<Gxn2>, EpiStore> p3;
+    TE_TRY(gemm_item(p2, EpiStore2{fc2_pre, axw2, D}, rows, D, Ml,
+                     {hg, nullptr}, {Ml, 0},
+                     {w2_hi, w2_ahi, nullptr, nullptr}, {Ml, Ml, 0, 0}));
+    TE_TRY(gemm_item(p3, EpiStore{gxn2, D}, rows, D, Ml, {g_h1, nullptr},
+                     {Ml, 0}, {w1_hi, nullptr, nullptr, nullptr},
+                     {D, 0, 0, 0}));
+    return gemm_run(p2, stream, p3);
+  }
   float* xn2 = ws.take<float>((size_t)rows * D);
   float* g_h1 = ws.take<float>((size_t)rows * Ml);
   float* hg = ws.take<float>((size_t)rows * Ml);
@@ -99,8 +183,29 @@ int mlp_rev_tp2(const float* x_mid, const float* Sr, const float* fc1_pre,
                 const uint16_t* w1_ahi, const uint16_t* w1_alo,
                 const uint16_t* w2_ahi, const uint16_t* w2_alo, float* num_w,
                 float* num_a, char* work, size_t* work_bytes, int rows, int D,
-                int Ml, float eps, int rule, cudaStream_t stream) {
+                int Ml, float eps, int rule, int fused,
+                cudaStream_t stream) {
   Carve ws{work};
+  if (fused && rule == kBf16) {
+    uint16_t* xn2 = ws.take<uint16_t>((size_t)rows * D);
+    uint16_t* Sr16 = ws.take<uint16_t>((size_t)rows * D);
+    uint16_t* S1 = ws.take<uint16_t>((size_t)rows * Ml);
+    if (work == nullptr) {
+      *work_bytes = ws.used;
+      return 0;
+    }
+    if (D % 8 || Ml % 8) return (int)cudaErrorInvalidValue;
+    TE_TRY(ln_fwd(x_mid, ln2s, ln2b, xn2, rows, D, eps, stream, Sr, Sr16));
+    GemmItem<FusedTile<SpecThree>, EpiRuleS1> p1;
+    TE_TRY(gemm_item(p1, EpiRuleS1{S1, fc1_pre, b1, Ml}, rows, Ml, D,
+                     {Sr16, xn2}, {D, D}, {w2_hi, w2_ahi, w1_ahi, nullptr},
+                     {Ml, Ml, D, 0}));
+    TE_TRY(gemm_run(p1, stream));
+    GemmArgs g{nullptr, w1_hi, nullptr, 0, D, rows, D, Ml, w1_ahi, nullptr};
+    g.A16 = S1;
+    g.lda = Ml;
+    return gemm16<false, false, true>(g, EpiStore2{num_w, num_a, D}, stream);
+  }
   float* xn2 = ws.take<float>((size_t)rows * D);
   float* R2 = ws.take<float>((size_t)rows * Ml);
   float* S1 = ws.take<float>((size_t)rows * Ml);
@@ -127,7 +232,9 @@ int mlp_rev_tp2(const float* x_mid, const float* Sr, const float* fc1_pre,
 // width, Ml this shard's MLP width M/k. The workspace comes last before the
 // sizes (null: only write its size to *work_bytes). Modes: mlp (the
 // forward, backward and fc2 products) and rule (the rule products) 0 = bf16,
-// 1 = bf16×3.
+// 1 = bf16×3. fused: 1 the fused passes where every product of the phase is
+// one-pass bf16, 0 the separate launches (the checks hold the two bitwise
+// equal).
 // phase 1 pointers: x_mid, g_out, ln2s, ln2b, b1, the (hi, lo) planes of W1,
 // W2 and |W2|; outputs fc1_pre, fc2_pre, axw2, g_xn2.
 extern "C" int te_mlp_rev_tp1_f32(
@@ -135,7 +242,7 @@ extern "C" int te_mlp_rev_tp1_f32(
     const void* b1, const void* w1_hi, const void* w1_lo, const void* w2_hi,
     const void* w2_lo, const void* w2_ahi, const void* w2_alo, void* fc1_pre, void* fc2_pre, void* axw2, void* gxn2,
     void* work, void* work_bytes, int rows, int D, int Ml, double eps,
-    int mlp, int rule, void* stream) {
+    int mlp, int rule, int fused, void* stream) {
   using F = const float*;
   using W = const uint16_t*;
   return te::mlp_rev_tp1(
@@ -146,7 +253,7 @@ extern "C" int te_mlp_rev_tp1_f32(
       static_cast<float*>(fc1_pre), static_cast<float*>(fc2_pre),
       static_cast<float*>(axw2), static_cast<float*>(gxn2),
       static_cast<char*>(work), static_cast<size_t*>(work_bytes), rows, D,
-      Ml, (float)eps, mlp, rule, static_cast<cudaStream_t>(stream));
+      Ml, (float)eps, mlp, rule, fused, static_cast<cudaStream_t>(stream));
 }
 
 // phase 2 pointers: x_mid, Sr, fc1_pre (phase 1's anchor), ln2s, ln2b, b1,
@@ -157,8 +264,8 @@ extern "C" int te_mlp_rev_tp2_f32(
     const void* ln2b, const void* b1, const void* w1_hi, const void* w1_lo,
     const void* w2_hi, const void* w2_lo, const void* w1_ahi,
     const void* w1_alo, const void* w2_ahi, const void* w2_alo, void* num_w,
-    void* num_a, void* work, void* work_bytes, int rows, int D, int Ml, double eps,
-    int rule, void* stream) {
+    void* num_a, void* work, void* work_bytes, int rows, int D, int Ml,
+    double eps, int rule, int fused, void* stream) {
   using F = const float*;
   using W = const uint16_t*;
   return te::mlp_rev_tp2(
@@ -169,6 +276,6 @@ extern "C" int te_mlp_rev_tp2_f32(
       static_cast<W>(w2_ahi), static_cast<W>(w2_alo),
       static_cast<float*>(num_w), static_cast<float*>(num_a),
       static_cast<char*>(work),
-      static_cast<size_t*>(work_bytes), rows, D, Ml, (float)eps, rule,
+      static_cast<size_t*>(work_bytes), rows, D, Ml, (float)eps, rule, fused,
       static_cast<cudaStream_t>(stream));
 }

@@ -44,6 +44,7 @@ struct EpiAdd {
 // g_h1 = (g_out·W2) ⊙ gelu′(h1), and hg = gelu(h1), h1 = fc1_pre + b1
 struct EpiGeluGrad {
   float* g_h1; float* hg; const float* fc1_pre; const float* b1; int N;
+  static constexpr bool kLong = true;
   struct In { float pre, b1; };
   __device__ In load(int r, int c) const {
     return {fc1_pre[(size_t)r * N + c], b1[c]};

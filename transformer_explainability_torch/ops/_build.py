@@ -126,14 +126,18 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.te_bert_out_rev_f32.restype = I
     lib.te_bert_attn_rev_f32.argtypes = [P] * 36 + [I] * 4 + [F] + [I] * 4 + [P]
     lib.te_bert_attn_rev_f32.restype = I
-    lib.te_mlp_rev_tp1_f32.argtypes = [P] * 17 + [I] * 3 + [F, I, I, P]
+    lib.te_mlp_rev_tp1_f32.argtypes = [P] * 17 + [I] * 3 + [F, I, I, I, P]
     lib.te_mlp_rev_tp1_f32.restype = I
-    lib.te_mlp_rev_tp2_f32.argtypes = [P] * 18 + [I] * 3 + [F, I, P]
+    lib.te_mlp_rev_tp2_f32.argtypes = [P] * 18 + [I] * 3 + [F, I, I, P]
     lib.te_mlp_rev_tp2_f32.restype = I
     lib.te_mlp_rev_f32.argtypes = [P] * 19 + [I] * 4 + [F, I, I, P]
     lib.te_mlp_rev_f32.restype = I
-    lib.te_gemm_f32.argtypes = [P] * 7 + [I] * 10 + [P]
+    lib.te_gemm_f32.argtypes = [P] * 7 + [I] * 11 + [P]
     lib.te_gemm_f32.restype = I
+    lib.te_gemm_fused_f32.argtypes = [I, I] + [P] * 8 + [I] * 8 + [P]
+    lib.te_gemm_fused_f32.restype = I
+    lib.te_gemm_grid_cap.argtypes = [I]
+    lib.te_gemm_grid_cap.restype = I
     lib.te_error_string.argtypes = [I]
     lib.te_error_string.restype = ctypes.c_char_p
     return lib

@@ -405,13 +405,13 @@ def _abs_planes(name: str, w):
 
 def _launch_mlp_rev_tp1(lib, x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
                         ln2b: Tensor, b1: Tensor, w1, w2, eps: float,
-                        flags: dict, stream):
+                        flags: dict, stream, fused: bool = True):
     b, n, D = x_mid.shape
     Ml = b1.shape[0]
     fc1_pre = torch.empty(b, n, Ml, dtype=x_mid.dtype, device=x_mid.device)
     parts = [torch.empty_like(x_mid) for _ in range(3)]
     fn = lib.te_mlp_rev_tp1_f32
-    dims = [b * n, D, Ml, float(eps), flags["mlp"], flags["rule"]]
+    dims = [b * n, D, Ml, float(eps), flags["mlp"], flags["rule"], int(fused)]
     work = _workspace(fn, dims, x_mid.device)
     _raise_on_error("mlp_rev_tp_phase1", lib, fn(
         *[t.data_ptr() for t in (x_mid, g_out, ln2s, ln2b, b1)],
@@ -424,11 +424,11 @@ def _launch_mlp_rev_tp1(lib, x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
 
 def _launch_mlp_rev_tp2(lib, x_mid: Tensor, Sr: Tensor, fc1_pre: Tensor,
                         ln2s: Tensor, ln2b: Tensor, b1: Tensor, w1, w2,
-                        eps: float, flags: dict, stream):
+                        eps: float, flags: dict, stream, fused: bool = True):
     b, n, D = x_mid.shape
     num_w, num_a = torch.empty_like(x_mid), torch.empty_like(x_mid)
     fn = lib.te_mlp_rev_tp2_f32
-    dims = [b * n, D, b1.shape[0], float(eps), flags["rule"]]
+    dims = [b * n, D, b1.shape[0], float(eps), flags["rule"], int(fused)]
     work = _workspace(fn, dims, x_mid.device)
     _raise_on_error("mlp_rev_tp_phase2", lib, fn(
         *[t.data_ptr() for t in (x_mid, Sr, fc1_pre, ln2s, ln2b, b1)],
@@ -455,17 +455,47 @@ def _launch_mlp_rev(lib, x_mid: Tensor, g_out: Tensor, R: Tensor,
 
 def _launch_gemm(lib, a: Tensor, w, flag: int, wt: bool, absolute: bool,
                  dual: bool, tile: int, stream):
+    """The core alone; ``a`` float32, or bf16 rows (one-pass products
+    ``g·W``, plain or dual, on the core's bf16 A path)."""
     M, K = a.shape
     N = w[0].shape[0] if wt else w[0].shape[1]
-    C = torch.empty(M, N, dtype=a.dtype, device=a.device)
+    C = torch.empty(M, N, dtype=torch.float32, device=a.device)
     C_abs = torch.empty_like(C) if dual else None
     _raise_on_error("gemm_core", lib, lib.te_gemm_f32(
         a.data_ptr(), *_planes(w.abs if absolute else w),
         *_abs_planes("gemm_core", w), C.data_ptr(),
         None if C_abs is None else C_abs.data_ptr(), M, N, K, K,
         w[0].shape[1], flag, int(wt), int(absolute), int(dual), tile,
-        stream))
+        int(a.dtype == torch.bfloat16), stream))
     return (C, C_abs) if dual else C
+
+
+# the core's fused passes (csrc/gemm.cu, te_gemm_fused_f32), by kind: bf16
+# rows a0, a1 and prepared weights w0, w1 (:func:`gemm_core_fused_plain`)
+FUSED_KINDS = {"two_a": 0, "dual_abs_a": 1, "three": 2, "group": 3}
+
+
+def _launch_gemm_fused(lib, kind: str, flag: int, a0: Tensor, w0,
+                       a1: Optional[Tensor], w1, stream):
+    """One fused pass of the core alone (or its grouped launch); see
+    :func:`gemm_core_fused_plain` for what each kind computes."""
+    M, K = a0.shape
+    wt0 = kind != "three"
+    N = w0[0].shape[0] if wt0 else w0[0].shape[1]
+    n_out = 2 if kind in ("two_a", "dual_abs_a") else 3
+    outs = [torch.empty(M, N, dtype=torch.float32, device=a0.device)
+            for _ in range(n_out)]
+    # the planes p0, p1, p2 of te_gemm_fused_f32, each's pitch its width
+    planes = (w0[0], (w1 if kind == "two_a" else w0.abs)[0],
+              None if n_out == 2 else (w1.abs if kind == "three" else w1)[0])
+    lds = [0 if t is None else t.shape[1] for t in planes]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _raise_on_error("gemm_core", lib, lib.te_gemm_fused_f32(
+        FUSED_KINDS[kind], flag, a0.data_ptr(), ptr(a1),
+        *[ptr(t) for t in planes], *[o.data_ptr() for o in outs],
+        *([None] * (3 - n_out)), M, N, K, K, K if a1 is not None else 0,
+        *lds, stream))
+    return tuple(outs)
 
 
 def _check_tp_weights(name: str, weights, like: Tensor, Ml: int) -> None:
@@ -899,7 +929,9 @@ def gemm_core(a: Tensor, w, mxu: str, wt: bool = True,
     :func:`gemm_core_plain`: the entry that holds the core to its plain
     version at the layer kernels' shapes, in the instances they launch
     (``(wt, absolute, dual)`` = (1, 0, 0), (0, 0, 0), (1, 1, 0), (0, 0, 1))
-    and both modes. ``a`` float32 on the card; ``tile`` -1 takes the tile
+    and both modes. ``a`` float32 on the card, or bf16 rows for the
+    one-pass products ``g·W`` (plain or dual) that the tensor-parallel MLP
+    kernels run on bf16 A; ``tile`` -1 takes the tile
     the layer kernels take for this shape, 0 the large, 1 the small one.
     Not on any path: its launches are counted apart from the kernels'."""
     name = "gemm_core"
@@ -909,13 +941,69 @@ def gemm_core(a: Tensor, w, mxu: str, wt: bool = True,
     if (w[0].shape[1] if wt else w[0].shape[0]) != K:
         raise ValueError(f"{name}: weight {tuple(w[0].shape)} does not "
                          f"match a {tuple(a.shape)} (wt={wt})")
-    device = _check(name, [a], [(M, K)])
-    if device == "cpu":
-        return gemm_core_plain(a, w, mxu, wt, absolute, dual)
-    flag = _tp_modes(name, a, (w,), mxu=mxu)["mxu"]
+    if a.dtype == torch.bfloat16:       # bf16 rows: the core's gemm16
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: input must be contiguous")
+        if a.device.type == "cpu":
+            return gemm_core_plain(a.float(), w, mxu, wt, absolute, dual)
+        flag = _mode_flag(name, "mxu", mxu, _GEMM_MODE)
+    else:
+        if _check(name, [a], [(M, K)]) == "cpu":
+            return gemm_core_plain(a, w, mxu, wt, absolute, dual)
+        flag = _tp_modes(name, a, (w,), mxu=mxu)["mxu"]
     with torch.cuda.device(a.device):
         outs = _launch_gemm(_lib(), a, w, flag, wt, absolute, dual, tile,
                             _stream(a))
+    gemm_core.launches += 1
+    return outs
+
+
+def gemm_core_fused_plain(kind: str, a0: Tensor, w0,
+                          a1: Optional[Tensor] = None,
+                          w1=None) -> Tuple[Tensor, ...]:
+    """What the core's fused passes compute, all bf16 products
+    (:func:`gemm_core_plain` each): ``two_a`` (a0·w0ᵀ, a1·w1),
+    ``dual_abs_a`` (a0·w0ᵀ, |a0|·|w0|ᵀ), ``three`` (a0·w0, a0·|w0|,
+    |a1|·|w1|ᵀ) and ``group`` (a0·w0ᵀ, |a0|·|w0|ᵀ, a1·w1), with ``w0``,
+    ``w1`` :class:`..precision.PreparedWeight` s (N, K) where transposed,
+    else (K, N)."""
+    bf = "bfloat16"
+    if kind == "two_a":
+        return (gemm_core_plain(a0, w0, bf, True),
+                gemm_core_plain(a1, w1, bf, False))
+    if kind == "three":
+        return (*gemm_core_plain(a0, w0, bf, False, dual=True),
+                gemm_core_plain(a1, w1, bf, True, absolute=True))
+    if kind not in ("dual_abs_a", "group"):
+        raise ValueError(f"gemm_core_fused: unknown kind {kind!r}")
+    dual_abs = (gemm_core_plain(a0, w0, bf, True),
+                gemm_core_plain(a0, w0, bf, True, absolute=True))
+    if kind == "group":
+        return (*dual_abs, gemm_core_plain(a1, w1, bf, False))
+    return dual_abs
+
+
+def gemm_core_fused(kind: str, a0: Tensor, w0, a1: Optional[Tensor] = None,
+                    w1=None, mxu: str = "bfloat16") -> Tuple[Tensor, ...]:
+    """The GEMM core's fused passes alone (``csrc/gemm.cu``,
+    ``te_gemm_fused_f32``), as :func:`gemm_core_fused_plain`: the two-operand
+    pass, the dual pass whose second product takes |A|, the three-set pass
+    and the grouped launch the tensor-parallel MLP kernels run. ``a0``,
+    ``a1`` bf16 (M, K) rows (the operands those kernels stage as bf16). Not
+    on any path: its launches are counted with :func:`gemm_core`'s."""
+    name = "gemm_core"
+    if kind not in FUSED_KINDS:
+        raise ValueError(f"{name}: unknown fused kind {kind!r}")
+    for t in (a0, a1):
+        if t is not None and (not t.is_contiguous() or t.device != a0.device
+                              or t.ndim != 2):
+            raise ValueError(f"{name}: (M, K) contiguous rows on one device")
+    if a0.device.type == "cpu":
+        return gemm_core_fused_plain(kind, a0, w0, a1, w1)
+    flag = _mode_flag(name, "mxu", mxu, _GEMM_MODE)
+    with torch.cuda.device(a0.device):
+        outs = _launch_gemm_fused(_lib(), kind, flag, a0, w0, a1, w1,
+                                  _stream(a0))
     gemm_core.launches += 1
     return outs
 
