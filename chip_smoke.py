@@ -31,7 +31,11 @@ result line):
      and that no instance of B5's row pass, of the column pass or of B4's
      tile as B2 instantiates it spills; B4 and B5 in the TP modes also at
      n = 29 and n = 261, and B5's probabilities bitwise B2's probs anchor
-     from B2's own qkv;
+     from B2's own qkv; the rollout B1 in both its forms (the full product
+     and its row 0, ``rows=1``) at ViT-B/16 and the ragged shape and, row-
+     normalised, at BERT-base's n = 512 from start layers 11 and 0 and at
+     n = 1031 (the wide instances' column passes), and its per-head pass
+     with grads at ViT-B/16;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -63,7 +67,10 @@ result line):
      from the profiler) and in the split path's bf16 mode, B5 in exact
      FP32 and in the TP production and split path modes (its launches
      from the profiler) and B2's attention-core launch, each beside its
-     bound, B7 and B9 at
+     bound, B1's row form (the paths' call; the kernels line takes its
+     launch's device time from the profiler), its
+     full form and its per-head input (the head-mean pass's launch from the
+     profiler), B7 and B9 at
      S=512 and S=128, B7's attention-core launch (profiler) beside
      ``scaled_dot_product_attention`` with the additive mask on the same
      q, k, v at S=512, the GEMM core alone at the shapes checked in
@@ -236,12 +243,14 @@ def main() -> int:
                         print(f"  ptxas core (B10) {entry[:96]}: "
                               f"{regs[-1]} registers; {spill}")
                 # B2's instances of B4's tile (the anchors: the last
-                # template argument true), B5's row pass, the column pass
+                # template argument true), B5's row pass, the column pass,
+                # B1's chain
                 redesigned = bool(re.search(
                     r"attn_fwd_kernelI[fd]Lb[01]ELi\d+ELb1E", entry)) or (
                     "blk_attn_rev_cols_kernel" in entry) or (
                     "attn_rev_rows_kernel" in entry
-                    and "blk_attn" not in entry and "bert_attn" not in entry)
+                    and "blk_attn" not in entry and "bert_attn" not in entry
+                    ) or "rollout_chain_kernel" in entry
                 if redesigned and not clean:
                     redesign_spills.append(entry)
                 if not clean or redesigned or any(k in entry for k in (
@@ -259,7 +268,8 @@ def main() -> int:
               + "".join(f"\n    {r[:300]}" for r in remarks[:4]))
         require(not core_spills, f"GEMM-core instances spill: {core_spills}")
         require(not redesign_spills,
-                f"B2's attention core, B5's row or column pass spill: "
+                f"B2's attention core, B5's row or column pass or B1's "
+                f"chain spill: "
                 f"{redesign_spills}")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
@@ -337,6 +347,34 @@ def main() -> int:
         for sname, shp in shapes.items():
             check_f64_f32(name, kern, plain, make(*shp, torch.float64),
                           f"{sname} {tuple(shp)}", sname == "main")
+    # B1's row form (rows=1, the one every path calls) beside the full form
+    # above, and its per-head pass with grads at ViT-B/16, each from the
+    # same inputs in float64 and float32. Their own generator keeps the
+    # inputs of every check below independent of them
+    b1_gen = torch.Generator(device=dev).manual_seed(11)
+
+    def b1_randn(*shape, dtype=torch.float64):
+        return torch.randn(*shape, generator=b1_gen, device=dev,
+                           dtype=torch.float64).to(dtype)
+
+    _, kern, plain = cases["rollout_from_grad_cam"]
+    for sname, (b, nn_, _, _) in shapes.items():
+        check_f64_f32("rollout_from_grad_cam", kern, plain,
+                      (b1_randn(b, L, nn_, nn_).abs() * 1e-3, 0),
+                      f"rows=1 {sname} {(b, nn_)}", sname == "main", rows=1)
+    heads = (b1_randn(B, L, h, n, n) * 1e-2, b1_randn(B, L, h, n, n))
+    for start in (0, 3):
+        check_f64_f32("rollout_from_grad_cam", kern, plain,
+                      (heads[0], start, False, heads[1]),
+                      f"per-head with grads start {start} rows=1 "
+                      f"{(B, L, h, n)}", True, rows=1)
+    del heads
+    # above 1024 tokens both forms walk their columns in passes (the wide
+    # instances): n = 1031, row-normalised
+    for rows in (1, None):
+        check_f64_f32("rollout_from_grad_cam", kern, plain,
+                      (b1_randn(2, 3, 1031, 1031).abs() * 1e-3, 0, True),
+                      f"wide rows={rows} (2, 3, 1031)", False, rows=rows)
 
     def f32_rule(name, k32, p32, p64, norm=False):
         """float32 kernel vs plain float32, both against plain float64: by
@@ -522,16 +560,20 @@ def main() -> int:
     # BERT default) and the whole chain, row-normalised
     cams = rollout_inputs(8, bcfg.num_layers, 512, torch.float64)
     for start in (bcfg.num_layers - 1, 0):
-        k64 = counted(K.rollout_from_grad_cam, cams, start, True)
-        k32 = counted(K.rollout_from_grad_cam, cams.float(), start, True)
-        p64 = K.rollout_plain(cams, start, True)
-        e64 = (k64 - p64).abs().max().item()
-        require(torch.allclose(k64, p64, rtol=F64_RTOL, atol=F64_ATOL),
-                f"rollout_from_grad_cam n=512 start {start}: float64 kernel "
-                f"differs from plain by {e64:.3e}")
-        f32_rule(f"rollout_from_grad_cam n=512 start {start} (f64 max|k-p|="
-                 f"{e64:.3e})", k32, K.rollout_plain(cams.float(), start,
-                                                     True), p64)
+        for rows in (None, 1):
+            k64 = counted(K.rollout_from_grad_cam, cams, start, True,
+                          rows=rows)
+            k32 = counted(K.rollout_from_grad_cam, cams.float(), start, True,
+                          rows=rows)
+            p64 = K.rollout_plain(cams, start, True, rows=rows)
+            e64 = (k64 - p64).abs().max().item()
+            label = f"rollout_from_grad_cam n=512 start {start} rows={rows}"
+            require(torch.allclose(k64, p64, rtol=F64_RTOL, atol=F64_ATOL),
+                    f"{label}: float64 kernel differs from plain by "
+                    f"{e64:.3e}")
+            f32_rule(f"{label} (f64 max|k-p|={e64:.3e})", k32,
+                     K.rollout_plain(cams.float(), start, True, rows=rows),
+                     p64)
     del cams, k64, k32, p64
     torch.cuda.empty_cache()
 
@@ -1219,6 +1261,8 @@ def main() -> int:
     # 5. times ---------------------------------------------------------------
     times = {}
     for name, (make, kern, plain) in cases.items():
+        if name == "rollout_from_grad_cam":
+            continue    # timed in its forms below
         args = make(*shapes["main"], torch.float32)
         # B4 and its library yardstick take ~0.06 ms: 200 calls a window
         iters = 200 if name == "attn_fwd_core" else 20
@@ -1297,6 +1341,48 @@ def main() -> int:
           f"{'; '.join(sdpa_dev[1]) or 'no kernel seen by the profiler'}")
     print(f"device time per call (profiler): B4 float32 {b4_dev[0]:.4f} ms, "
           f"scaled_dot_product_attention {sdpa_dev[0]:.4f} ms {tag}")
+    # B1 at ViT-B/16 B=8, start_layer 0: the row form (rows=1, the call of
+    # every path), the full form, and the per-head input (B, L, h, n, n)
+    # without grads (the rollout and rollout_attn methods) and with them:
+    # the whole call, and the head-mean pass's launch alone (profiler). The
+    # row form's launch is shorter than its wrapper's host work, so events
+    # around back-to-back calls time the host: the kernels line takes its
+    # launch's device time (profiler)
+    cams32 = b1_randn(B, L, n, n, dtype=torch.float32).abs() * 1e-3
+    heads32 = (b1_randn(B, L, h, n, n, dtype=torch.float32) * 1e-2,
+               b1_randn(B, L, h, n, n, dtype=torch.float32))
+    row_dev = device_ms(lambda: K.rollout_from_grad_cam(cams32, 0, rows=1))
+    require(len(row_dev[2]) == 1, f"rollout_from_grad_cam row form: "
+            f"launches {sorted(row_dev[2])}")
+    row_events = time_ms(lambda: K.rollout_from_grad_cam(cams32, 0, rows=1),
+                         200)
+    times["rollout_from_grad_cam"] = (
+        row_dev[0], time_ms(lambda: K.rollout_plain(cams32, 0, rows=1)))
+    roll_full = (time_ms(lambda: K.rollout_from_grad_cam(cams32, 0), 200),
+                 time_ms(lambda: K.rollout_plain(cams32, 0)))
+    print(f"time rollout_from_grad_cam row form (rows=1) {(B, L, n)} f32: "
+          f"kernel {times['rollout_from_grad_cam'][0]:.4f} ms (profiler: "
+          f"{next(iter(row_dev[2]))[:60]}), call {row_events:.4f} ms "
+          f"(events), plain {times['rollout_from_grad_cam'][1]:.4f} ms "
+          f"{tag}")
+    print(f"time rollout_from_grad_cam full form {(B, L, n)} f32: kernel "
+          f"{roll_full[0]:.4f} ms, plain {roll_full[1]:.4f} ms {tag}")
+    roll_heads = {}
+    for label, g32 in (("without grads", None), ("with grads", heads32[1])):
+        call = lambda: K.rollout_from_grad_cam(heads32[0], 0, False, g32,
+                                               rows=1)
+        per = device_ms(call)[2]
+        passes = [v for k, v in per.items() if "head_mean" in k]
+        require(len(passes) == 1 and len(per) == 2,
+                f"rollout_from_grad_cam per-head: launches {sorted(per)}")
+        roll_heads[label] = (time_ms(call, 50), passes[0],
+                             time_ms(lambda: K.rollout_plain(
+                                 heads32[0], 0, False, g32, rows=1)))
+        print(f"time rollout_from_grad_cam per-head {label} rows=1 "
+              f"{(B, L, h, n)} f32: call {roll_heads[label][0]:.4f} ms "
+              f"(head-mean pass {passes[0]:.4f} ms, profiler), plain "
+              f"{roll_heads[label][2]:.4f} ms {tag}")
+    del heads32
     # B4 in the split path's bf16 mode, same shapes
     b4_bf16 = (time_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5,
                                                "bfloat16"), 200),
@@ -1607,8 +1693,13 @@ def main() -> int:
     work = {
         "attn_fwd_core": (f4 * 4 * R * Dm, dict(f32=4 * att)),
         "attn_rev_core": (f4 * (11 * R * Dm + B * n * n), dict(f32=20 * att)),
-        "rollout_from_grad_cam": (f4 * (L + 1) * B * n * n,
-                                  dict(f32=2 * B * (L - 1) * n ** 3)),
+        # B1's row form (the kernels line): row 0 of the last layer's maps
+        # and the other layers' whole maps read once, row 0 written; a
+        # vector-matrix product a layer after the first
+        "rollout_from_grad_cam": (f4 * ((L - 1) * B * n * n + 2 * B * n),
+                                  dict(f32=2 * B * (L - 1) * n * n)),
+        "rollout_from_grad_cam full": (f4 * (L + 1) * B * n * n,
+                                       dict(f32=2 * B * (L - 1) * n ** 3)),
         "block_fwd_core": (
             f4 * (9 * Dm + Mm) + pair + 2 * 2 * Mm * Dm
             + f4 * (R * Dm + 8 * R * Dm + 2 * B * h * n * n + R * Mm),
@@ -1678,6 +1769,16 @@ def main() -> int:
     bd = bound(f4 * (4 * R * Dm + 2 * B * h * n * n), f32=4 * att)
     print(f"bound B2 attention core (float32 products, dots and probs "
           f"stored): {bd[0]:.4f} ms ({bd[1]}); launch {b2_core:.4f} ms {tag}")
+    bd = bounds["rollout_from_grad_cam full"]
+    print(f"bound rollout_from_grad_cam full form: {bd[0]:.4f} ms ({bd[1]}); "
+          f"kernel {roll_full[0]:.4f} ms {tag}")
+    # the head-mean pass: the head maps (and grads) read once, the
+    # (B, L, n, n) mean written
+    for label, (_, pass_ms, _) in roll_heads.items():
+        reads = 2 if label == "with grads" else 1
+        bd = bound(f4 * (reads + 1.0 / h) * B * L * h * n * n)
+        print(f"bound rollout_from_grad_cam head-mean pass {label}: "
+              f"{bd[0]:.4f} ms ({bd[1]}); launch {pass_ms:.4f} ms {tag}")
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     slices = (launches, launches_prod, launches_split, launches_bf16,
               *method_launches, blaunches, blaunches_prod, *tp_launches)

@@ -35,7 +35,8 @@ Runs the kernel path (and, for comparison, the plain path) under
 ``torch.profiler`` after a warm-up, and prints: the wall time per batch, the
 device busy share (sum of kernel times over the wall time of the window;
 one stream, so kernels do not overlap), the kernels launched per batch and
-the collectives' calls and host time per batch, and the device time by
+the collectives' calls and host time per batch, the rollout B1's launches
+and device time per batch, and the device time by
 group (cuBLAS/CUTLASS GEMMs, the port's own kernels, NCCL, other PyTorch
 kernels) and by kernel name. Writes a Chrome trace per path under ``--out`` (default
 ``build/profiles``, git-ignored). Random weights
@@ -101,6 +102,9 @@ def profile(fn, batches: int, trace: str):
         by_name[evt.key] += dt
         by_group[group(evt.key)] += dt
         host["kernels launched"] += evt.count / batches
+        if "rollout" in evt.key:
+            host["B1 launches"] += evt.count / batches
+            host["B1 device ms"] += dt / 1e3 / batches
     return wall, by_name, by_group, host
 
 
@@ -380,8 +384,9 @@ def main():
         print(f"[{card}] {what} {args.precision} {label} path: "
               f"{per * 1e3:.2f} ms/batch of 8 under "
               f"the profiler, device busy {busy / wall:.1%}")
-        print("  per batch: " + ", ".join(f"{k} {v:.1f}"
-                                          for k, v in sorted(host.items())))
+        print("  per batch: " + ", ".join(
+            f"{k} {v:.4f}" if k == "B1 device ms" else f"{k} {v:.1f}"
+            for k, v in sorted(host.items())))
         for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
             print(f"  {g:24s} {us / 1e3 / args.batches:9.3f} ms/batch "
                   f"({us / 1e6 / busy:.1%} of device time)")

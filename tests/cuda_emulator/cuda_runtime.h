@@ -22,8 +22,8 @@
 // one lock, and a wait blocks on a condition variable until the phase with
 // the given parity has completed; a TMA load copies its box at once (zeros
 // outside the tensor, the 128-byte swizzle applied to the shared-memory
-// offsets) and then completes its bytes on the barrier; setmaxnreg does
-// nothing.
+// offsets) and then completes its bytes on the barrier (the one-dimensional
+// bulk copy likewise, without the swizzle); setmaxnreg does nothing.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -286,6 +286,17 @@ inline void te_emu_tma_load_2d(void* dst, const te_emu_tma_map* m, int c0,
         std::memset(to, 0, m->esize);
     }
   te_emu_mbar_complete_tx(bar, static_cast<long>(row) * m->box1);
+}
+
+// the one-dimensional TMA copy: `bytes` at once, then they complete on the
+// barrier; both addresses and the size must be multiples of 16
+inline void te_emu_bulk_load(void* dst, const void* src, uint32_t bytes,
+                             void* bar) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 || bytes % 16 ||
+      (static_cast<unsigned char*>(dst) - te_smem) % 16)
+    throw std::runtime_error("bulk copy: unaligned");
+  std::memcpy(dst, src, bytes);
+  te_emu_mbar_complete_tx(bar, static_cast<long>(bytes));
 }
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }

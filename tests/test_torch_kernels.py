@@ -110,6 +110,34 @@ def test_rollout_plain_matches_pallas_interpret(start_layer, row_normalize):
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("start_layer,row_normalize", [(0, False), (3, True)])
+def test_rollout_row_form_matches_jax_row0(x64, per_head, start_layer,
+                                           row_normalize):
+    """``rows=1`` (what every explain path asks for) is row 0 of the JAX
+    function's product, and bitwise the full form's row 0."""
+    rng = np.random.RandomState(6)
+    shape = (B, 4, H, N, N) if per_head else (B, 4, N, N)
+    cams = np.abs(rng.randn(*shape)) * 0.05
+    grads = rng.randn(*shape) if per_head else None
+    t_grads = None if grads is None else torch.from_numpy(grads)
+    got = K.rollout_plain(torch.from_numpy(cams), start_layer, row_normalize,
+                          t_grads, rows=1)
+    assert got.shape == (B, 1, N)
+    assert torch.equal(got, K.rollout_from_grad_cam(
+        torch.from_numpy(cams), start_layer, row_normalize, t_grads,
+        rows=1))
+    assert torch.equal(got[:, 0], K.rollout_plain(
+        torch.from_numpy(cams), start_layer, row_normalize, t_grads)[:, 0])
+    for i in range(B):
+        _close(got[i, 0], pk.rollout_from_grad_cam(
+            jnp.asarray(cams[i]), None if grads is None
+            else jnp.asarray(grads[i]), start_layer, row_normalize,
+            use_pallas=False)[0])
+    with pytest.raises(ValueError):
+        K.rollout_from_grad_cam(torch.from_numpy(cams), 0, rows=N + 1)
+
+
 @pytest.mark.parametrize("with_grads", [False, True])
 @pytest.mark.parametrize("start_layer,row_normalize", [(0, False), (2, True)])
 def test_rollout_per_head_form_matches_jax(x64, with_grads, start_layer,

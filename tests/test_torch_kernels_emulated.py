@@ -8,8 +8,9 @@ kernel is held to its plain PyTorch version: float64 at rtol 1e-9 /
 atol 1e-12, float32 (forward only; the reverse's safe-divide chains make
 float32 ill-posed) at rtol 1e-5 / atol 1e-6. The block megakernels, the
 BERT layer kernels and the tensor-parallel MLP kernels (float32 only), and
-the float32 attention kernels in their bf16 modes, and B5 in float32 in
-every mode, are held to their plain versions in float64 by the rule of
+the float32 attention kernels in their bf16 modes, B5 in float32 in
+every mode, and the rollout B1 in float32, are held to their plain
+versions in float64 by the rule of
 ``chip_smoke.py``: the kernel's distance to the
 float64 plain result is at most 10 × the plain float32 version's plus 1e-6
 of the output's magnitude. This checks the kernels' indexing, tiling,
@@ -107,13 +108,55 @@ def test_attn_rev_kernel_matches_plain(lib, shape):
     _check_attn_rev(lib, shape, "float32", "float32", (1, 2, 3))
 
 
+def _check_rollout(lib, cams, start_layer, row_normalize, rows, grads=None):
+    """float64 at rtol 1e-9, float32 by the rule below, from one set of
+    inputs."""
+    got = K._launch_rollout(lib, cams, start_layer, row_normalize, None,
+                            grads, rows)
+    want = K.rollout_plain(cams, start_layer, row_normalize, grads, rows)
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+    c32, g32 = cams.float(), None if grads is None else grads.float()
+    _f32_rule(K._launch_rollout(lib, c32, start_layer, row_normalize, None,
+                                g32, rows),
+              K.rollout_plain(c32, start_layer, row_normalize, g32, rows),
+              want, f"rollout rows={rows}")
+
+
+# the chain's two forms (rows=None: every row block of R = 12 rows; rows=1:
+# the one-row blocks); n = 12·11 + 5 makes the last row block ragged and
+# splits each layer into ring tiles with a ragged last one (the row form's
+# 124 + 13 in float32, 62 + 62 + 13 in float64; the full form's 3 × 49 and
+# 5 × 24 + 17), so tiles wrap the ring's slots and their sources' 16-byte
+# phases vary
+@pytest.mark.parametrize("rows", [None, 1])
+@pytest.mark.parametrize("n", [37, 12 * 11 + 5])
 @pytest.mark.parametrize("start_layer", [0, 1, 3])
 @pytest.mark.parametrize("row_normalize", [False, True])
-def test_rollout_kernel_matches_plain(lib, start_layer, row_normalize):
-    cams = _randn(4, 2, 4, 37, 37).abs() * 0.05
-    got = K._launch_rollout(lib, cams, start_layer, row_normalize, None)
-    want = K.rollout_plain(cams, start_layer, row_normalize)
-    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+def test_rollout_kernel_matches_plain(lib, start_layer, row_normalize, n,
+                                      rows):
+    cams = _randn(4, 2, 4, n, n).abs() * 0.05
+    _check_rollout(lib, cams, start_layer, row_normalize, rows)
+
+
+# the per-head input: the head-mean pass, then the chain, against
+# head_mean_grad_cam followed by the plain chain
+@pytest.mark.parametrize("rows", [None, 1])
+@pytest.mark.parametrize("with_grads", [False, True])
+@pytest.mark.parametrize("start_layer,row_normalize", [(0, False), (2, True)])
+def test_rollout_kernel_per_head_matches_plain(lib, start_layer,
+                                               row_normalize, with_grads,
+                                               rows):
+    cams = _randn(8, 2, 4, 3, 29, 29) * 0.1
+    grads = _randn(9, 2, 4, 3, 29, 29) if with_grads else None
+    _check_rollout(lib, cams, start_layer, row_normalize, rows, grads)
+
+
+# above 1024 tokens the row form walks its columns in passes of 512 (the
+# wide instance): n = 1031 takes three, the last one ragged
+@pytest.mark.parametrize("row_normalize", [False, True])
+def test_rollout_kernel_wide_row_form_matches_plain(lib, row_normalize):
+    cams = _randn(10, 1, 2, 1031, 1031).abs() * 1e-3
+    _check_rollout(lib, cams, 0, row_normalize, 1)
 
 
 def test_launch_errors_reach_the_wrapper(lib):

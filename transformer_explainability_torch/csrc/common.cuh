@@ -461,6 +461,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const TmaMap* map,
 #endif
 }
 
+// TMA, one dimension: `bytes` (a multiple of 16) from src into shared
+// memory at dst (both 16-byte aligned), completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+#ifdef __CUDACC__
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+#else
+  te_emu_bulk_load(dst, src, bytes, bar);
+#endif
+}
+
 // A warpgroup's register budget: all four warps call it together, the
 // producer to give registers back, the consumers to take them
 template <int N>

@@ -120,7 +120,7 @@ def explain_batch(model: bert_mod.BertForSequenceClassification,
     _, gc = bert_mod.reverse_pass(model, res, onehot, ops, use_kernel,
                                   relprop_precision=relprop_precision,
                                   **precision)
-    joint = ops.rollout_from_grad_cam(gc, start_layer, True)
+    joint = ops.rollout_from_grad_cam(gc, start_layer, True, rows=1)
     row = joint[:, 0].clone()
     row[:, 0] = row.min(dim=-1).values           # rollout[:, 0, 0] = min
     return row

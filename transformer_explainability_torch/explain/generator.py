@@ -238,7 +238,7 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
             **branch)
     P = cfg.num_prefix_tokens
     if fused or method == "rollout":
-        return ops.rollout_from_grad_cam(cams, start_layer)[:, 0, P:]
+        return ops.rollout_from_grad_cam(cams, start_layer, rows=1)[:, 0, P:]
     if method == "full":
         return vit_mod.full_lrp_input_relevance(model, res, R_tokens, images,
                                                 variant)
@@ -261,7 +261,7 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
         return (cam - lo) / (cam.amax(dim=(1, 2), keepdim=True) - lo)
     # rollout_attn: the raw-attention rollout, row-normalised
     return ops.rollout_from_grad_cam(res.attns, start_layer,
-                                     row_normalize=True)[:, 0, P:]
+                                     row_normalize=True, rows=1)[:, 0, P:]
 
 
 def _resolve_device(device) -> torch.device:

@@ -114,7 +114,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         rev.argtypes = [P] * 11 + [I, I, I, I, F, I, I, P]
         rev.restype = I
         roll = getattr(lib, f"te_rollout_{dt}")
-        roll.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        roll.argtypes = [P] * 4 + [I] * 7 + [P]
         roll.restype = I
     lib.te_block_fwd_f32.argtypes = [P] * 28 + [I] * 5 + [F, I, I, I, P]
     lib.te_block_fwd_f32.restype = I

@@ -98,18 +98,23 @@ def attn_rev_core_plain(qkv: Tensor, g_o: Tensor, cam_o: Tensor,
 def head_mean_grad_cam(cams: Tensor, grads: Optional[Tensor] = None
                        ) -> Tensor:
     """Per-head ``(B, L, h, n, n)`` maps -> ``mean_h (grads ⊙ cams)⁺``
-    ``(B, L, n, n)`` (``grads=None``: ``mean_h cams⁺``); the elementwise prep
-    JAX's ``rollout_from_grad_cam`` runs in XLA before its chain kernel."""
+    ``(B, L, n, n)`` (``grads=None``: ``mean_h cams⁺``): the elementwise prep
+    JAX's ``rollout_from_grad_cam`` runs in XLA before its chain kernel, and
+    the plain version of the rollout kernel's head-mean pass."""
     m = cams if grads is None else grads * cams
     return m.clamp(min=0).mean(dim=2)
 
 
 def rollout_plain(cams: Tensor, start_layer: int = 0,
                   row_normalize: bool = False,
-                  grads: Optional[Tensor] = None) -> Tensor:
+                  grads: Optional[Tensor] = None,
+                  rows: Optional[int] = None) -> Tensor:
+    """The chain by its definition (``relprop.compute_rollout``), then its
+    leading ``rows`` rows (``None``: all)."""
     if cams.ndim == 5:
         cams = head_mean_grad_cam(cams, grads)
-    return rp.compute_rollout(cams, start_layer, row_normalize)
+    joint = rp.compute_rollout(cams, start_layer, row_normalize)
+    return joint if rows is None else joint[..., :rows, :]
 
 
 def mlp_rev_core_plain(x_mid: Tensor, g_out: Tensor, R: Tensor,
@@ -197,17 +202,22 @@ def _launch_attn_rev(lib, qkv: Tensor, g_o: Tensor, cam_o: Tensor,
 
 
 def _launch_rollout(lib, cams: Tensor, start_layer: int, row_normalize: bool,
-                    stream) -> Tensor:
-    b, L, n, _ = cams.shape
+                    stream, grads: Optional[Tensor] = None,
+                    rows: Optional[int] = None) -> Tensor:
+    """One chain launch over pre-reduced ``(B, L, n, n)`` maps; per-head
+    ``(B, L, h, n, n)`` ones (with optional ``grads``) take the head-mean
+    pass first, into a ``(B, L - start, n, n)`` workspace."""
+    b, L, n = cams.shape[0], cams.shape[1], cams.shape[-1]
+    h = cams.shape[2] if cams.ndim == 5 else 0
+    rows = n if rows is None else rows
     kw = dict(dtype=cams.dtype, device=cams.device)
-    out = torch.empty(b, n, n, **kw)
-    buf = torch.empty(b, n, n, **kw)
-    rs = torch.empty(b, L, n, **kw) if row_normalize else None
+    out = torch.empty(b, rows, n, **kw)
+    work = torch.empty(b, max(L - start_layer, 0), n, n, **kw) if h else None
     fn = getattr(lib, f"te_rollout_{_DTYPES[cams.dtype]}")
     _raise_on_error("rollout_from_grad_cam", lib, fn(
-        cams.data_ptr(), out.data_ptr(), buf.data_ptr(),
-        None if rs is None else rs.data_ptr(), b, L, n, start_layer,
-        int(row_normalize), stream))
+        cams.data_ptr(), None if grads is None else grads.data_ptr(),
+        out.data_ptr(), None if work is None else work.data_ptr(), b, L, h,
+        n, start_layer, int(row_normalize), rows, stream))
     return out
 
 
@@ -592,32 +602,39 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
 
 def rollout_from_grad_cam(cams: Tensor, start_layer: int = 0,
                           row_normalize: bool = False,
-                          grads: Optional[Tensor] = None) -> Tensor:
-    """Rollout chain ``Π_{i=L-1..start} (I + cams_i)`` -> ``(B, n, n)``
-    (JAX ``pallas_kernels.rollout_from_grad_cam``) over pre-reduced
+                          grads: Optional[Tensor] = None,
+                          rows: Optional[int] = None) -> Tensor:
+    """Rollout chain ``Π_{i=L-1..start} (I + cams_i)`` (JAX
+    ``pallas_kernels.rollout_from_grad_cam``) over pre-reduced
     ``(B, L, n, n)`` maps, or over per-head ``(B, L, h, n, n)`` ones with
     optional ``grads`` of their shape, head-meaned first as
-    :func:`head_mean_grad_cam` (PyTorch ops, as JAX runs that prep in XLA;
-    the chain is the kernel)."""
+    :func:`head_mean_grad_cam`. Returns ``(B, rows, n)``: the product's
+    leading ``rows`` rows, all ``n`` when ``rows`` is ``None`` (what the JAX
+    function returns). On the card it is one chain launch (per-head maps add
+    the head-mean pass before it); ``rows=1`` launches only the row blocks
+    that hold row 0. The launch refuses an ``n`` whose rows one block's
+    shared memory cannot hold (about 4,400 tokens for ``rows=1`` in float32,
+    2,000 for the full form)."""
     if (cams.ndim not in (4, 5) or cams.shape[-1] != cams.shape[-2]
             or (grads is not None and cams.ndim != 5)):
         raise ValueError(f"rollout_from_grad_cam: cams must be (B, L, n, n),"
                          f" or (B, L, h, n, n) with optional grads, got "
                          f"{tuple(cams.shape)}")
-    if cams.ndim == 5:
-        _check("rollout_from_grad_cam", [cams] + ([] if grads is None
-                                                  else [grads]),
-               [cams.shape] * 2)
-        cams = head_mean_grad_cam(cams, grads)
-    device = _check("rollout_from_grad_cam", [cams], [cams.shape])
+    n = cams.shape[-1]
+    if rows is not None and not (isinstance(rows, int) and 1 <= rows <= n):
+        raise ValueError(f"rollout_from_grad_cam: rows {rows!r} outside "
+                         f"[1, {n}]")
+    device = _check("rollout_from_grad_cam",
+                    [cams] + ([] if grads is None else [grads]),
+                    [cams.shape] * 2)
     if not 0 <= start_layer < cams.shape[1]:
         raise ValueError(f"rollout_from_grad_cam: start_layer {start_layer} "
                          f"outside [0, {cams.shape[1]})")
     if device == "cpu":
-        return rollout_plain(cams, start_layer, row_normalize)
+        return rollout_plain(cams, start_layer, row_normalize, grads, rows)
     with torch.cuda.device(cams.device):
         out = _launch_rollout(_lib(), cams, start_layer, row_normalize,
-                              _stream(cams))
+                              _stream(cams), grads, rows)
     rollout_from_grad_cam.launches += 1
     return out
 

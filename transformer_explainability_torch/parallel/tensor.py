@@ -362,7 +362,7 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
         for li in reversed(range(L)):
             g, R, gcs[li] = rev_step(g, R, saved[li], p.blocks[li])
         joint = ops.rollout_from_grad_cam(torch.stack(gcs, dim=1),
-                                          start_layer)
+                                          start_layer, rows=1)
         return joint[:, 0, cfg.num_prefix_tokens:]
 
     @torch.no_grad()
