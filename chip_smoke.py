@@ -34,8 +34,10 @@ result line):
      from B2's own qkv; the rollout B1 in both its forms (the full product
      and its row 0, ``rows=1``) at ViT-B/16 and the ragged shape and, row-
      normalised, at BERT-base's n = 512 from start layers 11 and 0 and at
-     n = 1031 (the wide instances' column passes), and its per-head pass
-     with grads at ViT-B/16;
+     n = 1031 (the wide instances' column passes), its per-head pass
+     with grads at ViT-B/16, and without grads, row-normalised, at
+     BERT-base's (8, 12, 12, 512, 512) from start layers 0 and 11 (the
+     BERT rollout method's call);
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -57,7 +59,10 @@ result line):
      ``alpha=2`` of ``transformer_attribution``, in exact FP32 on the first
      batch (>= 0.999 every sample against the plain float64 run of the same
      method, or, where the plain float32 run also falls below 0.999, no
-     lower than its corr - 0.01); then the tensor-parallel program
+     lower than its corr - 0.01); each of the six BERT methods, and
+     ``variant="lrp"`` and ``alpha=2`` of ``transformer_attribution``, in
+     exact FP32 on the first BERT batch by the same gates over each
+     sample's tokens; then the tensor-parallel program
      ``make_tp_explain_fn(VIT_BASE_16_224, ...)`` at k = 1 over a
      single-rank NCCL process group, in float32 and production, on the
      same batches by the ViT gates (its corr against the single-device
@@ -70,7 +75,9 @@ result line):
      bound, B1's row form (the paths' call; the kernels line takes its
      launch's device time from the profiler), its
      full form and its per-head input (the head-mean pass's launch from the
-     profiler), B7 and B9 at
+     profiler; at ViT-B/16 and at BERT-base's shape, where one BERT
+     ``rollout`` batch must launch the head-mean pass and the chain once
+     each), B7 and B9 at
      S=512 and S=128, B7's attention-core launch (profiler) beside
      ``scaled_dot_product_attention`` with the additive mask on the same
      q, k, v at S=512, the GEMM core alone at the shapes checked in
@@ -81,7 +88,8 @@ result line):
      explanations/s at B=8 for the
      exact-FP32 and the production paths, kernels and plain, the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
-     (BERT at S=512 and S=128; the tensor-parallel program at k = 1).
+     (BERT at S=512 and S=128, and each BERT method at S=512; the
+     tensor-parallel program at k = 1).
 
 It imports no JAX. The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -117,6 +125,8 @@ TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
 # the ViT methods whose map is a rollout chain (the rollout kernel B1)
 ROLLOUT_METHODS = ("transformer_attribution", "grad", "rollout",
                    "rollout_attn")
+# the BERT methods whose row is a rollout chain
+BERT_ROLLOUT_METHODS = ("transformer_attribution", "rollout")
 # the card's published rates (NVIDIA H100 SXM data sheet, dense, at a 700 W
 # power limit): device memory, bf16 tensor cores, FP32 off the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -575,6 +585,19 @@ def main() -> int:
                      K.rollout_plain(cams.float(), start, True, rows=rows),
                      p64)
     del cams, k64, k32, p64
+    # B1's per-head pass without grads, row-normalised, at BERT-base's
+    # shape: the rollout method's call on every layer's probabilities
+    # (softmax rows), from start layers 0 and 11; a generator of their own
+    bh_gen = torch.Generator(device=dev).manual_seed(12)
+    bprobs = torch.softmax(torch.randn(
+        8, bcfg.num_layers, bcfg.num_heads, 512, 512, generator=bh_gen,
+        device=dev, dtype=torch.float64), dim=-1)
+    for start in (0, bcfg.num_layers - 1):
+        check_f64_f32("rollout_from_grad_cam", K.rollout_from_grad_cam,
+                      K.rollout_plain, (bprobs, start, True),
+                      f"per-head rows=1 start {start} "
+                      f"{tuple(bprobs.shape)}", True, rows=1)
+    del bprobs
     torch.cuda.empty_cache()
 
     # the tensor-parallel path's kernels: B4 / B5 in the TP presets'
@@ -1165,8 +1188,6 @@ def main() -> int:
         bpc += token_corr(heat_p, ref_p, v_t)
         bpc_plain += token_corr(plain32_p, ref_p, v_t)
         bp_exact += token_corr(heat_p, ref, v_t)
-    del bmodel64
-    torch.cuda.empty_cache()
     bc, bc_plain = np.asarray(bc), np.asarray(bc_plain)
     bpc, bpc_plain, bp_exact = (np.asarray(a) for a in (bpc, bpc_plain,
                                                         bp_exact))
@@ -1202,6 +1223,59 @@ def main() -> int:
     require(k_tail <= p_tail + 1,
             f"bert production: {k_tail} samples below {TAIL_CORR}, the plain "
             f"f32 path {p_tail}")
+
+    # each BERT method in exact FP32 on the first batch, plus the lrp
+    # variant and alpha = 2 of transformer_attribution (rollout from start
+    # layer 0, as generate_rollout calls it): the plain layers, with the
+    # rollout kernel for transformer_attribution (the head means) and for
+    # rollout (the per-head probabilities, through its head-mean pass, in
+    # the same wrapper call); per-sample corr over the sample's tokens
+    # against the plain float64 run of the same method, gated as the ViT
+    # methods are
+    bex_lrp = BertExplainer(bparams, bcfg, device="cuda", variant="lrp")
+    bexplainers = {"ours": bex, "lrp": bex_lrp}
+    bert_method_runs = [(m, "ours", dict(start_layer=0) if m == "rollout"
+                         else {}) for m in bg.METHODS] + [
+        ("transformer_attribution", "lrp", {}),
+        ("transformer_attribution", "ours", dict(alpha=2.0))]
+    bert_method_launches = []
+    ids0_t, m0_t, bidx0_t = (torch.as_tensor(a, device=dev)
+                             for a in bert_batches[0])
+    for m, variant, kw in bert_method_runs:
+        label = f"bert method {m} variant {variant} {kw}"
+        explainer = bexplainers[variant]
+        per = {**none}
+        if m in BERT_ROLLOUT_METHODS:
+            per["rollout_from_grad_cam"] = 1
+        (heat,), counts = drive(
+            lambda i, v, x: explainer.explain(i, v, x, method=m, **kw),
+            [bert_batches[0]], bert_shape, per, label,
+            finite=m != "attn_gradcam")
+        bert_method_launches.append(counts)
+        ref = bg.explain_batch(bmodel64, ids0_t, m0_t, bidx0_t, method=m,
+                               variant=variant, ops=K.BERT_PLAIN_OPS, **kw)
+        plain32 = bg.explain_batch(bex.model, ids0_t, m0_t, bidx0_t,
+                                   method=m, variant=variant,
+                                   ops=K.BERT_PLAIN_OPS, **kw)
+        # attn_gradcam is 0/0 on a map with no positive entry (as in JAX):
+        # those samples must be the float64 run's, the others are gated
+        ok = torch.isfinite(ref).all(dim=1)
+        ok_k = torch.isfinite(heat).all(dim=1)
+        require(torch.equal(ok_k, ok) and bool(ok.any()),
+                f"{label}: finite samples {ok_k.tolist()}, float64 run's "
+                f"{ok.tolist()}")
+        v_ok = m0_t.bool()[ok]
+        c = np.asarray(token_corr(heat[ok], ref[ok], v_ok))
+        c_p = np.asarray(token_corr(plain32[ok], ref[ok], v_ok))
+        floor = np.where(c_p >= MIN_CORR, MIN_CORR, c_p - PROD_MIN_SLACK)
+        print(f"{label} corr vs plain f64 on the card over {len(c)} samples "
+              f"(0/0 in {int((~ok).sum())}): min {c.min():.6f} median "
+              f"{np.median(c):.6f} (plain f32 run: min {c_p.min():.6f}); per "
+              f"sample {fmt(c)}, plain f32 run {fmt(c_p)}")
+        require((c >= floor).all(), f"{label}: per-sample corr {fmt(c)} "
+                f"below {fmt(floor)}")
+    del bmodel64, bex_lrp, bexplainers, ref, plain32
+    torch.cuda.empty_cache()
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # the tensor-parallel ViT program at k = 1 over a single-rank NCCL group
@@ -1383,6 +1457,35 @@ def main() -> int:
               f"(head-mean pass {passes[0]:.4f} ms, profiler), plain "
               f"{roll_heads[label][2]:.4f} ms {tag}")
     del heads32
+    # B1 on per-head maps at BERT-base's shape without grads, start layer 0
+    # (the rollout method's call): the whole call and the head-mean pass's
+    # launch alone (profiler); then one rollout batch under the profiler,
+    # which must launch the head-mean pass and the chain once each
+    bh_gen = torch.Generator(device=dev).manual_seed(13)
+    bshape = (8, bcfg.num_layers, bcfg.num_heads, 512, 512)
+    bprobs32 = torch.softmax(torch.randn(*bshape, generator=bh_gen, device=dev,
+                                         dtype=torch.float32), dim=-1)
+    bcall = lambda: K.rollout_from_grad_cam(bprobs32, 0, True, rows=1)
+    per = device_ms(bcall, 20)[2]
+    passes = [v for k, v in per.items() if "head_mean" in k]
+    require(len(passes) == 1 and len(per) == 2,
+            f"rollout_from_grad_cam per-head at BERT shape: launches "
+            f"{sorted(per)}")
+    roll_bert = (time_ms(bcall, 20), passes[0],
+                 time_ms(lambda: K.rollout_plain(bprobs32, 0, True, rows=1)))
+    print(f"time rollout_from_grad_cam per-head without grads rows=1 "
+          f"row-normalised {bshape} f32: call {roll_bert[0]:.4f} ms "
+          f"(head-mean pass {roll_bert[1]:.4f} ms, profiler), plain "
+          f"{roll_bert[2]:.4f} ms {tag}")
+    del bprobs32
+    ids0, valid0, bidx0 = bert_batches[0]
+    roll_names = sorted(device_ms(lambda: bex.explain(
+        ids0, valid0, bidx0, method="rollout", start_layer=0), 1)[2])
+    require(sum("rollout_head_mean" in k for k in roll_names) == 1
+            and sum("rollout_chain" in k for k in roll_names) == 1,
+            f"bert rollout batch: B1 launches {roll_names}")
+    print(f"bert rollout batch (profiler): B1 launched "
+          f"{[k[:40] for k in roll_names if 'rollout' in k]}")
     # B4 in the split path's bf16 mode, same shapes
     b4_bf16 = (time_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5,
                                                "bfloat16"), 200),
@@ -1671,6 +1774,12 @@ def main() -> int:
             print(f"e2e transformer_attribution BERT-base {label} B=8 S={S}, "
                   f"20-batch windows: kernel path {r1:.2f} / {r2:.2f} "
                   f"expl/s, plain path {r0:.2f} expl/s {tag}")
+    # each BERT method in exact FP32 (the rollout kernel where the method
+    # rolls out)
+    for m, variant, kw in bert_method_runs:
+        r = bert_rate(512, K.BERT_KERNEL_OPS, method=m, variant=variant, **kw)
+        print(f"e2e bert method {m} variant {variant} {kw} BERT-base float32 "
+              f"B=8 S=512, 20-batch window: {r:.2f} expl/s {tag}")
 
     # bound_ms: the least time the card could take for each timed call's
     # work, the larger of its bytes (each input read once, each output
@@ -1779,9 +1888,14 @@ def main() -> int:
         bd = bound(f4 * (reads + 1.0 / h) * B * L * h * n * n)
         print(f"bound rollout_from_grad_cam head-mean pass {label}: "
               f"{bd[0]:.4f} ms ({bd[1]}); launch {pass_ms:.4f} ms {tag}")
+    bd = bound(f4 * (1 + 1.0 / bcfg.num_heads) * float(np.prod(bshape)))
+    print(f"bound rollout_from_grad_cam head-mean pass without grads at "
+          f"BERT-base {bshape}, start 0: {bd[0]:.4f} ms ({bd[1]}); launch "
+          f"{roll_bert[1]:.4f} ms ({roll_bert[1] / bd[0]:.2f}x) {tag}")
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     slices = (launches, launches_prod, launches_split, launches_bf16,
-              *method_launches, blaunches, blaunches_prod, *tp_launches)
+              *method_launches, blaunches, blaunches_prod,
+              *bert_method_launches, *tp_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",

@@ -1,5 +1,5 @@
-"""Where the device time goes in the PyTorch port's ``transformer_attribution``
-on one CUDA card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
+"""Where the device time goes in the PyTorch port's explanations on one CUDA
+card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
 
     python3 experiments/torch_profile_vit.py [--model vit|bert] [--seq 512]
                                              [--precision float32|production|bfloat16]
@@ -15,10 +15,13 @@ the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
 padded to its own length, seeded. ``--no-block-kernel`` takes ViT's split
 path (``block_kernel=False``: at the bfloat16 preset the attention kernels
 and the MLP reverse kernel per block instead of the megakernels).
-``--method`` names a ViT method of ``METHODS`` (default
-``transformer_attribution``). ``--tp`` profiles the tensor-parallel
-ViT program (``parallel.tensor.make_tp_explain_fn``) at k = 1 over a
-single-rank NCCL process group instead of the single-device path.
+``--method`` names a method of the model's ``METHODS`` (ViT's
+``explain/generator.py`` or BERT's ``explain/bert_generator.py``; default
+``transformer_attribution``; BERT's ``rollout`` from start layer 0, as
+``BertExplainer.generate_rollout`` calls it). ``--tp`` profiles the
+tensor-parallel ViT program (``parallel.tensor.make_tp_explain_fn``) at
+k = 1 over a single-rank NCCL process group instead of the single-device
+path.
 ``--b2`` … ``--b10b`` profile one call of a layer kernel alone (B2, B3, B6,
 B10a, B10b and the attention kernels B4, B5 at ViT-B/16 B=8; B7, B8, B9 at
 BERT-base B=8 and length ``--seq``; see ``layer_call``), each in the
@@ -161,7 +164,8 @@ def tp_case(dev, prec):
 
 def bert_case(dev, S, prec):
     """(label, explain) of BERT-base at B=8, length S, each sample padded
-    to its own length, kernel and plain paths."""
+    to its own length, kernel and plain paths; ``prec`` holds
+    explain_batch's precision and method keywords."""
     from transformer_explainability_torch.explain.bert_generator import (
         explain_batch)
     from transformer_explainability_torch.models.bert import (
@@ -364,7 +368,12 @@ def main():
     if layer:
         return
     if args.model == "bert":
-        paths, what = bert_case(dev, args.seq, prec), f"bert_s{args.seq}"
+        kw = dict(prec, method=args.method)
+        if args.method == "rollout":
+            kw["start_layer"] = 0
+        paths, what = bert_case(dev, args.seq, kw), f"bert_s{args.seq}"
+        if args.method != "transformer_attribution":
+            what += "_" + args.method
     elif args.tp:
         paths, what = tp_case(dev, prec), "vit_tp1"
     else:

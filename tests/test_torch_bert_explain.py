@@ -258,9 +258,6 @@ def test_plain_reverse_matches_autograd():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="rollout"), dict(method="full"), dict(method="last_layer"),
-    dict(method="last_layer_attn"), dict(method="attn_gradcam"),
-    dict(variant="lrp"), dict(alpha=0.5), dict(head_mask=torch.ones(3, 4)),
     dict(matmul_precision="tensorfloat32"),
     dict(matmul_precision="float32", attn_precision="bfloat16"),
     dict(matmul_precision="bfloat16", relprop_precision="float32"),
@@ -271,16 +268,17 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        bg.check_supported(BertConfig(hidden_act="relu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    """relu and the rollout method run now; S > 512 at a reduced base is
+    JAX's non-kernel path, not ported."""
+    bg.check_supported(BertConfig(hidden_act="relu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3, other bases"):
         bg.use_kernel_path(bg.KERNEL_MAX_SEQ + 1, "bfloat16")
     assert not bg.use_kernel_path(bg.KERNEL_MAX_SEQ + 1, "float32")
     assert bg.use_kernel_path(bg.KERNEL_MAX_SEQ, "tensorfloat32")
     ex = BertExplainer(init_params(BertConfig(**SMALL), generator=torch
                                    .Generator().manual_seed(0), device="cpu"),
                        BertConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ex.generate_rollout(np.zeros((1, 5), int), np.ones((1, 5)))
+    roll = ex.generate_rollout(np.zeros((1, 5), int), np.ones((1, 5)))
+    assert roll.shape == (1, 5) and torch.isfinite(roll).all()
     with pytest.raises(ValueError, match="unknown method"):
         ex.explain(np.zeros((1, 5), int), np.ones((1, 5)), method="grad")

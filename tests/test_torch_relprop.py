@@ -184,3 +184,106 @@ def test_compute_rollout(x64, start_layer, row_normalize):
     for i in range(2):
         _close(got[i], jrp.compute_rollout(jnp.asarray(cams[i]), start_layer,
                                            row_normalize))
+
+
+@pytest.mark.parametrize("grad_mode", ["enabled", "no_grad"])
+def test_zrule(x64, grad_mode):
+    """A nonlinear two-input ``f`` (per row, so the batch may share one
+    call); under ``torch.no_grad()`` too, as the explain entry points run."""
+    rng = np.random.RandomState(12)
+    a, b, R = rng.randn(3, 6), rng.randn(3, 6), rng.randn(3, 6)
+
+    def f_t(x, y):
+        return torch.tanh(x) * y + x * x
+
+    def f_j(x, y):
+        return jnp.tanh(x) * y + x * x
+
+    ctx = torch.no_grad() if grad_mode == "no_grad" else torch.enable_grad()
+    with ctx:
+        ga, gb = trp.zrule(f_t, (_t(a), _t(b)), _t(R))
+        single = trp.zrule(torch.sin, (_t(a),), _t(R))
+    for i in range(3):
+        wa, wb = jrp.zrule(f_j, (jnp.asarray(a[i]), jnp.asarray(b[i])),
+                           jnp.asarray(R[i]))
+        _close(ga[i], wa)
+        _close(gb[i], wb)
+        _close(single[i], jrp.zrule(jnp.sin, (jnp.asarray(a[i]),),
+                                    jnp.asarray(R[i])))
+
+
+def test_add_eye_relprop(x64):
+    rng = np.random.RandomState(13)
+    x, R = np.abs(rng.randn(2, 3, 7, 7)) * 0.1, rng.randn(2, 3, 7, 7)
+    got = trp.add_eye_relprop(_t(x), _t(R))
+    for i in range(2):
+        _close(got[i], jrp.add_eye_relprop(jnp.asarray(x[i]),
+                                           jnp.asarray(R[i])))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cat_relprop(x64, axis):
+    """Three parts of other sizes along a per-sample axis (the port's axis
+    is JAX's + 1)."""
+    rng = np.random.RandomState(14)
+    sizes = (2, 5, 3)
+    parts = [rng.randn(*[(2, s, 4), (2, 4, s)][axis]) for s in sizes]
+    R = rng.randn(*[(2, 10, 4), (2, 4, 10)][axis])
+    got = trp.cat_relprop([_t(p) for p in parts], axis + 1, _t(R))
+    assert [tuple(g.shape) for g in got] == [p.shape for p in parts]
+    for i in range(2):
+        want = jrp.cat_relprop([jnp.asarray(p[i]) for p in parts], axis,
+                               jnp.asarray(R[i]))
+        for g, w in zip(got, want):
+            _close(g[i], w)
+
+
+def test_matmul_relprop(x64):
+    rng = np.random.RandomState(15)
+    a, b, R = rng.randn(2, 3, 5, 4), rng.randn(2, 3, 4, 6), rng.randn(2, 3, 5, 6)
+    ga, gb = trp.matmul_relprop(_t(a), _t(b), _t(R))
+    for i in range(2):
+        wa, wb = jrp.matmul_relprop(jnp.asarray(a[i]), jnp.asarray(b[i]),
+                                    jnp.asarray(R[i]))
+        _close(ga[i], wa)
+        _close(gb[i], wb)
+
+
+def test_mul_relprop(x64):
+    """With a zero factor, as a head mask holds."""
+    rng = np.random.RandomState(16)
+    a, b, R = rng.randn(2, 4, 5, 5), rng.randn(2, 4, 5, 5), rng.randn(2, 4, 5, 5)
+    b[:, 1] = 0.0
+    ga, gb = trp.mul_relprop(_t(a), _t(b), _t(R))
+    for i in range(2):
+        wa, wb = jrp.mul_relprop(jnp.asarray(a[i]), jnp.asarray(b[i]),
+                                 jnp.asarray(R[i]))
+        _close(ga[i], wa)
+        _close(gb[i], wb)
+
+
+def test_batchnorm2d_relprop(x64):
+    rng = np.random.RandomState(17)
+    x, R = rng.randn(2, 3, 5, 6), rng.randn(2, 3, 5, 6)
+    w, var = rng.randn(3), np.abs(rng.randn(3)) + 0.1
+    got = trp.batchnorm2d_relprop(_t(x), _t(w), _t(var), _t(R))
+    want = jax.vmap(jrp.batchnorm2d_relprop, in_axes=(0, None, None, 0))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(var), jnp.asarray(R))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 2.0])
+def test_conv_patch_alphabeta_relprop(x64, alpha):
+    rng = np.random.RandomState(18)
+    img = rng.randn(2, 3, 32, 48)
+    w = rng.randn(3 * 16 * 16, 8) * 0.05
+    R = rng.randn(2, 6, 8)
+    got = trp.conv_patch_alphabeta_relprop(_t(img), _t(w), _t(R), 16, alpha)
+    assert got.shape == img.shape
+    want = jax.vmap(lambda i, r: jrp.conv_patch_alphabeta_relprop(
+        i, jnp.asarray(w), r, 16, alpha))(jnp.asarray(img), jnp.asarray(R))
+    _close(got, want)
+
+
+def test_all_names_match_the_jax_library():
+    assert sorted(trp.__all__) == sorted(jrp.__all__)

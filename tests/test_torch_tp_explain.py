@@ -190,11 +190,14 @@ def test_mesh_routes_a_multi_rank_group_to_tp(ranks):
 
 @pytest.mark.parametrize("k,run,error,match", [
     (2, "gate-heads", "ValueError", "divide"),
-    (2, "gate-variant", "NotImplementedError", "ROADMAP A3"),
-    (2, "gate-alpha", "NotImplementedError", "ROADMAP A3"),
-    (2, "gate-method", "NotImplementedError", "ROADMAP A4"),
+    (2, "gate-variant", "NotImplementedError",
+     "ROADMAP A8, parallel paths"),
+    (2, "gate-alpha", "NotImplementedError",
+     "ROADMAP A8, parallel paths"),
+    (2, "gate-method", "NotImplementedError",
+     "ROADMAP A8, parallel paths"),
     (2, "gate-tf32", "NotImplementedError", "ROADMAP B"),
-    (1, "mesh", "NotImplementedError", "ROADMAP A12"),
+    (1, "mesh", "NotImplementedError", "ROADMAP A8, parallel paths"),
 ])
 def test_gates_raise(ranks, k, run, error, match):
     got = ranks(k)[0][run]

@@ -114,19 +114,22 @@ def test_unported_options_raise():
     ex_bf16 = Explainer(sd, cfg, device="cpu", matmul_precision="bfloat16")
     for kw in (dict(method="rollout"), dict(method="attn_gradcam"),
                dict(alpha=2.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A3, other bases"):
             ex_bf16.explain(img, **kw)
     for kw, match in (
-            (dict(variant="lrp", matmul_precision="bfloat16"), "ROADMAP A4"),
+            (dict(variant="lrp", matmul_precision="bfloat16"),
+             "ROADMAP A3, other bases"),
             (dict(matmul_precision="bfloat16", relprop_precision="float32"),
-             "ROADMAP A4"),
-            (dict(attn_precision="float32"), "ROADMAP A4"),
+             "ROADMAP A3, other bases"),
+            (dict(attn_precision="float32"), "ROADMAP A3, other bases"),
             (dict(matmul_precision="tensorfloat32",
                   relprop_precision="bfloat16", attn_precision="float32",
                   block_kernel=False), "ROADMAP B")):
         with pytest.raises(NotImplementedError, match=match):
             Explainer(sd, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A3, diagnostics"):
         make_explain_fn(cfg, "cpu", with_diagnostics=True)
 
 

@@ -1,27 +1,29 @@
-"""BERT explanation entry points of the port: ``transformer_attribution``.
+"""BERT explanation entry points of the port: the six methods of the JAX
+package's ``explain/bert_generator.py`` (the reference ``Generator``'s).
 
-Port of ``transformer_explainability_tpu/explain/bert_generator.py`` for the
-method ``transformer_attribution`` (variant ``ours``, α=1) under the
-precision presets of :data:`.generator.PRECISION_PRESETS`:
+Every method returns the CLS row over the tokens, ``(B, S)``, with the
+reference's special-token handling (:func:`explain_batch`). The JAX gate
+picks the path:
 
-    1. :func:`..models.bert.forward_collect` — the plain layers
-       (``float32``), or one ``bert_layer_fwd_core`` kernel per layer with
-       the slim rich anchors (``production``, ``bfloat16``);
-    2. :func:`..models.bert.reverse_pass` — class gradient and LRP relevance
-       together, layer by layer, plain or through ``bert_out_rev_core`` and
-       ``bert_attn_rev_core``, each layer emitting its head-mean
-       ``(grad ⊙ cam)⁺`` map;
-    3. the ``rollout_from_grad_cam`` kernel chains the row-normalised maps
-       from ``start_layer`` (default 11, as in JAX); the result is the CLS
-       row over the tokens with ``row[0] = row.min()``.
+  * ``transformer_attribution`` with variant ``ours``, α=1 and exact GELU
+    at a ``bfloat16`` or ``tensorfloat32`` base with S ≤
+    :data:`KERNEL_MAX_SEQ` (the ``production`` and ``bfloat16`` presets)
+    takes the layer kernels: :func:`..models.bert.forward_collect` runs one
+    ``bert_layer_fwd_core`` per layer with the slim rich anchors, and
+    :func:`..models.bert.reverse_pass` ``bert_out_rev_core`` and
+    ``bert_attn_rev_core``, each layer emitting its head-mean ``(grad ⊙
+    cam)⁺`` map;
+  * at the ``float32`` base (exact FP32) every method, both rule variants
+    and any α take the plain layers, keeping what the method reads: the
+    relevance chain, the class gradient, the per-layer probabilities.
 
-The kernel path is taken, as JAX's gate takes it, for a ``bfloat16`` or
-``tensorfloat32`` base with S ≤ :data:`KERNEL_MAX_SEQ`; the wrappers run
-their plain versions on the CPU and the kernels on a card. The other BERT
-methods, the ``lrp`` variant, α ≠ 1, ``head_mask``, activations other than
-exact GELU and the precision combinations the kernels do not run raise
-``NotImplementedError`` naming the ROADMAP item that ports them. Any batch
-size runs as it is.
+``transformer_attribution`` and ``rollout`` chain their maps in the
+``rollout_from_grad_cam`` kernel (``rollout`` from the per-head
+probabilities, through its head-mean pass). The wrappers run their plain
+versions on the CPU and the kernels on a card. JAX's non-kernel path at a
+reduced-precision base and the precision combinations the kernels do not
+run raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Any batch size runs as it is.
 """
 
 from __future__ import annotations
@@ -42,10 +44,19 @@ Tensor = torch.Tensor
 # JAX bert_generator.KERNEL_MAX_SEQ: BERT-base's position ceiling
 KERNEL_MAX_SEQ = 512
 
-METHODS = ("transformer_attribution",)
-# the JAX package's other BERT methods (bert_generator.METHODS)
-NOT_PORTED_METHODS = ("last_layer", "full", "last_layer_attn", "rollout",
-                      "attn_gradcam")
+# method -> needs (attention gradients, relevance chain) (JAX
+# bert_generator.METHODS; the reference Generator's method beside each)
+METHODS = {
+    "transformer_attribution": (True, True),    # generate_LRP
+    "last_layer": (False, True),                # generate_LRP_last_layer
+    "full": (False, True),                      # generate_full_lrp
+    "last_layer_attn": (False, False),          # generate_attn_last_layer
+    "rollout": (False, False),                  # generate_rollout
+    "attn_gradcam": (True, False),              # generate_attn_gradcam
+}
+# the methods that read the per-layer attention probabilities
+PROBS_METHODS = ("last_layer_attn", "rollout", "attn_gradcam")
+ACTIVATIONS = ("gelu", "relu", "tanh")
 
 
 def check_supported(cfg: BertConfig, method: str = "transformer_attribution",
@@ -53,26 +64,29 @@ def check_supported(cfg: BertConfig, method: str = "transformer_attribution",
                     matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
-                    mlp_precision: Optional[str] = None,
-                    head_mask: Optional[Tensor] = None) -> None:
-    """Raise for every configuration this slice of the port does not run."""
-    if method in NOT_PORTED_METHODS:
-        raise NotImplementedError(f"BERT method {method!r} is not ported yet "
-                                  "(ROADMAP A7)")
+                    mlp_precision: Optional[str] = None) -> None:
+    """Raise for every configuration the port does not run."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: "
-                         f"{sorted(METHODS + NOT_PORTED_METHODS)}")
-    if variant != "ours" or alpha != 1.0:
-        raise NotImplementedError("BERT variant 'lrp' and alpha != 1 are not "
-                                  "ported yet (ROADMAP A7)")
-    if head_mask is not None:
-        raise NotImplementedError("BERT head_mask is not ported yet "
-                                  "(ROADMAP A7)")
-    if cfg.hidden_act != "gelu":
-        raise NotImplementedError(f"BERT activation {cfg.hidden_act!r} is not "
-                                  "ported yet (ROADMAP A7; exact GELU only)")
+                         f"{sorted(METHODS)}")
+    if variant not in ("ours", "lrp"):
+        raise ValueError(f"unknown variant {variant!r} ('ours' or 'lrp')")
+    if cfg.hidden_act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {cfg.hidden_act!r}; "
+                         f"available: {list(ACTIVATIONS)}")
     check_precision(matmul_precision, relprop_precision, attn_precision,
                     mlp_precision)
+    # JAX explain_single's eligibility for the layer kernels: the fused
+    # method with variant ours at alpha 1 and exact GELU
+    eligible = (method == "transformer_attribution"
+                and cfg.hidden_act == "gelu" and variant == "ours"
+                and alpha == 1.0)
+    if megakernel_base(matmul_precision) and not eligible:
+        raise NotImplementedError(
+            f"BERT method {method!r}, variant {variant!r}, alpha {alpha}, "
+            f"activation {cfg.hidden_act!r} at a {matmul_precision} base "
+            "takes JAX's non-kernel reduced-precision path, not ported yet "
+            "(ROADMAP A3, other bases)")
 
 
 def use_kernel_path(seq_len: int, matmul_precision: str) -> bool:
@@ -85,7 +99,7 @@ def use_kernel_path(seq_len: int, matmul_precision: str) -> bool:
         raise NotImplementedError(
             f"S={seq_len} > {KERNEL_MAX_SEQ} at a {matmul_precision} base "
             "takes JAX's non-kernel reduced-precision path, not ported yet "
-            "(ROADMAP A7)")
+            "(ROADMAP A3, other bases)")
     return True
 
 
@@ -98,31 +112,72 @@ def explain_batch(model: bert_mod.BertForSequenceClassification,
                   matmul_precision: str = "float32",
                   relprop_precision: Optional[str] = None,
                   attn_precision: Optional[str] = None,
-                  mlp_precision: Optional[str] = None) -> Tensor:
-    """Batched ``transformer_attribution`` (JAX ``bert_generator.
-    explain_single`` vmapped): ``input_ids (B, S)`` int64 and
-    ``attention_mask (B, S)`` 0/1 on the model's device, ``indices (B,)``
-    with −1 for the argmax class. Returns the CLS row over the tokens,
-    ``(B, S)``. ``ops`` selects the kernels (default) or, for a reference
-    run, their plain versions."""
+                  mlp_precision: Optional[str] = None, alpha: float = 1.0,
+                  variant: str = "ours") -> Tensor:
+    """Batched explanation (JAX ``bert_generator.explain_single`` vmapped):
+    ``input_ids (B, S)`` int64 and ``attention_mask (B, S)`` 0/1 on the
+    model's device, ``indices (B,)`` with −1 for the argmax class. Returns
+    the CLS row over the tokens, ``(B, S)``, per method:
+
+      * ``transformer_attribution``: the rollout from ``start_layer`` of the
+        row-normalised ``(grad ⊙ cam)⁺`` head means, ``row[0] = row.min()``;
+      * ``last_layer``: the last layer's relevance map, clamped at 0 and
+        averaged over the heads;
+      * ``full``: the relevance at the layer-0 input, summed over features;
+      * ``last_layer_attn``: the last layer's probabilities averaged over
+        the heads;
+      * ``rollout``: the rollout from ``start_layer`` of the row-normalised
+        head-mean probabilities;
+      * ``attn_gradcam``: the last layer's probabilities times each head's
+        mean gradient, averaged over the heads, clamped at 0 and min-max
+        normalised over the whole map (0/0, NaN, for a map with no positive
+        entry, as in JAX);
+
+    each but the first with ``row[0] = 0``. ``ops`` selects the kernels
+    (default) or, for a reference run, their plain versions."""
     cfg = model.cfg
     precision = dict(matmul_precision=matmul_precision,
                      attn_precision=attn_precision,
                      mlp_precision=mlp_precision)
-    check_supported(cfg, method, relprop_precision=relprop_precision,
-                    **precision)
+    check_supported(cfg, method, alpha, variant,
+                    relprop_precision=relprop_precision, **precision)
     dtype = model.classifier.weight.dtype
     _check_fp32_matmul(input_ids.device, dtype)
     use_kernel = use_kernel_path(input_ids.shape[1], matmul_precision)
-    logits, res = bert_mod.forward_collect(model, input_ids, attention_mask,
-                                           ops, use_kernel, **precision)
-    onehot = _one_hot_index(logits, indices, cfg.num_labels)
-    _, gc = bert_mod.reverse_pass(model, res, onehot, ops, use_kernel,
-                                  relprop_precision=relprop_precision,
-                                  **precision)
-    joint = ops.rollout_from_grad_cam(gc, start_layer, True, rows=1)
-    row = joint[:, 0].clone()
-    row[:, 0] = row.min(dim=-1).values           # rollout[:, 0, 0] = min
+    needs_grads, needs_relprop = METHODS[method]
+    fused = method == "transformer_attribution"
+    logits, res = bert_mod.forward_collect(
+        model, input_ids, attention_mask, ops, use_kernel, **precision,
+        keep_probs=method in PROBS_METHODS)
+    R_tokens = cams = grads = None
+    if needs_grads or needs_relprop:
+        onehot = _one_hot_index(logits, indices, cfg.num_labels)
+        R_tokens, cams, grads = bert_mod.reverse_pass(
+            model, res, onehot, ops, use_kernel,
+            relprop_precision=relprop_precision, alpha=alpha,
+            variant=variant, need_grads=needs_grads,
+            need_relprop=needs_relprop, fuse_grad_cam=fused, **precision)
+    if fused:
+        joint = ops.rollout_from_grad_cam(cams, start_layer, True, rows=1)
+        row = joint[:, 0].clone()
+        row[:, 0] = row.min(dim=-1).values       # rollout[:, 0, 0] = min
+        return row
+    if method == "rollout":
+        row = ops.rollout_from_grad_cam(res.probs, start_layer, True,
+                                        rows=1)[:, 0]
+    elif method == "last_layer":
+        row = cams[:, -1, :, 0].clamp(min=0).mean(dim=1)
+    elif method == "full":
+        row = R_tokens.sum(dim=-1)
+    elif method == "last_layer_attn":
+        row = res.probs[:, -1, :, 0].mean(dim=1)
+    else:                                        # attn_gradcam
+        grad = grads[:, -1].mean(dim=(2, 3), keepdim=True)
+        cam = (res.probs[:, -1] * grad).mean(dim=1).clamp(min=0)
+        lo = cam.amin(dim=(1, 2), keepdim=True)
+        row = ((cam - lo) / (cam.amax(dim=(1, 2), keepdim=True) - lo))[:, 0]
+    row = row.clone()
+    row[:, 0] = 0.0
     return row
 
 
@@ -156,7 +211,8 @@ def make_explain_fn(cfg: BertConfig, device,
             ids.shape)
         idx = torch.as_tensor(indices, device=device).to(torch.int64)
         return explain_batch(model, ids, mask, idx.reshape(ids.shape[0]),
-                             start_layer, method, **precision)
+                             start_layer, method, alpha=alpha,
+                             variant=variant, **precision)
 
     return fn
 
@@ -174,6 +230,7 @@ class BertExplainer:
                  variant: str = "ours", matmul_precision: str = "float32",
                  relprop_precision=None, attn_precision=None,
                  mlp_precision=None):
+        self.variant = variant
         self.precision = dict(matmul_precision=matmul_precision,
                               relprop_precision=relprop_precision,
                               attn_precision=attn_precision,
@@ -199,7 +256,7 @@ class BertExplainer:
         if indices is None:
             indices = torch.full((ids.shape[0],), -1, dtype=torch.int64)
         fn = make_explain_fn(self.cfg, self.device, method, start_layer,
-                             alpha, **self.precision)
+                             alpha, self.variant, **self.precision)
         return fn(self.model, ids, attention_mask, indices)
 
     # reference Generator method names
@@ -227,6 +284,6 @@ class BertExplainer:
         return self.explain(input_ids, attention_mask, index, "attn_gradcam")
 
 
-__all__ = ["KERNEL_MAX_SEQ", "METHODS", "NOT_PORTED_METHODS",
+__all__ = ["KERNEL_MAX_SEQ", "METHODS", "PROBS_METHODS", "ACTIVATIONS",
            "check_supported", "use_kernel_path", "explain_batch",
            "make_explain_fn", "BertExplainer"]

@@ -136,10 +136,10 @@ def check_supported(method: str = "transformer_attribution",
             f"method {method!r}, variant {variant!r}, alpha {alpha} take the "
             "non-kernel branch, which runs at the float32 base only: its "
             "products at other bases need a fidelity measurement on the card "
-            "first (ROADMAP A4)")
+            "first (ROADMAP A3, other bases)")
     if with_diagnostics:
         raise NotImplementedError("with_diagnostics is not ported yet "
-                                  "(ROADMAP A11)")
+                                  "(ROADMAP A3, diagnostics)")
 
 
 def check_precision(matmul_precision: str = "float32",
@@ -161,14 +161,15 @@ def check_precision(matmul_precision: str = "float32",
     islands = (relprop_precision, attn_precision, mlp_precision)
     if matmul_precision == "float32":
         if any(p is not None for p in islands):
-            raise NotImplementedError("precision islands on the float32 "
-                                      "base are not ported yet (ROADMAP A4)")
+            raise NotImplementedError(
+                "precision islands on the float32 base are not ported yet "
+                "(ROADMAP A3, other bases)")
         return
     if prec.islands_exceed_base(matmul_precision, relprop_precision,
                                 mlp_precision):
         raise NotImplementedError(
             "a rule or MLP precision above the base takes the non-kernel "
-            "path, not ported yet (ROADMAP A4)")
+            "path, not ported yet (ROADMAP A3, other bases)")
     rule = prec.mxu_name(relprop_precision, matmul_precision)
     attn = prec.mxu_name(attn_precision, matmul_precision)
     if rule != "bfloat16" or attn == "tensorfloat32":

@@ -1,33 +1,37 @@
-"""Explainable BERT in PyTorch: the ``transformer_attribution`` paths.
+"""Explainable BERT in PyTorch (port of
+``transformer_explainability_tpu/models/bert.py``).
 
-Port of ``transformer_explainability_tpu/models/bert.py`` restricted to what
-``transformer_attribution`` (variant ``ours``, α=1) takes:
-
-  * ``matmul_precision="float32"`` (exact FP32): :func:`forward_collect` is
-    the JAX ``lax.scan`` forward (:func:`layer_acts`, two anchors per layer)
-    and :func:`reverse_pass` the JAX fused reverse with ``fuse_grad_cam``
-    (:func:`layer_backward` + :func:`layer_relprop`, recomputed from the
-    anchors), all plain PyTorch;
-  * ``matmul_precision`` ``"bfloat16"`` or ``"tensorfloat32"`` (the
-    ``production`` and ``bfloat16`` presets): the JAX kernel branches, one
-    :func:`..ops.kernels.bert_layer_fwd_core` per layer (saving the slim
-    rich anchors qkv_pre, ctx, dense_nb) and, per layer from the last down,
-    :func:`..ops.kernels.bert_out_rev_core` then
-    :func:`..ops.kernels.bert_attn_rev_core`. The layer weights are prepared
-    once per model and mode (:meth:`BertForSequenceClassification.
+  * The plain path (``matmul_precision="float32"``, exact FP32, and every
+    method but ``transformer_attribution``): :func:`forward_collect` is the
+    JAX ``lax.scan`` forward (:func:`layer_acts`, two anchors per layer,
+    the per-layer attention probabilities kept when a method reads them)
+    and :func:`reverse_pass` the JAX reverse scan (:func:`layer_backward`
+    and :func:`layer_relprop`, recomputed from the anchors): the class
+    gradient, the LRP relevance or both, in either rule variant and any α,
+    per-head or folded into the ``(grad ⊙ cam)⁺`` head mean. Activations
+    ``gelu`` (exact), ``relu`` and ``tanh``, token types and an ``(L, h)``
+    head mask are taken as JAX takes them. All plain PyTorch.
+  * The kernel path (``matmul_precision`` ``"bfloat16"`` or
+    ``"tensorfloat32"``, the ``production`` and ``bfloat16`` presets;
+    ``transformer_attribution``, variant ``ours``, α=1, exact GELU, no head
+    mask): one :func:`..ops.kernels.bert_layer_fwd_core` per layer (saving
+    the slim rich anchors qkv_pre, ctx, dense_nb) and, per layer from the
+    last down, :func:`..ops.kernels.bert_out_rev_core` then
+    :func:`..ops.kernels.bert_attn_rev_core`, each layer yielding its
+    head-mean ``(grad ⊙ cam)⁺`` map. The layer weights are prepared once
+    per model and mode (:meth:`BertForSequenceClassification.
     layer_params`).
 
-In both, the class gradient and the LRP relevance advance together layer by
-layer and each layer yields its head-mean ``(grad ⊙ cam)⁺`` map. The
-embeddings, the pooler and the classifier stay exact products in the
+The embeddings, the pooler and the classifier stay exact products in the
 parameters' dtype (float32 on a card needs TF32 off).
 
 The modules hold parameters under the Hugging Face names that the JAX
 package's ``bert_state_dict_from_params`` exports
 (``bert.encoder.layer.{i}.attention.self.query``, ..., ``classifier``), so
 the state dicts of ``params.convert.bert_params_from_jax`` load as they are.
-Inputs are ``(B, S)`` token ids and ``(B, S)`` 0/1 attention masks; token
-types are 0 and positions ``arange(S)``, the JAX defaults.
+Inputs are ``(B, S)`` token ids, ``(B, S)`` 0/1 attention masks and
+optional ``(B, S)`` token types (0 by default); positions are
+``arange(S)``, the JAX default.
 """
 
 from __future__ import annotations
@@ -164,8 +168,10 @@ class BertForSequenceClassification(nn.Module):
         self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels, **kw)
 
     @torch.no_grad()
-    def forward(self, input_ids: Tensor, attention_mask: Tensor) -> Tensor:
-        return forward_collect(self, input_ids, attention_mask)[0]
+    def forward(self, input_ids: Tensor, attention_mask: Tensor,
+                token_type_ids: Optional[Tensor] = None) -> Tensor:
+        return forward_collect(self, input_ids, attention_mask,
+                               token_type_ids=token_type_ids)[0]
 
     def layer_params(self, i: int, mode: str) -> BertLayerParams:
         """Layer ``i``'s parameters for the kernels, its four weights
@@ -252,13 +258,36 @@ def _lin(x: Tensor, lin: nn.Linear) -> Tensor:
     return x @ lin.weight.t() + lin.bias
 
 
+def _act(x: Tensor, name: str) -> Tensor:
+    """The MLP activation (JAX ``bert._act``)."""
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="none")
+    if name == "relu":
+        return torch.relu(x)
+    if name == "tanh":
+        return torch.tanh(x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _act_grad(pre: Tensor, name: str) -> Tensor:
+    """Its derivative at the pre-activation (JAX ``bert._act_grad``)."""
+    if name == "gelu":
+        return bm.gelu_grad(pre)
+    if name == "relu":
+        return (pre > 0).to(pre.dtype)
+    if name == "tanh":
+        t = torch.tanh(pre)
+        return 1.0 - t * t
+    raise ValueError(f"unknown activation {name!r}")
+
+
 def _heads(x: Tensor, cfg: BertConfig) -> Tensor:
     """(B, S, D) -> (B, h, S, hd) (JAX ``bert._heads``)."""
     return bm.to_heads(x, cfg.num_heads, cfg.head_dim)
 
 
 class LayerActs(NamedTuple):
-    """JAX ``bert.LayerActs`` (no head mask), batched."""
+    """JAX ``bert.LayerActs``, batched."""
     q: Tensor            # (B, h, S, hd)
     k: Tensor
     v: Tensor
@@ -270,13 +299,19 @@ class LayerActs(NamedTuple):
     inter_pre: Tensor    # (B, S, I)
     inter_g: Tensor      # (B, S, I)
     dense2: Tensor       # (B, S, D)
+    # the probabilities the AV product consumed, after the head mask (None
+    # without one: they are ``probs``)
+    probs_m: Optional[Tensor] = None
 
 
 def layer_acts(x_in: Tensor, att_ln: Optional[Tensor], layer: BertLayer,
-               ext_mask: Tensor, cfg: BertConfig
+               ext_mask: Tensor, cfg: BertConfig,
+               head_mask: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, LayerActs]:
     """One encoder layer from its input (JAX ``bert._layer_acts``); pass
-    the saved ``att_ln`` to recompute. Returns ``(att_ln, out, acts)``."""
+    the saved ``att_ln`` to recompute. ``head_mask`` ``(h,)`` multiplies
+    the post-softmax probabilities per head. Returns ``(att_ln, out,
+    acts)``."""
     sa = layer.attention.self
     q = _heads(_lin(x_in, sa.query), cfg)
     k = _heads(_lin(x_in, sa.key), cfg)
@@ -284,17 +319,21 @@ def layer_acts(x_in: Tensor, att_ln: Optional[Tensor], layer: BertLayer,
     raw = q @ k.transpose(-1, -2)
     scaled = raw / math.sqrt(cfg.head_dim)
     probs = torch.softmax(scaled + ext_mask[:, None, None, :], dim=-1)
-    ctx = bm.merge_heads(probs @ v)
+    probs_m = None
+    if head_mask is not None:
+        probs_m = probs * head_mask[:, None, None]
+    ctx = bm.merge_heads((probs if probs_m is None else probs_m) @ v)
     dense_out = _lin(ctx, layer.attention.output.dense)
     att_mid = dense_out + x_in
     if att_ln is None:
         att_ln = _layernorm(att_mid, layer.attention.output.LayerNorm)
     inter_pre = _lin(att_ln, layer.intermediate.dense)
-    inter_g = torch.nn.functional.gelu(inter_pre, approximate="none")
+    inter_g = _act(inter_pre, cfg.hidden_act)
     dense2 = _lin(inter_g, layer.output.dense)
     out = _layernorm(dense2 + att_ln, layer.output.LayerNorm)
     return att_ln, out, LayerActs(q, k, v, scaled, probs, ctx, dense_out,
-                                  att_mid, inter_pre, inter_g, dense2)
+                                  att_mid, inter_pre, inter_g, dense2,
+                                  probs_m)
 
 
 class Residuals(NamedTuple):
@@ -311,17 +350,23 @@ class Residuals(NamedTuple):
     qkv_pres: Optional[List[Tensor]] = None
     ctxs: Optional[List[Tensor]] = None
     dense_nbs: Optional[List[Tensor]] = None
+    # the per-layer post-softmax probabilities (B, L, h, S, S), before any
+    # head mask (plain path, when asked for)
+    probs: Optional[Tensor] = None
 
 
-def embed(model: BertForSequenceClassification, input_ids: Tensor) -> Tensor:
+def embed(model: BertForSequenceClassification, input_ids: Tensor,
+          token_type_ids: Optional[Tensor] = None) -> Tensor:
     """Word + position + token-type embedding and LayerNorm (JAX
-    ``bert.embed`` with token types 0 and positions ``arange(S)``)."""
+    ``bert.embed`` with positions ``arange(S)``); ``token_type_ids`` (B, S)
+    default to 0."""
     e = model.bert.embeddings
     S = input_ids.shape[1]
     pos = torch.arange(S, device=input_ids.device)
+    types = e.token_type_embeddings.weight
     x = (e.word_embeddings.weight[input_ids]
          + e.position_embeddings.weight[pos]
-         + e.token_type_embeddings.weight[0])
+         + (types[0] if token_type_ids is None else types[token_type_ids]))
     return _layernorm(x, e.LayerNorm)
 
 
@@ -330,20 +375,28 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
                     use_kernel: bool = False,
                     matmul_precision: str = "float32",
                     attn_precision: Optional[str] = None,
-                    mlp_precision: Optional[str] = None
+                    mlp_precision: Optional[str] = None,
+                    token_type_ids: Optional[Tensor] = None,
+                    head_mask: Optional[Tensor] = None,
+                    keep_probs: bool = False
                     ) -> Tuple[Tensor, Residuals]:
     """Forward pass returning logits ``(B, num_labels)`` and the residuals
     (JAX ``bert.forward_collect``). ``use_kernel`` runs one
     ``bert_layer_fwd_core`` per layer with the slim rich anchors (JAX
-    ``use_kernel=True, rich_anchors=True``), else the plain layers."""
+    ``use_kernel=True, rich_anchors=True``), else the plain layers, which
+    take a head mask ``(L, h)`` and, with ``keep_probs``, keep every
+    layer's probabilities in ``Residuals.probs``."""
     cfg = model.cfg
-    x0 = embed(model, input_ids)
+    x0 = embed(model, input_ids, token_type_ids)
     ext_mask = (1.0 - attention_mask.to(x0.dtype)) * cfg.mask_value
     layers = model.bert.encoder.layer
     x = x0
     keep = {k: [] for k in ("x_ins", "att_lns", "qkv_pres", "ctxs",
-                            "dense_nbs")}
+                            "dense_nbs", "probs")}
     if use_kernel:
+        _check_kernel_path(cfg, head_mask)
+        if keep_probs:
+            raise ValueError("the layer kernels keep no probabilities")
         mxu = matmul_precision
         attn_mxu = prec.mxu_name(attn_precision, mxu)
         mlp_mxu = mlp_precision and prec.mxu_name(mlp_precision)
@@ -356,14 +409,20 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
             for k, t in zip(list(keep)[1:], outs[1:]):
                 keep[k].append(t)
             x = outs[0]
+        keep["probs"] = None
     else:
-        for layer in layers:
-            att_ln, out, _ = layer_acts(x, None, layer, ext_mask, cfg)
+        for li, layer in enumerate(layers):
+            att_ln, out, acts = layer_acts(x, None, layer, ext_mask, cfg,
+                                           _layer_mask(head_mask, li))
             keep["x_ins"].append(x)
             keep["att_lns"].append(att_ln)
+            if keep_probs:
+                keep["probs"].append(acts.probs)
             x = out
         for k in ("qkv_pres", "ctxs", "dense_nbs"):
             keep[k] = None
+        keep["probs"] = (torch.stack(keep["probs"], dim=1) if keep_probs
+                         else None)
     first_tok = x[:, 0]
     pooled = torch.tanh(_lin(first_tok, model.bert.pooler.dense))
     logits = _lin(pooled, model.classifier)
@@ -380,23 +439,42 @@ def _layernorm_bwd(g_y: Tensor, x: Tensor, ln: nn.LayerNorm) -> Tensor:
     return bm.ln_bwd(g_y, x, *bm.ln_stats(x, ln.eps), ln.weight)
 
 
+def _layer_mask(head_mask: Optional[Tensor], li: int) -> Optional[Tensor]:
+    return None if head_mask is None else head_mask[li]
+
+
+def _check_kernel_path(cfg: BertConfig, head_mask: Optional[Tensor]) -> None:
+    """What JAX's kernel branch asserts of the model."""
+    if head_mask is not None:
+        raise ValueError("head_mask runs on the plain path only, as in JAX")
+    if cfg.hidden_act != "gelu":
+        raise ValueError("the layer kernels run exact GELU only; "
+                         f"{cfg.hidden_act!r} takes the plain path")
+
+
 def layer_backward(g_out: Tensor, x_in: Tensor, att_ln: Tensor,
-                   acts: LayerActs, layer: BertLayer, cfg: BertConfig
+                   acts: LayerActs, layer: BertLayer, cfg: BertConfig,
+                   head_mask: Optional[Tensor] = None
                    ) -> Tuple[Tensor, Tensor]:
     """Hand-written VJP of one layer from its activations (JAX
-    ``bert.layer_backward``, no head mask): ``(g_in, g_probs)``."""
+    ``bert.layer_backward``): ``(g_in, g_probs)``, ``g_probs`` the
+    cotangent of the post-softmax probabilities before the head mask
+    ``(h,)`` (so it carries the mask's factor)."""
     out_d, ao_d = layer.output.dense, layer.attention.output.dense
     g_sum2 = _layernorm_bwd(g_out, acts.dense2 + att_ln,
                             layer.output.LayerNorm)
     g_ig = g_sum2 @ out_d.weight
-    g_h1 = g_ig * bm.gelu_grad(acts.inter_pre)
+    g_h1 = g_ig * _act_grad(acts.inter_pre, cfg.hidden_act)
     g_attln = g_sum2 + g_h1 @ layer.intermediate.dense.weight
 
     g_sum1 = _layernorm_bwd(g_attln, acts.att_mid,
                             layer.attention.output.LayerNorm)
     g_o = _heads(g_sum1 @ ao_d.weight, cfg)
     g_probs = g_o @ acts.v.transpose(-1, -2)
-    g_v = acts.probs.transpose(-1, -2) @ g_o
+    probs_av = acts.probs if acts.probs_m is None else acts.probs_m
+    g_v = probs_av.transpose(-1, -2) @ g_o
+    if acts.probs_m is not None:
+        g_probs = g_probs * head_mask[:, None, None]
     inner = (g_probs * acts.probs).sum(dim=-1, keepdim=True)
     g_raw = (acts.probs * (g_probs - inner)) / math.sqrt(cfg.head_dim)
     g_q = g_raw @ acts.k
@@ -410,10 +488,12 @@ def layer_backward(g_out: Tensor, x_in: Tensor, att_ln: Tensor,
 
 def layer_relprop(R: Tensor, x_in: Tensor, att_ln: Tensor, acts: LayerActs,
                   layer: BertLayer, ext_mask: Tensor, cfg: BertConfig,
-                  alpha: float = 1.0, variant: str = "ours"
+                  alpha: float = 1.0, variant: str = "ours",
+                  head_mask: Optional[Tensor] = None
                   ) -> Tuple[Tensor, Tensor]:
-    """LRP through one layer (JAX ``bert.layer_relprop``, no head mask):
-    ``(R_in, attn_cam)``."""
+    """LRP through one layer (JAX ``bert.layer_relprop``): ``(R_in,
+    attn_cam)``. With a head mask ``(h,)`` the AV split is followed by the
+    z-rule through the mask's product, keeping the probabilities' share."""
     out_d, inter_d = layer.output.dense, layer.intermediate.dense
     ao_d, sa = layer.attention.output.dense, layer.attention.self
     # BertOutput: LN(id) -> add split -> dense
@@ -432,9 +512,13 @@ def layer_relprop(R: Tensor, x_in: Tensor, att_ln: Tensor, acts: LayerActs,
 
     # BertSelfAttention
     cam = _heads(R1, cfg)
-    cam1, cam_v = rp.einsum_av_relprop(acts.probs, acts.v, cam)
+    cam1, cam_v = rp.einsum_av_relprop(
+        acts.probs if acts.probs_m is None else acts.probs_m, acts.v, cam)
     cam1 = cam1 / 2
     cam_v = cam_v / 2
+    if acts.probs_m is not None:
+        cam1, _ = rp.mul_relprop(acts.probs, head_mask[:, None, None]
+                                 .expand_as(acts.probs), cam1)
     attn_cam = cam1
     # the attention-mask Add (masked scores = scaled + ext_mask)
     cam1, _ = rp.add_relprop(acts.scaled, ext_mask[:, None, None, :]
@@ -456,30 +540,54 @@ def reverse_pass(model: BertForSequenceClassification, res: Residuals,
                  use_kernel: bool = False, matmul_precision: str = "float32",
                  relprop_precision: Optional[str] = None,
                  attn_precision: Optional[str] = None,
-                 mlp_precision: Optional[str] = None
-                 ) -> Tuple[Tensor, Tensor]:
-    """The fused gradient + relevance reverse pass (JAX ``bert.reverse_pass``
-    with both passes, variant ``ours``, α=1: the kernel branch, or the
-    plain scan with ``fuse_grad_cam``). Returns ``(R_tokens (B, S, D),
-    gc (B, L, S, S))``: the relevance at the layer-0 input and, per layer,
-    the head-mean ``(grad ⊙ cam)⁺`` map."""
+                 mlp_precision: Optional[str] = None, alpha: float = 1.0,
+                 variant: str = "ours", need_grads: bool = True,
+                 need_relprop: bool = True, fuse_grad_cam: bool = False,
+                 head_mask: Optional[Tensor] = None
+                 ) -> Tuple[Optional[Tensor], Optional[Tensor],
+                            Optional[Tensor]]:
+    """The reverse pass (JAX ``bert.reverse_pass``): the class gradient of
+    ``onehot · logits`` w.r.t. every layer's post-softmax probabilities
+    (``need_grads``) and the LRP relevance (``need_relprop``, the rule
+    ``variant`` at ``alpha``), advancing together layer by layer. Returns
+    ``(R_tokens (B, S, D), attn_cams, attn_grads)``: the relevance at the
+    layer-0 input, and per layer the relevance map and the gradient of the
+    probabilities, ``(B, L, h, S, S)`` each; ``None`` for a pass not asked
+    for. ``fuse_grad_cam`` folds the two into the head-mean ``(grad ⊙
+    cam)⁺`` map per layer, returned ``(B, L, S, S)`` in place of
+    ``attn_cams`` (``attn_grads`` None). The kernel branch (``use_kernel``:
+    both passes, variant ``ours``, α=1, exact GELU, no head mask) always
+    returns that fused form."""
     cfg = model.cfg
     pool, cls = model.bert.pooler.dense, model.classifier
+    if use_kernel:
+        _check_kernel_path(cfg, head_mask)
+        if not (need_grads and need_relprop and variant == "ours"
+                and alpha == 1.0):
+            raise ValueError("the layer kernels run both passes with "
+                             "variant 'ours' at alpha 1")
+    elif fuse_grad_cam and not (need_grads and need_relprop):
+        raise ValueError("fuse_grad_cam needs both passes")
 
-    # gradient seed: classifier -> tanh pooler -> first token
-    g_pooled = onehot @ cls.weight
-    t = res.pooled
-    g_first = (g_pooled * (1.0 - t * t)) @ pool.weight
-    g = torch.zeros_like(res.seq_out)
-    g[:, 0] = g_first
+    g = R = None
+    if need_grads:
+        # gradient seed: classifier -> tanh pooler -> first token
+        g_pooled = onehot @ cls.weight
+        t = res.pooled
+        g_first = (g_pooled * (1.0 - t * t)) @ pool.weight
+        g = torch.zeros_like(res.seq_out)
+        g[:, 0] = g_first
+    if need_relprop:
+        # relevance seed: classifier and pooler rules, then the first-token
+        # index_select
+        R = rp.linear_alphabeta(res.pooled, cls.weight.t(), onehot, alpha,
+                                variant)
+        R = rp.linear_alphabeta(res.first_tok, pool.weight.t(), R, alpha,
+                                variant)
+        R = rp.index_select_relprop(res.seq_out, 1, 0, R[:, None, :])
 
-    # relevance seed: classifier and pooler rules, then the first-token
-    # index_select
-    R = rp.linear_alphabeta(res.pooled, cls.weight.t(), onehot)
-    R = rp.linear_alphabeta(res.first_tok, pool.weight.t(), R)
-    R = rp.index_select_relprop(res.seq_out, 1, 0, R[:, None, :])
-
-    gcs: List[Optional[Tensor]] = [None] * cfg.num_layers
+    cams: List[Optional[Tensor]] = [None] * cfg.num_layers
+    grads: List[Optional[Tensor]] = [None] * cfg.num_layers
     layers = model.bert.encoder.layer
     if use_kernel:
         mxu = matmul_precision
@@ -494,25 +602,46 @@ def reverse_pass(model: BertForSequenceClassification, res: Residuals,
             g_attln, R_att = ops.bert_out_rev_core(
                 res.att_lns[li], g, R, p, cfg.layer_norm_eps, mxu, rule_mxu,
                 mlp_mxu)
-            g, R, gcs[li] = ops.bert_attn_rev_core(
+            g, R, cams[li] = ops.bert_attn_rev_core(
                 res.x_ins[li], g_attln, R_att, res.ext_mask, p, cfg.num_heads,
                 cfg.head_dim, cfg.layer_norm_eps, mxu, attn_mxu, rule_mxu,
                 saved)
-        return R, torch.stack(gcs, dim=1)
+        return R, torch.stack(cams, dim=1), None
 
     for li in reversed(range(cfg.num_layers)):
         x_in, att_ln = res.x_ins[li], res.att_lns[li]
-        _, _, acts = layer_acts(x_in, att_ln, layers[li], res.ext_mask, cfg)
-        g, g_probs = layer_backward(g, x_in, att_ln, acts, layers[li], cfg)
-        R, attn_cam = layer_relprop(R, x_in, att_ln, acts, layers[li],
-                                    res.ext_mask, cfg)
-        gcs[li] = (g_probs * attn_cam).clamp(min=0).mean(dim=1)
-    return R, torch.stack(gcs, dim=1)
+        hm = _layer_mask(head_mask, li)
+        _, _, acts = layer_acts(x_in, att_ln, layers[li], res.ext_mask, cfg,
+                                hm)
+        if need_grads:
+            g, grads[li] = layer_backward(g, x_in, att_ln, acts, layers[li],
+                                          cfg, hm)
+        if need_relprop:
+            R, cams[li] = layer_relprop(R, x_in, att_ln, acts, layers[li],
+                                        res.ext_mask, cfg, alpha, variant, hm)
+        if fuse_grad_cam:
+            cams[li] = (grads[li] * cams[li]).clamp(min=0).mean(dim=1)
+            grads[li] = None
+    stack = lambda ts: None if ts[0] is None else torch.stack(ts, dim=1)
+    return R, stack(cams), stack(grads)
+
+
+def relprop(model: BertForSequenceClassification, res: Residuals,
+            R_logits: Tensor, alpha: float = 1.0, variant: str = "ours",
+            head_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Relevance only, classifier down to the layer-0 input (JAX
+    ``bert.relprop``): ``(R_tokens (B, S, D), attn_cams (B, L, h, S, S))``
+    from the plain residuals; ``head_mask`` is the ``(L, h)`` mask the
+    forward ran with."""
+    R_tokens, attn_cams, _ = reverse_pass(
+        model, res, R_logits, alpha=alpha, variant=variant, need_grads=False,
+        head_mask=head_mask)
+    return R_tokens, attn_cams
 
 
 __all__ = [
     "BertConfig", "BERT_BASE_UNCASED", "BertModel",
     "BertForSequenceClassification", "init_params", "LayerActs",
     "layer_acts", "Residuals", "embed", "forward_collect",
-    "layer_backward", "layer_relprop", "reverse_pass",
+    "layer_backward", "layer_relprop", "reverse_pass", "relprop",
 ]

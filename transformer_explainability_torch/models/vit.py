@@ -325,7 +325,7 @@ def _exact_only(*precisions: Optional[str]) -> None:
         raise NotImplementedError(
             "the non-kernel branch runs at the float32 base without islands; "
             "other bases need a fidelity measurement on the card first "
-            "(ROADMAP A4)")
+            "(ROADMAP A3, other bases)")
 
 
 def forward_collect(model: VisionTransformer, img: Tensor,
@@ -350,7 +350,7 @@ def forward_collect(model: VisionTransformer, img: Tensor,
     if (megakernel_base(matmul_precision)
             and prec.islands_exceed_base(matmul_precision, mlp_precision)):
         raise NotImplementedError("an MLP precision above the base is "
-                                  "not ported yet (ROADMAP A4)")
+                                  "not ported yet (ROADMAP A3, other bases)")
     mxu = _lite_mode(matmul_precision, block_kernel)
     attn_mxu = prec.mxu_name(attn_precision, matmul_precision)
     if mxu is None:
@@ -616,7 +616,7 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
             and prec.islands_exceed_base(matmul_precision, relprop_precision,
                                          mlp_precision)):
         raise NotImplementedError("the block kernels run islands at or "
-                                  "below the base (ROADMAP A4)")
+                                  "below the base (ROADMAP A3, other bases)")
     gcs = [None] * cfg.depth
     mxu = _lite_mode(matmul_precision, block_kernel)
     attn_mxu = prec.mxu_name(attn_precision, matmul_precision)

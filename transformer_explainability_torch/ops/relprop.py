@@ -5,19 +5,23 @@ names its counterpart). The JAX rules are per example and batch through
 ``vmap``; here the batch is a leading dimension that the code writes out:
 
   * rules that act row by row (``safe_divide``, ``clone_relprop``,
-    ``linear_alphabeta``, the bilinear z-rules, ``compute_rollout``) take any
-    leading dimensions;
+    ``linear_alphabeta``, the bilinear and elementwise z-rules,
+    ``add_eye_relprop``, ``compute_rollout``) take any leading dimensions;
+  * ``zrule`` applies ``f`` to the batched inputs, so ``f`` must treat the
+    samples apart, as JAX's ``vmap`` of it does;
+  * ``cat_relprop``'s axis counts the batch dimension;
   * ``add_relprop`` renormalises with sums over one sample, so its tensors
     are ``(B, ...)`` and every sum runs over all dimensions but the first;
-  * ``patchify``, ``unpatchify`` and ``conv_patch_zB_relprop`` take
-    ``(B, C, H, W)`` images (the pixel bounds are per sample).
+  * ``patchify``, ``unpatchify``, ``batchnorm2d_relprop`` and the patch
+    conv rules take ``(B, C, H, W)`` images (the pixel bounds are per
+    sample).
 
 Identity-rule ops (softmax, LayerNorm, GELU) need no function.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,6 +37,18 @@ def safe_divide(a: Tensor, b: Tensor) -> Tensor:
     den = b + EPS
     den = torch.where(den == 0, torch.full_like(den, EPS), den)
     return torch.where(b == 0, torch.zeros_like(a), a / den)
+
+
+def zrule(f: Callable, inputs: Sequence[Tensor], R: Tensor):
+    """Generic z-rule (JAX ``relprop.zrule``): ``Z = f(*inputs)``,
+    ``S = R / Z``, ``C`` the VJP of ``f`` at ``S``, ``R_i = x_i * C_i``.
+    Returns one relevance per input (the tensor alone for one input). The
+    VJP is ``torch.func.vjp``'s, so it also runs under ``torch.no_grad()``,
+    where every explain entry point runs."""
+    Z, vjp = torch.func.vjp(f, *inputs)
+    C = vjp(safe_divide(R, Z))
+    outs = tuple(x * c for x, c in zip(inputs, C))
+    return outs if len(outs) > 1 else outs[0]
 
 
 def _sample_sum(x: Tensor) -> Tensor:
@@ -70,6 +86,13 @@ def add_relprop(a: Tensor, b: Tensor, R: Tensor, variant: str = "ours",
     return Ca, Cb
 
 
+def add_eye_relprop(x: Tensor, R: Tensor) -> Tensor:
+    """z-rule through ``x + I`` (JAX ``relprop.add_eye_relprop``); ``x`` is
+    ``(..., n, n)``."""
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    return x * safe_divide(R, x + eye)
+
+
 def clone_relprop(x: Tensor, Rs: Sequence[Tensor]) -> Tensor:
     """Merge the relevances of a fanned-out tensor (JAX
     ``relprop.clone_relprop``): ``x * safe_divide(sum_i R_i, x)``."""
@@ -77,6 +100,16 @@ def clone_relprop(x: Tensor, Rs: Sequence[Tensor]) -> Tensor:
     for r in Rs[1:]:
         total = total + r
     return x * safe_divide(total, x)
+
+
+def cat_relprop(xs: Sequence[Tensor], axis: int,
+                R: Tensor) -> Tuple[Tensor, ...]:
+    """Relevance of a concatenation split back to its parts (JAX
+    ``relprop.cat_relprop``): the z-rule, whose VJP splits ``S`` at the
+    parts' static sizes along ``axis``."""
+    S = safe_divide(R, torch.cat(list(xs), dim=axis))
+    parts = torch.split(S, [x.shape[axis] for x in xs], dim=axis)
+    return tuple(x * s for x, s in zip(xs, parts))
 
 
 def index_select_relprop(x: Tensor, axis: int,
@@ -112,6 +145,20 @@ def einsum_av_relprop(attn: Tensor, v: Tensor,
     Ca = S @ v.transpose(-1, -2)
     Cv = attn.transpose(-1, -2) @ S
     return attn * Ca, v * Cv
+
+
+def matmul_relprop(a: Tensor, b: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
+    """z-rule through a batched matmul ``(..., i, k) @ (..., k, j)`` (JAX
+    ``relprop.matmul_relprop``)."""
+    S = safe_divide(R, a @ b)
+    return a * (S @ b.transpose(-1, -2)), b * (a.transpose(-1, -2) @ S)
+
+
+def mul_relprop(a: Tensor, b: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
+    """z-rule through an elementwise product (JAX ``relprop.mul_relprop``;
+    BERT's head-mask split)."""
+    S = safe_divide(R, a * b)
+    return a * (S * b), b * (S * a)
 
 
 def linear_alphabeta(x: Tensor, w: Tensor, R: Tensor, alpha: float = 1.0,
@@ -160,6 +207,16 @@ def linear_alphabeta(x: Tensor, w: Tensor, R: Tensor, alpha: float = 1.0,
     return alpha * activator - beta * inhibitor
 
 
+def batchnorm2d_relprop(x: Tensor, weight: Tensor, running_var: Tensor,
+                        R: Tensor, eps: float = 1e-5) -> Tensor:
+    """Analytic BatchNorm rule (JAX ``relprop.batchnorm2d_relprop``):
+    ``R_in = x · s · safe_divide(R, x · s)`` with ``s = w / sqrt(var + eps)``
+    per channel; ``x`` and ``R`` are ``(B, C, H, W)``, ``weight`` and
+    ``running_var`` ``(C,)``."""
+    scale = (weight / torch.sqrt(running_var + eps))[:, None, None]
+    return x * scale * safe_divide(R, x * scale)
+
+
 def patchify(img: Tensor, patch: int) -> Tensor:
     """``(B, C, H, W) -> (B, num_patches, C*patch*patch)`` in the
     channel-major order of a Conv2d weight reshape (JAX
@@ -203,6 +260,31 @@ def conv_patch_zB_relprop(img: Tensor, w: Tensor, R: Tensor,
     return unpatchify(C, patch, c, h, wd)
 
 
+def conv_patch_alphabeta_relprop(img: Tensor, w: Tensor, R: Tensor,
+                                 patch: int, alpha: float = 1.0) -> Tensor:
+    """α-β rule through the patch-embedding conv for a layer that is not
+    the input (JAX ``relprop.conv_patch_alphabeta_relprop``), with the
+    reference's separate denominators (even in the ``ours`` library).
+    Shapes as :func:`conv_patch_zB_relprop`."""
+    beta = alpha - 1.0
+    b, c, h, wd = img.shape
+    X = patchify(img, patch)
+    pw = w.clamp(min=0.0)
+    nw = w.clamp(max=0.0)
+    px = X.clamp(min=0.0)
+    nx = X.clamp(max=0.0)
+
+    def f(w1, w2, x1, x2):
+        S1 = safe_divide(R, x1 @ w1)
+        S2 = safe_divide(R, x2 @ w2)
+        return x1 * (S1 @ w1.t()) + x2 * (S2 @ w2.t())
+
+    out = alpha * f(pw, nw, px, nx)
+    if beta != 0.0:
+        out = out - beta * f(nw, pw, px, nx)
+    return unpatchify(out, patch, c, h, wd)
+
+
 def compute_rollout(cams: Tensor, start_layer: int = 0,
                     row_normalize: bool = False) -> Tensor:
     """Rollout chain ``Π_{i=L-1..start} (cams_i + I)`` (JAX
@@ -219,8 +301,10 @@ def compute_rollout(cams: Tensor, start_layer: int = 0,
 
 
 __all__ = [
-    "EPS", "safe_divide", "add_relprop", "clone_relprop",
-    "index_select_relprop", "einsum_qk_relprop", "einsum_av_relprop",
-    "linear_alphabeta", "patchify", "unpatchify", "conv_patch_zB_relprop",
+    "EPS", "safe_divide", "zrule", "add_relprop", "add_eye_relprop",
+    "clone_relprop", "cat_relprop", "index_select_relprop",
+    "einsum_qk_relprop", "einsum_av_relprop", "matmul_relprop",
+    "mul_relprop", "linear_alphabeta", "batchnorm2d_relprop", "patchify",
+    "unpatchify", "conv_patch_zB_relprop", "conv_patch_alphabeta_relprop",
     "compute_rollout",
 ]

@@ -7,7 +7,8 @@ for the JAX mesh's model axis: with k > 1 the headline method
 MLP width divisible by k) runs the tensor-parallel program
 (:func:`.tensor.make_tp_explain_fn`). The data axis (each rank its own
 slice of the batch), ``init_distributed`` and ``shard_params`` are not
-ported yet (ROADMAP A12); every other combination raises.
+ported yet (ROADMAP A8, parallel paths); every other combination
+raises.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def make_sharded_explain_fn(cfg: ViTConfig, group=None, device="cuda",
         f"rank, the headline method, variant 'ours', alpha 1, heads and MLP "
         f"width divisible by the group); got {k} rank(s), method "
         f"{method!r}, variant {variant!r}, alpha {alpha}: the data axis and "
-        f"the other routes are ROADMAP A12")
+        f"the other routes are ROADMAP A8, parallel paths")
 
 
 __all__ = ["make_sharded_explain_fn"]

@@ -239,11 +239,13 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
         raise NotImplementedError(
             f"method {method!r}: the tensor-parallel program runs "
             "transformer_attribution, as the JAX one does; the other methods "
-            "run on one device (ROADMAP A4)")
+            "run on one device or over the data axis (ROADMAP A8, parallel "
+            "paths)")
     if variant != "ours" or alpha != 1.0:
         raise NotImplementedError(
             "the tensor-parallel program runs variant 'ours' at alpha 1, as "
-            "the JAX one does; the others run on one device (ROADMAP A3)")
+            "the JAX one does; the others run on one device or over the data "
+            "axis (ROADMAP A8, parallel paths)")
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision)
     k, _ = _group_shape(group)

@@ -47,7 +47,7 @@ def vit_params_from_jax(tree: Mapping[str, Any],
     dtype."""
     if "dist_token" in tree:
         raise NotImplementedError("distilled DeiT is not ported yet "
-                                  "(ROADMAP A3)")
+                                  "(ROADMAP A3, DeiT)")
     D, C, P = cfg.embed_dim, cfg.in_chans, cfg.patch_size
     pe = np.asarray(tree["patch_embed"]["kernel"])
     sd = {
