@@ -1,15 +1,21 @@
 """Where the device time goes in the PyTorch port's explanations on one CUDA
-card: ViT-B/16 at B=8, or BERT-base at B=8 and sequence length S.
+card: ViT-B/16, ViT-L/16 or DeiT-base distilled at B=8, or BERT-base at B=8
+and sequence length S.
 
-    python3 experiments/torch_profile_vit.py [--model vit|bert] [--seq 512]
+    python3 experiments/torch_profile_vit.py [--model vit|vit_large|deit_distilled|bert]
+                                             [--seq 512]
                                              [--precision float32|production|bfloat16]
                                              [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
     python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b4] [--b5] [--b6]
                                              [--b7] [--b8] [--b9] [--b10a] [--b10b]
                                              [--seq 512] [--precision production]
+                                             [--model vit|vit_large|deit_distilled]
 
-``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
+``--model`` picks the ViT configuration (``vit``: ViT-B/16, ``vit_large``:
+ViT-L/16, 24 blocks at D 1024, h 16, M 4096; ``deit_distilled``: DeiT-base
+with its distillation token, n = 198) for the explain paths, ``--tp`` and
+the ViT layer kernels, or BERT-base. ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
 the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
 padded to its own length, seeded. ``--no-block-kernel`` takes ViT's split
@@ -23,7 +29,8 @@ tensor-parallel ViT program (``parallel.tensor.make_tp_explain_fn``) at
 k = 1 over a single-rank NCCL process group instead of the single-device
 path.
 ``--b2`` … ``--b10b`` profile one call of a layer kernel alone (B2, B3, B6,
-B10a, B10b and the attention kernels B4, B5 at ViT-B/16 B=8; B7, B8, B9 at
+B10a, B10b and the attention kernels B4, B5 at the ViT model's shapes, B=8;
+B7, B8, B9 at
 BERT-base B=8 and length ``--seq``; see ``layer_call``), each in the
 preset's modes (B5 at ``float32``: exact FP32; ``production``: the
 tensor-parallel production preset's float32 gradient and bf16 rule
@@ -111,13 +118,22 @@ def profile(fn, batches: int, trace: str):
     return wall, by_name, by_group, host
 
 
-def vit_case(dev, prec):
-    """(label, explain) of ViT-B/16 at B=8, kernel and plain paths;
+def vit_config(model: str):
+    """The ViT configuration of ``--model`` (ViT-B/16 for ``bert``, whose
+    layer kernels do not read it)."""
+    from transformer_explainability_torch.models import vit
+    return {"vit_large": vit.VIT_LARGE_16_224,
+            "deit_distilled": vit.DEIT_BASE_DISTILLED_16_224}.get(
+                model, vit.VIT_BASE_16_224)
+
+
+def vit_case(dev, cfg, prec):
+    """(label, explain) of the ViT ``cfg`` at B=8, kernel and plain paths;
     ``prec`` holds explain_batch's precision, method and branch keywords."""
     from transformer_explainability_torch.explain.generator import (
         explain_batch)
     from transformer_explainability_torch.models.vit import (
-        VIT_BASE_16_224 as cfg, VisionTransformer, init_params)
+        VisionTransformer, init_params)
     from transformer_explainability_torch.ops import kernels as K
     params = init_params(cfg, generator=torch.Generator(device=dev)
                          .manual_seed(0), device=dev)
@@ -137,12 +153,11 @@ def vit_inputs(dev):
     return imgs, torch.full((8,), -1, dtype=torch.int64, device=dev)
 
 
-def tp_case(dev, prec):
-    """(label, explain) of the tensor-parallel ViT-B/16 program at B=8 and
-    k = 1 over a single-rank NCCL group (initialised here)."""
+def tp_case(dev, cfg, prec):
+    """(label, explain) of the tensor-parallel program of the ViT ``cfg``
+    at B=8 and k = 1 over a single-rank NCCL group (initialised here)."""
     import torch.distributed as dist
-    from transformer_explainability_torch.models.vit import (
-        VIT_BASE_16_224 as cfg, init_params)
+    from transformer_explainability_torch.models.vit import init_params
     from transformer_explainability_torch.ops import kernels as K
     from transformer_explainability_torch.ops.precision import mxu_name
     from transformer_explainability_torch.parallel import (
@@ -193,10 +208,10 @@ LAYER_KERNELS = ("b2", "b3", "b4", "b5", "b6", "b7", "b8", "b9", "b10a",
                  "b10b")
 
 
-def layer_call(which, dev, S, prec):
+def layer_call(which, dev, S, prec, vcfg):
     """``(label, call)``: one call of the layer kernel ``which`` in the
-    preset's modes, on random inputs from a seeded generator: at ViT-B/16,
-    B=8, B4 ``attn_fwd_core`` and B5 ``attn_rev_core`` (q, k, v offset by
+    preset's modes, on random inputs from a seeded generator: at the ViT
+    config ``vcfg``'s shapes, B=8, B4 ``attn_fwd_core`` and B5 ``attn_rev_core`` (q, k, v offset by
     1, as ``chip_smoke.py`` draws them), B2 ``block_fwd_core``, B3
     ``block_rev_core`` (from B2's anchors),
     B6 ``mlp_rev_core`` and the tensor-parallel MLP phases B10a / B10b at
@@ -205,8 +220,6 @@ def layer_call(which, dev, S, prec):
     ``bert_attn_rev_core`` (from B7's anchors)."""
     from transformer_explainability_torch.models.bert import (
         BERT_BASE_UNCASED as bcfg)
-    from transformer_explainability_torch.models.vit import (
-        VIT_BASE_16_224 as vcfg)
     from transformer_explainability_torch.ops import bert_math as bmath
     from transformer_explainability_torch.ops import block_math as bm
     from transformer_explainability_torch.ops import kernels as K
@@ -226,12 +239,14 @@ def layer_call(which, dev, S, prec):
 
     vit = which in ("b2", "b3", "b4", "b5", "b6", "b10a", "b10b")
     cfg = vcfg if vit else bcfg
+    vname = (f"ViT D={vcfg.embed_dim} h={vcfg.num_heads} "
+             f"M={vcfg.mlp_dim}")
     D, h, hd = cfg.num_heads * cfg.head_dim, cfg.num_heads, cfg.head_dim
     if which in ("b4", "b5"):
         n = vcfg.num_tokens
         qkv, g_o, cam_o = randn(8, n, 3 * D) + 1.0, randn(8, n, D), randn(
             8, n, D)
-        where = f"ViT-B/16 B=8 n={n} (modes attn {attn}, rule {rule})"
+        where = f"{vname} B=8 n={n} (modes attn {attn}, rule {rule})"
         if which == "b4":
             return (f"attn_fwd_core {where}",
                     lambda: K.attn_fwd_core(qkv, h, hd, hd ** -0.5, attn))
@@ -246,7 +261,7 @@ def layer_call(which, dev, S, prec):
             0.1 * randn(inter), 0.1 * randn(D)]
     if vit:
         n, eps = vcfg.num_tokens, vcfg.block_ln_eps
-        where = f"ViT-B/16 B=8 n={n} ({modes})"
+        where = f"{vname} B=8 n={n} ({modes})"
         p = bm.BlockParams(*vecs, *ws)
         x, g, R = randn(8, n, D) + 0.5, randn(8, n, D), randn(8, n, D)
         fwd = K.block_fwd_core(x, p, h, hd, eps, mxu, attn, mlp,
@@ -292,13 +307,13 @@ def layer_call(which, dev, S, prec):
             lambda: K.bert_attn_rev_core(*args, saved=fwd[2:]))
 
 
-def kernel_launches(which, dev, S, prec, card, calls=10):
+def kernel_launches(which, dev, S, prec, card, vcfg, calls=10):
     """Every kernel one call of the layer kernel ``which`` (see
     :func:`layer_call`) launches, with its device time per call, under
     ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    label, call = layer_call(which, dev, S, prec)
+    label, call = layer_call(which, dev, S, prec, vcfg)
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -338,7 +353,8 @@ def launch_tag(name: str) -> str:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="vit", choices=["vit", "bert"])
+    ap.add_argument("--model", default="vit",
+                    choices=["vit", "vit_large", "deit_distilled", "bert"])
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "production", "bfloat16"])
@@ -362,9 +378,10 @@ def main():
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     prec = precision_kwargs(args.precision)
+    vcfg = vit_config(args.model)
     layer = [w for w in LAYER_KERNELS if getattr(args, w)]
     for which in layer:
-        kernel_launches(which, dev, args.seq, prec, card)
+        kernel_launches(which, dev, args.seq, prec, card, vcfg)
     if layer:
         return
     if args.model == "bert":
@@ -375,14 +392,14 @@ def main():
         if args.method != "transformer_attribution":
             what += "_" + args.method
     elif args.tp:
-        paths, what = tp_case(dev, prec), "vit_tp1"
+        paths, what = tp_case(dev, vcfg, prec), f"{args.model}_tp1"
     else:
         kw = dict(prec, method=args.method,
                   block_kernel=not args.no_block_kernel)
-        what = "vit" + ("_split" if args.no_block_kernel else "")
+        what = args.model + ("_split" if args.no_block_kernel else "")
         if args.method != "transformer_attribution":
             what += "_" + args.method
-        paths = vit_case(dev, kw)
+        paths = vit_case(dev, vcfg, kw)
     os.makedirs(args.out, exist_ok=True)
     for label, explain in paths:
         wall, by_name, by_group, host = profile(

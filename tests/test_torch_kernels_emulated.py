@@ -278,6 +278,24 @@ def test_block_rev_kernel_tiles_match_plain(lib, shape, preset):
     _check_block_rev(lib, shape, preset)
 
 
+# DeiT-distilled's n = 198 (CLS, DIST and 196 patches): one token past
+# ViT-B's 197, still inside the 224 keys of B4's tile's 7-group instance;
+# B4 in exact FP32 and B2 (B4's tile with the anchors, the GEMM core) in
+# the production preset's modes, one head of 64 columns. B5 and B3 take
+# 8 and 15 s here and are held at n = 198 on the card (chip_smoke.py)
+DISTILLED_SHAPE = (1, 198, 1, 64)
+
+
+@pytest.mark.parametrize("kernel", ["B4", "B2"])
+def test_kernels_at_the_distilled_length_match_plain(lib, kernel):
+    if kernel == "B4":
+        test_attn_fwd_kernel_matches_plain(lib, DISTILLED_SHAPE,
+                                           torch.float64)
+    else:
+        test_block_fwd_kernel_matches_plain(lib, DISTILLED_SHAPE,
+                                            "production")
+
+
 # ---------------------------------------------------------------------------
 # BERT layer kernels B7 / B8 / B9 (float32 kernels against float64 plain
 # versions, masked samples)

@@ -128,9 +128,9 @@ def test_unported_options_raise():
                   block_kernel=False), "ROADMAP B")):
         with pytest.raises(NotImplementedError, match=match):
             Explainer(sd, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A3, diagnostics"):
-        make_explain_fn(cfg, "cpu", with_diagnostics=True)
+    # the diagnostics are defined for the fused method only, as in JAX
+    with pytest.raises(ValueError, match="transformer_attribution"):
+        make_explain_fn(cfg, "cpu", method="rollout", with_diagnostics=True)
 
 
 def test_uint8_preprocess_matches_float_input():

@@ -19,7 +19,10 @@ from transformer_explainability_torch.explain.generator import Explainer
 from transformer_explainability_torch.models.bert import (
     BERT_BASE_UNCASED, BertConfig)
 from transformer_explainability_torch.models.vit import (
-    VIT_BASE_16_224, ViTConfig, VisionTransformer, init_params)
+    DEIT_BASE_16_224, DEIT_BASE_DISTILLED_16_224, VIT_BASE_16_224,
+    VIT_LARGE_16_224, ViTConfig, VisionTransformer, init_params)
 
-__all__ = ["BERT_BASE_UNCASED", "BertConfig", "BertExplainer", "Explainer",
-           "VIT_BASE_16_224", "ViTConfig", "VisionTransformer", "init_params"]
+__all__ = ["BERT_BASE_UNCASED", "BertConfig", "BertExplainer",
+           "DEIT_BASE_16_224", "DEIT_BASE_DISTILLED_16_224", "Explainer",
+           "VIT_BASE_16_224", "VIT_LARGE_16_224", "ViTConfig",
+           "VisionTransformer", "init_params"]

@@ -18,22 +18,25 @@ decides the branch of :mod:`..models.vit`:
     products at the float32 base, with the rollout kernel where the method
     rolls out.
 
-In every preset the embedding, the final norm and the head are exact
+In every preset the embedding, the final norm and the head(s) are exact
 products in the parameters' dtype (float32 on a card needs TF32 off).
+``mlp_fwd_precision`` / ``mlp_bwd_precision`` split ``mlp_precision``
+between the forward's MLP products and the reverse's (JAX's split); with
+``with_diagnostics`` the fused method also returns the :data:`DIAG_FIELDS`
+vector of each sample.
 
 The JAX package jit-compiles one program per configuration and pads
 batches to power-of-two buckets; here PyTorch runs eagerly, the batch is
 the leading dimension, and any batch size runs as it is.
 
 The non-kernel branch at the reduced-precision bases, the tensorfloat32
-split arm, the precision combinations the kernels do not run and
-``with_diagnostics`` raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+split arm and the precision combinations the kernels do not run raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 
@@ -59,6 +62,19 @@ METHODS = {
 }
 # the methods whose reverse folds (grad ⊙ cam)⁺ into each block
 FUSED_METHODS = ("transformer_attribution", "grad")
+
+# Per-sample stability statistics of with_diagnostics=True, in order (JAX
+# generator.DIAG_FIELDS; the guarded mode's detector reads them):
+#   r_sum, r_l1        — Σ R_tokens (the conservation readout) and Σ|R_tokens|;
+#   gc_l1max, gc_max   — max over blocks of Σ|gc| and the largest |gc| entry
+#                        of the per-block (grad ⊙ cam)⁺ head-mean maps;
+#   heat_l1, heat_max  — the returned heatmap's Σ|·| and max|·|;
+#   g_growth, g_l1max  — max/min over blocks of the gradient carry's |g|_inf,
+#                        and its largest |g|_1;
+#   R_growth, R_l1max  — the same for the relevance carry.
+DIAG_FIELDS = ("r_sum", "r_l1", "gc_l1max", "gc_max", "heat_l1", "heat_max",
+               "g_growth", "g_l1max", "R_growth", "R_l1max")
+_DIAG_TINY = 1e-30            # the growth ratios' floor, in float32
 
 # Named precision presets (JAX generator.PRECISION_PRESETS). "float32" is
 # exact FP32; "production" and "bfloat16" run the block megakernels with
@@ -107,6 +123,20 @@ def _one_hot_index(logits: Tensor, index: Tensor, num_classes: int) -> Tensor:
     return torch.nn.functional.one_hot(idx, num_classes).to(logits.dtype)
 
 
+def mlp_split(mlp_precision: Optional[str] = None,
+              mlp_fwd_precision: Optional[str] = None,
+              mlp_bwd_precision: Optional[str] = None
+              ) -> Tuple[Optional[str], Optional[str]]:
+    """``(forward, reverse)`` MLP precisions: each of ``mlp_fwd_precision``
+    and ``mlp_bwd_precision`` defaults to ``mlp_precision`` (JAX
+    ``generator._explain_single_impl``). On the megakernel path they are
+    independent: B2 forms the ``fc1_pre`` / ``fc2_pre`` anchors in the
+    forward mode and B3 consumes them, running its MLP gradient products in
+    the reverse mode."""
+    return (mlp_precision if mlp_fwd_precision is None else mlp_fwd_precision,
+            mlp_precision if mlp_bwd_precision is None else mlp_bwd_precision)
+
+
 def uses_kernel_branch(method: str, alpha: float = 1.0,
                        variant: str = "ours") -> bool:
     """JAX's kernel gate (``generator._explain_single_impl``): the fused
@@ -121,15 +151,21 @@ def check_supported(method: str = "transformer_attribution",
                     attn_precision: Optional[str] = None,
                     mlp_precision: Optional[str] = None,
                     with_diagnostics: bool = False,
-                    block_kernel: bool = True) -> None:
+                    block_kernel: bool = True,
+                    mlp_fwd_precision: Optional[str] = None,
+                    mlp_bwd_precision: Optional[str] = None) -> None:
     """Raise for every configuration the port does not run."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(METHODS)}")
     if variant not in ("ours", "lrp"):
         raise ValueError(f"unknown variant {variant!r} ('ours' or 'lrp')")
+    if with_diagnostics and method not in FUSED_METHODS:
+        raise ValueError("with_diagnostics is defined for the "
+                         "transformer_attribution method only")
     check_precision(matmul_precision, relprop_precision, attn_precision,
-                    mlp_precision, block_kernel)
+                    mlp_precision, block_kernel, mlp_fwd_precision,
+                    mlp_bwd_precision)
     if (not uses_kernel_branch(method, alpha, variant)
             and matmul_precision != "float32"):
         raise NotImplementedError(
@@ -137,28 +173,30 @@ def check_supported(method: str = "transformer_attribution",
             "non-kernel branch, which runs at the float32 base only: its "
             "products at other bases need a fidelity measurement on the card "
             "first (ROADMAP A3, other bases)")
-    if with_diagnostics:
-        raise NotImplementedError("with_diagnostics is not ported yet "
-                                  "(ROADMAP A3, diagnostics)")
 
 
 def check_precision(matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
                     mlp_precision: Optional[str] = None,
-                    block_kernel: bool = True) -> None:
+                    block_kernel: bool = True,
+                    mlp_fwd_precision: Optional[str] = None,
+                    mlp_bwd_precision: Optional[str] = None) -> None:
     """The JAX gates of the kernel paths (generator.py, vit.py): float32
     runs the B4/B5 path with no islands; bfloat16 / tensorfloat32 run the
-    block megakernels when no weight-consuming island exceeds the base, the
-    rule products are bfloat16 and the attention's are float32 or
-    bfloat16; with ``block_kernel=False`` the bfloat16 base runs the split
-    path (B4, B5, B6) under the same island rules."""
+    block megakernels when no weight-consuming island (the rules', the
+    forward's and the reverse's MLP products, :func:`mlp_split`) exceeds
+    the base, the rule products are bfloat16 and the attention's are
+    float32 or bfloat16; with ``block_kernel=False`` the bfloat16 base runs
+    the split path (B4, B5, B6) under the same island rules."""
+    mlp_fwd, mlp_bwd = mlp_split(mlp_precision, mlp_fwd_precision,
+                                 mlp_bwd_precision)
     for p in (matmul_precision, relprop_precision, attn_precision,
-              mlp_precision):
+              mlp_precision, mlp_fwd, mlp_bwd):
         if p is not None and p not in prec.MODES:
             raise ValueError(f"unknown precision {p!r}; available: "
                              f"{list(prec.MODES)}")
-    islands = (relprop_precision, attn_precision, mlp_precision)
+    islands = (relprop_precision, attn_precision, mlp_fwd, mlp_bwd)
     if matmul_precision == "float32":
         if any(p is not None for p in islands):
             raise NotImplementedError(
@@ -166,7 +204,7 @@ def check_precision(matmul_precision: str = "float32",
                 "(ROADMAP A3, other bases)")
         return
     if prec.islands_exceed_base(matmul_precision, relprop_precision,
-                                mlp_precision):
+                                mlp_fwd, mlp_bwd):
         raise NotImplementedError(
             "a rule or MLP precision above the base takes the non-kernel "
             "path, not ported yet (ROADMAP A3, other bases)")
@@ -193,6 +231,28 @@ def _check_fp32_matmul(device: torch.device, dtype: torch.dtype) -> None:
             "torch.set_float32_matmul_precision('highest')")
 
 
+def _diag_vector(R_tokens: Tensor, gc: Tensor, heat: Tensor,
+                 trunk: Tensor) -> Tensor:
+    """The :data:`DIAG_FIELDS` of each sample, ``(B, 10)`` float32 (JAX
+    ``generator._diag_vector``), from the block-0 relevance ``(B, n, D)``,
+    the per-block maps ``(B, L, n, n)``, the heatmap and the float32 trunk
+    statistics ``(B, L, 4)``; PyTorch reductions outside the kernels. As in
+    JAX the growth ratios are formed in float32, the rest in the tensors'
+    dtype, and every field is rounded to float32 once."""
+    R = R_tokens.flatten(1)
+    gc_abs = gc.abs()
+    heat_abs = heat.abs().flatten(1)
+    g_inf, g_l1, R_inf, R_l1 = trunk.unbind(dim=-1)          # (B, L) each
+    fields = [R.sum(1), R.abs().sum(1),
+              gc_abs.sum(dim=(2, 3)).amax(1), gc_abs.flatten(1).amax(1),
+              heat_abs.sum(1), heat_abs.amax(1),
+              g_inf.amax(1) / g_inf.amin(1).clamp(min=_DIAG_TINY),
+              g_l1.amax(1),
+              R_inf.amax(1) / R_inf.amin(1).clamp(min=_DIAG_TINY),
+              R_l1.amax(1)]
+    return torch.stack([f.to(torch.float32) for f in fields], dim=1)
+
+
 @torch.no_grad()
 def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
                   indices: Tensor, start_layer: int = 0,
@@ -203,7 +263,10 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
                   attn_precision: Optional[str] = None,
                   mlp_precision: Optional[str] = None,
                   is_ablation: bool = False, alpha: float = 1.0,
-                  variant: str = "ours", block_kernel: bool = True) -> Tensor:
+                  variant: str = "ours", block_kernel: bool = True,
+                  mlp_fwd_precision: Optional[str] = None,
+                  mlp_bwd_precision: Optional[str] = None,
+                  with_diagnostics: bool = False):
     """Batched explanation (JAX ``generator.explain_single`` vmapped):
     ``images (B, C, H, W)`` in the model's dtype and device, ``indices
     (B,)`` int64 with −1 for the argmax class. Returns, per method (JAX's
@@ -212,13 +275,19 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
     ``attn_gradcam`` a ``(B, grid, grid)`` map min-max normalised per sample.
     ``ops`` selects the kernels (default) or, for a reference run, their
     plain versions; the precision arguments are those of
-    :data:`PRECISION_PRESETS`; ``block_kernel=False`` takes the split path
-    at the bfloat16 base (JAX's ``TE_TPU_NO_BLOCK_KERNEL=1``)."""
-    precision = dict(matmul_precision=matmul_precision,
-                     attn_precision=attn_precision,
-                     mlp_precision=mlp_precision)
-    check_supported(method, alpha, variant, relprop_precision=relprop_precision,
-                    block_kernel=block_kernel, **precision)
+    :data:`PRECISION_PRESETS`, ``mlp_fwd_precision`` / ``mlp_bwd_precision``
+    overriding ``mlp_precision`` on one side (:func:`mlp_split`);
+    ``block_kernel=False`` takes the split path at the bfloat16 base (JAX's
+    ``TE_TPU_NO_BLOCK_KERNEL=1``). ``with_diagnostics`` (the fused method
+    only) returns ``(heat, diag (B, 10))``, ``diag`` the float32
+    :data:`DIAG_FIELDS` of each sample; the heatmap is the same bit for
+    bit."""
+    check_supported(method, alpha, variant, matmul_precision,
+                    relprop_precision, attn_precision, mlp_precision,
+                    with_diagnostics, block_kernel, mlp_fwd_precision,
+                    mlp_bwd_precision)
+    mlp_fwd, mlp_bwd = mlp_split(mlp_precision, mlp_fwd_precision,
+                                 mlp_bwd_precision)
     cfg = model.cfg
     _check_fp32_matmul(images.device, images.dtype)
     needs_grads = METHODS[method][0] or (
@@ -226,20 +295,27 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
     needs_relprop = METHODS[method][1]
     fused = method in FUSED_METHODS
     kernel = uses_kernel_branch(method, alpha, variant)
-    branch = dict(use_attn_kernel=kernel, block_kernel=block_kernel)
-    logits, res = vit_mod.forward_collect(model, images, ops, **precision,
-                                          **branch)
-    R_tokens = cams = grads = None
+    branch = dict(use_attn_kernel=kernel, block_kernel=block_kernel,
+                  matmul_precision=matmul_precision,
+                  attn_precision=attn_precision)
+    logits, res = vit_mod.forward_collect(model, images, ops,
+                                          mlp_precision=mlp_fwd, **branch)
+    R_tokens = cams = grads = trunk = None
     if needs_grads or needs_relprop:
         onehot = _one_hot_index(logits, indices, cfg.num_classes)
-        R_tokens, cams, grads = vit_mod.reverse_pass(
+        R_tokens, cams, grads, *stats = vit_mod.reverse_pass(
             model, res, onehot, alpha, variant, ops,
-            relprop_precision=relprop_precision, need_grads=needs_grads,
-            need_relprop=needs_relprop, fuse_grad_cam=fused, **precision,
+            relprop_precision=relprop_precision, mlp_precision=mlp_bwd,
+            need_grads=needs_grads, need_relprop=needs_relprop,
+            fuse_grad_cam=fused, with_trunk_stats=with_diagnostics,
             **branch)
+        trunk = stats[0] if stats else None
     P = cfg.num_prefix_tokens
     if fused or method == "rollout":
-        return ops.rollout_from_grad_cam(cams, start_layer, rows=1)[:, 0, P:]
+        heat = ops.rollout_from_grad_cam(cams, start_layer, rows=1)[:, 0, P:]
+        if with_diagnostics:
+            return heat, _diag_vector(R_tokens, cams, heat, trunk)
+        return heat
     if method == "full":
         return vit_mod.full_lrp_input_relevance(model, res, R_tokens, images,
                                                 variant)
@@ -281,18 +357,22 @@ def make_explain_fn(cfg: ViTConfig, device,
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
                     mlp_precision: Optional[str] = None,
+                    mlp_fwd_precision: Optional[str] = None,
+                    mlp_bwd_precision: Optional[str] = None,
                     with_diagnostics: bool = False,
                     preprocess: Optional[str] = None,
                     block_kernel: bool = True) -> Callable:
     """Build ``fn(model, images, indices) -> heatmaps`` (JAX
     ``generator.make_explain_fn``), shaped per method as
-    :func:`explain_batch`. ``images`` are ``(B, C, H, W)``, or raw
-    ``(B, H, W, C)`` uint8 frames with ``preprocess="uint8"``;
-    ``indices (B,)``, −1 for the argmax class. Inputs may be numpy arrays or
-    tensors; they are moved to ``device`` and the model's dtype."""
+    :func:`explain_batch` (with ``with_diagnostics``, ``(heatmaps, diag)``).
+    ``images`` are ``(B, C, H, W)``, or raw ``(B, H, W, C)`` uint8 frames
+    with ``preprocess="uint8"``; ``indices (B,)``, −1 for the argmax class.
+    Inputs may be numpy arrays or tensors; they are moved to ``device`` and
+    the model's dtype."""
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision,
-                    with_diagnostics, block_kernel)
+                    with_diagnostics, block_kernel, mlp_fwd_precision,
+                    mlp_bwd_precision)
     if preprocess not in (None, "uint8"):
         raise ValueError(f"unknown preprocess {preprocess!r} "
                          "(None or 'uint8')")
@@ -300,10 +380,13 @@ def make_explain_fn(cfg: ViTConfig, device,
     kw = dict(matmul_precision=matmul_precision,
               relprop_precision=relprop_precision,
               attn_precision=attn_precision, mlp_precision=mlp_precision,
+              mlp_fwd_precision=mlp_fwd_precision,
+              mlp_bwd_precision=mlp_bwd_precision,
+              with_diagnostics=with_diagnostics,
               is_ablation=is_ablation, alpha=alpha, variant=variant,
               block_kernel=block_kernel)
 
-    def fn(model: vit_mod.VisionTransformer, images, indices) -> Tensor:
+    def fn(model: vit_mod.VisionTransformer, images, indices):
         if model.cfg != cfg:
             raise ValueError("model config differs from the explain fn's")
         dtype = model.cls_token.dtype
@@ -325,19 +408,25 @@ class Explainer:
     params' dtype (JAX ``generator.Explainer``; the reference's ``LRP`` and
     ``Baselines``). The precision arguments are those of
     :data:`PRECISION_PRESETS`, e.g.
-    ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``;
-    ``block_kernel=False`` takes the split path at the bfloat16 base."""
+    ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``,
+    and ``mlp_fwd_precision`` / ``mlp_bwd_precision``;
+    ``block_kernel=False`` takes the split path at the bfloat16 base. Any
+    :class:`..models.vit.ViTConfig` runs: ViT-B/16, ViT-L/16, DeiT-base and
+    DeiT-base distilled."""
 
     def __init__(self, params: Mapping[str, Tensor], cfg: ViTConfig, device,
                  variant: str = "ours", matmul_precision: str = "float32",
                  relprop_precision=None, attn_precision=None,
-                 mlp_precision=None, block_kernel: bool = True):
+                 mlp_precision=None, block_kernel: bool = True,
+                 mlp_fwd_precision=None, mlp_bwd_precision=None):
         self.variant = variant
         self.precision = dict(matmul_precision=matmul_precision,
                               relprop_precision=relprop_precision,
                               attn_precision=attn_precision,
                               mlp_precision=mlp_precision,
-                              block_kernel=block_kernel)
+                              block_kernel=block_kernel,
+                              mlp_fwd_precision=mlp_fwd_precision,
+                              mlp_bwd_precision=mlp_bwd_precision)
         check_supported(variant=variant, **self.precision)
         self.device = _resolve_device(device)
         self.cfg = cfg
@@ -350,10 +439,11 @@ class Explainer:
     def explain(self, images, indices=None,
                 method: str = "transformer_attribution",
                 start_layer: int = 0, is_ablation: bool = False,
-                alpha: float = 1.0) -> Tensor:
+                alpha: float = 1.0, with_diagnostics: bool = False):
         """``images (B, C, H, W)`` or one ``(C, H, W)``; ``indices`` per
         sample, −1 (or None for all) meaning the argmax class. Returns the
-        method's maps (:func:`explain_batch`) on the explainer's device."""
+        method's maps (:func:`explain_batch`) on the explainer's device;
+        with ``with_diagnostics``, ``(maps, diag (B, 10))``."""
         images = torch.as_tensor(images)
         if images.ndim == 3:
             images = images[None]
@@ -362,6 +452,7 @@ class Explainer:
             indices = torch.full((B,), -1, dtype=torch.int64)
         fn = make_explain_fn(self.cfg, self.device, method, start_layer,
                              is_ablation, alpha, self.variant,
+                             with_diagnostics=with_diagnostics,
                              **self.precision)
         return fn(self.model, images, indices)
 

@@ -35,8 +35,12 @@ branches are JAX's:
 The gradients are written by hand, autograd is not used. The embedding, the
 final norm and the head stay exact products in the parameters' dtype.
 
-The module holds parameters under timm's names (``blocks.{i}.attn.qkv``,
-``blocks.{i}.mlp.fc1``, ...), so the state dicts of
+The configurations are ViT-B/16, ViT-L/16, DeiT-base and DeiT-base
+distilled (``ViTConfig.distilled``: timm's DIST token after CLS and a second
+head on its row, the logits ``(head(cls) + head_dist(dist)) / 2``, which
+both seeds of the reverse follow). The module holds parameters under timm's
+names (``blocks.{i}.attn.qkv``, ``blocks.{i}.mlp.fc1``, ``dist_token``,
+``head_dist``, ...), so the state dicts of
 ``params.convert.vit_params_from_jax`` load as they are. Batch is the leading
 dimension of every tensor. All products run in the parameters' dtype; in
 float32 on a GPU they need TF32 off (checked by the explain entry points).
@@ -75,6 +79,10 @@ class ViTConfig:
     # the final norm the 1e-5 default
     block_ln_eps: float = 1e-6
     final_ln_eps: float = 1e-5
+    # DeiT's distillation token (timm ``deit_base_distilled_*``): a DIST
+    # token after CLS and a second head on its row; the logits are
+    # (head(cls) + head_dist(dist)) / 2, timm's eval fusion
+    distilled: bool = False
 
     @property
     def grid(self) -> int:
@@ -86,7 +94,7 @@ class ViTConfig:
 
     @property
     def num_prefix_tokens(self) -> int:
-        return 1
+        return 2 if self.distilled else 1
 
     @property
     def num_tokens(self) -> int:
@@ -102,6 +110,11 @@ class ViTConfig:
 
 
 VIT_BASE_16_224 = ViTConfig()
+VIT_LARGE_16_224 = ViTConfig(embed_dim=1024, depth=24, num_heads=16)
+# DeiT-base has ViT-B's architecture (the reference loads its checkpoint
+# into the plain ViT); the distilled one adds the DIST token and its head
+DEIT_BASE_16_224 = ViTConfig()
+DEIT_BASE_DISTILLED_16_224 = ViTConfig(distilled=True)
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +163,14 @@ class VisionTransformer(nn.Module):
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg, **kw)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D, **kw))
+        if cfg.distilled:
+            self.dist_token = nn.Parameter(torch.zeros(1, 1, D, **kw))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens, D, **kw))
         self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=cfg.final_ln_eps, **kw)
         self.head = nn.Linear(D, cfg.num_classes, **kw)
+        if cfg.distilled:
+            self.head_dist = nn.Linear(D, cfg.num_classes, **kw)
 
     @torch.no_grad()
     def forward(self, img: Tensor) -> Tensor:
@@ -190,10 +207,10 @@ class VisionTransformer(nn.Module):
 def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32) -> Dict[str, Tensor]:
     """Random weights in timm's layout (JAX ``vit.init_params``):
-    trunc-normal(std 0.02, cut at ±2σ) Linear/conv weights, CLS token and
-    position embedding; zero biases; unit/zero LayerNorm. ``generator`` must
-    live on ``device``; the same seed gives other numbers than JAX's
-    ``PRNGKey``."""
+    trunc-normal(std 0.02, cut at ±2σ) Linear/conv weights, CLS (and DIST)
+    token and position embedding; zero biases; unit/zero LayerNorm.
+    ``generator`` must live on ``device``; the same seed gives other numbers
+    than JAX's ``PRNGKey``."""
     D, C, P = cfg.embed_dim, cfg.in_chans, cfg.patch_size
     kw = dict(device=device, dtype=dtype)
 
@@ -207,6 +224,8 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
         "cls_token": tn(1, 1, D),
         "pos_embed": tn(1, cfg.num_tokens, D),
     }
+    if cfg.distilled:
+        sd["dist_token"] = tn(1, 1, D)
     for i in range(cfg.depth):
         p = f"blocks.{i}."
         sd[p + "norm1.weight"] = torch.ones(D, **kw)
@@ -226,6 +245,9 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
     sd["norm.bias"] = torch.zeros(D, **kw)
     sd["head.weight"] = tn(cfg.num_classes, D)
     sd["head.bias"] = torch.zeros(cfg.num_classes, **kw)
+    if cfg.distilled:
+        sd["head_dist.weight"] = tn(cfg.num_classes, D)
+        sd["head_dist.bias"] = torch.zeros(cfg.num_classes, **kw)
     return sd
 
 
@@ -259,7 +281,8 @@ class Residuals(NamedTuple):
     outs: Optional[List[Tensor]]
     x_final: Tensor         # last block output (B, n, D)
     xn: Tensor              # final norm output (B, n, D)
-    cls: Tensor             # pooled CLS (B, D), the head's input
+    cls: Tensor             # pooled CLS (B, D), the head's input; a
+    #                         distilled model's second head reads xn[:, 1]
     # rich anchors, per block (megakernel path only): pre-bias products and
     # the per-head attention dots (pre-scale) and probs, (B, h·n, n)
     qkv_pres: Optional[List[Tensor]] = None    # (B, n, 3D)
@@ -273,23 +296,31 @@ class Residuals(NamedTuple):
 
 
 def embed(model: VisionTransformer, img: Tensor) -> Tuple[Tensor, Tensor]:
-    """Patchify-matmul embedding + CLS concat (JAX ``vit.embed``); returns
-    ``(cat_x, x0)``. The patch product runs in the parameters' dtype at full
-    precision (no TF32)."""
+    """Patchify-matmul embedding + CLS (and DIST) concat (JAX
+    ``vit.embed``); returns ``(cat_x, x0)``. The patch product runs in the
+    parameters' dtype at full precision (no TF32)."""
     pe = model.patch_embed.proj
     return embed_tokens(model.cfg, pe.weight, pe.bias, model.cls_token,
-                        model.pos_embed, img)
+                        model.pos_embed, img,
+                        getattr(model, "dist_token", None))
 
 
 def embed_tokens(cfg: ViTConfig, patch_weight: Tensor, patch_bias: Tensor,
-                 cls_token: Tensor, pos_embed: Tensor,
-                 img: Tensor) -> Tuple[Tensor, Tensor]:
+                 cls_token: Tensor, pos_embed: Tensor, img: Tensor,
+                 dist_token: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Tensor]:
     """:func:`embed` from the tensors themselves (the conv weight
-    ``(D, C, P, P)``, its bias, the CLS token and the position embedding)."""
+    ``(D, C, P, P)``, its bias, the CLS token, the position embedding and,
+    for a distilled config, the DIST token): CLS, then DIST, then the
+    patches."""
+    if cfg.distilled != (dist_token is not None):
+        raise ValueError("a distilled config takes a DIST token, another "
+                         "config none")
     patches = rp.patchify(img, cfg.patch_size)
     tok = patches @ patch_weight.reshape(cfg.embed_dim, -1).t() + patch_bias
-    cls = cls_token.expand(img.shape[0], -1, -1)
-    cat_x = torch.cat([cls, tok], dim=1)
+    prefix = [cls_token] + ([dist_token] if cfg.distilled else [])
+    cat_x = torch.cat([t.expand(img.shape[0], -1, -1) for t in prefix]
+                      + [tok], dim=1)
     return cat_x, cat_x + pos_embed
 
 
@@ -378,11 +409,15 @@ def forward_collect(model: VisionTransformer, img: Tensor,
 
 
 def _tail(model: VisionTransformer, x: Tensor, res: Residuals):
-    """Final norm, CLS pool and head; fills ``x_final``, ``xn`` and ``cls``
-    of ``res``."""
+    """Final norm, CLS pool and head (a distilled model's two heads fused,
+    ``(head(cls) + head_dist(dist)) / 2``); fills ``x_final``, ``xn`` and
+    ``cls`` of ``res``."""
     xn = _layernorm(x, model.norm)
     cls = xn[:, 0]
     logits = _bias(_pre(cls, model.head), model.head)
+    if model.cfg.distilled:
+        hd = model.head_dist
+        logits = (logits + _bias(_pre(xn[:, 1], hd), hd)) / 2
     return logits, res._replace(x_final=x, xn=xn, cls=cls)
 
 
@@ -558,6 +593,64 @@ def relprop(model: VisionTransformer, res: Residuals, R_logits: Tensor,
     return R_tokens, attn_cams
 
 
+def _trunk_stats(g: Tensor, R: Tensor) -> Tensor:
+    """The trunk statistics of one block's reverse step (JAX
+    ``vit._trunk_stats``): ``(|g|_inf, |g|_1, |R|_inf, |R|_1)`` of the
+    carries after the step, per sample, ``(B, 4)`` float32. PyTorch
+    reductions on the tensors the loop carries anyway, outside every
+    kernel, so the explanation does not change when they are taken."""
+    ag, aR = g.abs().flatten(1), R.abs().flatten(1)
+    return torch.stack([ag.amax(1), ag.sum(1), aR.amax(1), aR.sum(1)],
+                       dim=1).float()
+
+
+def _seeds(model: VisionTransformer, res: Residuals, onehot: Tensor,
+           alpha: float, variant: str, need_grads: bool, need_relprop: bool
+           ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """The reverse's seeds at the last block's output (JAX
+    ``vit.reverse_pass``): the class gradient through the head(s), the
+    pooled rows and the final LayerNorm, and the relevance through the head
+    rule(s) and the pooling (the final norm is an identity rule). A
+    distilled model's logits are ``(head(cls) + head_dist(dist)) / 2``: the
+    gradient reaches rows 0 and 1, each ``onehot @ W / 2``; the relevance
+    splits between the two heads by the add rule (the /2 is an identity
+    rule) and each head's rule puts its share on its own row."""
+    head = model.head
+    g = R = None
+    if need_grads:
+        g_xn = torch.zeros_like(res.xn)
+        if model.cfg.distilled:
+            g_xn[:, 0] = onehot @ head.weight / 2
+            g_xn[:, 1] = onehot @ model.head_dist.weight / 2
+        else:
+            g_xn[:, 0] = onehot @ head.weight
+        g = _layernorm_bwd(g_xn, res.x_final, model.norm)
+    if need_relprop:
+        if model.cfg.distilled:
+            hdist = model.head_dist
+            x_cls, x_dist = res.xn[:, 0], res.xn[:, 1]
+            R1, R2 = rp.add_relprop(_bias(_pre(x_cls, head), head),
+                                    _bias(_pre(x_dist, hdist), hdist),
+                                    onehot, variant)
+            R = torch.zeros_like(res.xn)
+            R[:, 0] = rp.linear_alphabeta(x_cls, head.weight.t(), R1, alpha,
+                                          variant)
+            R[:, 1] = rp.linear_alphabeta(x_dist, hdist.weight.t(), R2,
+                                          alpha, variant)
+        else:
+            R_cls = rp.linear_alphabeta(res.cls, head.weight.t(), onehot,
+                                        alpha, variant)
+            R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
+    return g, R
+
+
+def _fused_out(R: Tensor, gcs: List[Tensor], trunk: Optional[List[Tensor]]):
+    """The fused reverse's result: ``(R_tokens, gc (B, L, n, n), None)``
+    and, with trunk statistics, ``trunk (B, L, 4)`` as a fourth entry."""
+    out = (R, torch.stack(gcs, dim=1), None)
+    return out if trunk is None else out + (torch.stack(trunk, dim=1),)
+
+
 def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                  alpha: float = 1.0, variant: str = "ours",
                  ops: K.AttnOps = K.KERNEL_OPS,
@@ -567,47 +660,38 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                  mlp_precision: Optional[str] = None,
                  need_grads: bool = True, need_relprop: bool = True,
                  fuse_grad_cam: bool = True, use_attn_kernel: bool = True,
-                 block_kernel: bool = True
-                 ) -> Tuple[Optional[Tensor], Optional[Tensor],
-                            Optional[Tensor]]:
+                 block_kernel: bool = True, with_trunk_stats: bool = False
+                 ) -> Tuple[Optional[Tensor], ...]:
     """The gradient + relevance reverse pass (JAX ``vit.reverse_pass``).
 
     With ``use_attn_kernel`` (``fuse_grad_cam`` and both passes, variant
     ``ours`` at α=1): ``kstep`` with the plain MLP arm at float32, with
     ``mlp_rev_core`` at bfloat16 when ``block_kernel`` is off, else
     ``kstep_block``. Without: the plain ``step`` over the recomputed
-    activations, exact products only.
+    activations, exact products only. ``mlp_precision`` is the MLP's
+    reverse-side products' (the generator's ``mlp_bwd_precision``).
 
     Returns ``(R_tokens (B, n, D), gc (B, L, n, n), None)`` with
     ``fuse_grad_cam``: the relevance at the block-0 input and, per block, the
     head-mean ``(grad ⊙ cam)⁺`` map; else ``(R_tokens, attn_cams,
     attn_grads)``, the last two ``(B, L, h, n, n)``, each None where its
-    ``need_*`` flag is off."""
+    ``need_*`` flag is off. ``with_trunk_stats`` (``fuse_grad_cam`` only)
+    appends ``trunk (B, L, 4)``, :func:`_trunk_stats` after each block's
+    step."""
     cfg = model.cfg
-    head = model.head
     if fuse_grad_cam and not (need_grads and need_relprop):
         raise ValueError("fuse_grad_cam needs both passes")
-
-    # gradient seed through head -> CLS pool -> final LayerNorm
-    g = None
-    if need_grads:
-        g_xn = torch.zeros_like(res.xn)
-        g_xn[:, 0] = onehot @ head.weight
-        g = _layernorm_bwd(g_xn, res.x_final, model.norm)
-
-    # relevance seed: head rule, then the CLS index_select (the final norm
-    # is an identity rule)
-    R = None
-    if need_relprop:
-        R_cls = rp.linear_alphabeta(res.cls, head.weight.t(), onehot, alpha,
-                                    variant)
-        R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
+    if with_trunk_stats and not fuse_grad_cam:
+        raise ValueError("trunk stats are taken by the fused reverse only")
+    g, R = _seeds(model, res, onehot, alpha, variant, need_grads,
+                  need_relprop)
+    trunk = [None] * cfg.depth if with_trunk_stats else None
 
     if not use_attn_kernel:
         _exact_only(matmul_precision, relprop_precision, attn_precision,
                     mlp_precision)
         return _reverse_acts(model, res, g, R, alpha, variant, need_grads,
-                             need_relprop, fuse_grad_cam)
+                             need_relprop, fuse_grad_cam, trunk)
     if not (fuse_grad_cam and variant == "ours" and alpha == 1.0):
         raise NotImplementedError(
             "the kernel branch runs the fused method with variant 'ours' at "
@@ -633,7 +717,9 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                 res.x_ins[li], res.x_mids[li], res.outs[li], g, R,
                 model.block_params(li, mxu), cfg.num_heads, cfg.head_dim,
                 cfg.block_ln_eps, mxu, attn_mxu, rule_mxu, mlp_mxu, saved)
-        return R, torch.stack(gcs, dim=1), None
+            if trunk is not None:
+                trunk[li] = _trunk_stats(g, R)
+        return _fused_out(R, gcs, trunk)
 
     # kstep: the MLP half in mlp_rev_core on the split path, else the plain
     # arm; the add1 and proj rules, the attention core, the qkv tails
@@ -665,14 +751,18 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
         g = g_mid + _layernorm_bwd(kdot(g_qkv, p.wqkv, mxu), x_in, blk.norm1)
         Rq = bm.linear_rule_math(xn1, p.wqkv, cam_qkv, qkv_pre, rule_mxu)
         R = rp.clone_relprop(x_in, [Ra1, Rq])
-    return R, torch.stack(gcs, dim=1), None
+        if trunk is not None:
+            trunk[li] = _trunk_stats(g, R)
+    return _fused_out(R, gcs, trunk)
 
 
 def _reverse_acts(model: VisionTransformer, res: Residuals,
                   g: Optional[Tensor], R: Optional[Tensor], alpha: float,
                   variant: str, need_grads: bool, need_relprop: bool,
-                  fuse_grad_cam: bool):
-    """The non-kernel reverse (JAX ``reverse_pass``'s plain ``step``)."""
+                  fuse_grad_cam: bool, trunk: Optional[List[Tensor]] = None):
+    """The non-kernel reverse (JAX ``reverse_pass``'s plain ``step``);
+    ``trunk`` (a list of L, fused only) receives each step's
+    :func:`_trunk_stats`."""
     cfg = model.cfg
     cams, grads = [None] * cfg.depth, [None] * cfg.depth
     for li in reversed(range(cfg.depth)):
@@ -685,8 +775,10 @@ def _reverse_acts(model: VisionTransformer, res: Residuals,
                                            variant, acts)
         if fuse_grad_cam:
             cams[li] = (grads[li] * cams[li]).clamp(min=0).mean(dim=1)
+            if trunk is not None:
+                trunk[li] = _trunk_stats(g, R)
     if fuse_grad_cam:
-        return R, torch.stack(cams, dim=1), None
+        return _fused_out(R, cams, trunk)
     return (R, torch.stack(cams, dim=1) if need_relprop else None,
             torch.stack(grads, dim=1) if need_grads else None)
 
@@ -696,7 +788,8 @@ def full_lrp_input_relevance(model: VisionTransformer, res: Residuals,
                              variant: str = "ours") -> Tensor:
     """Relevance continued to the pixels (JAX
     ``vit.full_lrp_input_relevance``, method ``full``): the pos-embed add,
-    the CLS row dropped, the patch conv's z^B rule, the channel sum.
+    the CLS (and DIST) rows dropped, the patch conv's z^B rule, the channel
+    sum.
     Returns ``(B, H, W)``."""
     cfg = model.cfg
     Rx, _ = rp.add_relprop(res.cat_x, model.pos_embed.expand_as(res.cat_x),
@@ -708,7 +801,8 @@ def full_lrp_input_relevance(model: VisionTransformer, res: Residuals,
 
 
 __all__ = [
-    "ViTConfig", "VIT_BASE_16_224", "VisionTransformer", "init_params",
+    "ViTConfig", "VIT_BASE_16_224", "VIT_LARGE_16_224", "DEIT_BASE_16_224",
+    "DEIT_BASE_DISTILLED_16_224", "VisionTransformer", "init_params",
     "Residuals", "BlockActs", "embed", "megakernel_base", "forward_collect",
     "block_backward", "block_relprop", "relprop", "reverse_pass",
     "full_lrp_input_relevance",

@@ -24,6 +24,12 @@ runs the explain program on the whole batch; the ranks meet in
   * each block's ``(grad ⊙ cam)⁺`` head-sum partials are all-reduced and
     divided by k; the rollout B1 runs on every rank.
 
+A distilled config (DeiT's DIST token) replicates the DIST token and its
+head, and explains the fused logits ``(head(cls) + head_dist(dist)) / 2``
+in the gradient and the relevance seeds, as the single-device program
+does (JAX's TP program seeds from the CLS head alone there; the port does
+not copy that, ROADMAP C3).
+
 Every product the JAX program runs under a precision context runs through
 :func:`..ops.precision.kdot` in that mode (the products outside the kernels
 stay library matmuls). The collectives run at every psum of the JAX
@@ -72,8 +78,9 @@ class TPBlock(NamedTuple):
 
 
 class TPParams(NamedTuple):
-    """What one rank holds: the replicated embedding, final norm and head,
-    its block slices, and the split they were made for."""
+    """What one rank holds: the replicated embedding, final norm and head
+    (and, distilled, the DIST token and its head), its block slices, and the
+    split they were made for."""
     patch_weight: Tensor
     patch_bias: Tensor
     cls_token: Tensor
@@ -86,6 +93,9 @@ class TPParams(NamedTuple):
     k: int
     rank: int
     mode: str
+    dist_token: Optional[Tensor] = None
+    head_dist_weight: Optional[Tensor] = None
+    head_dist_bias: Optional[Tensor] = None
 
 
 def _check_divides(cfg: ViTConfig, k: int) -> None:
@@ -154,7 +164,8 @@ def tp_shard(params: Mapping[str, Tensor], cfg: ViTConfig, k: int, rank: int,
     return TPParams(sd["patch_embed.proj.weight"], sd["patch_embed.proj.bias"],
                     sd["cls_token"], sd["pos_embed"], sd["norm.weight"],
                     sd["norm.bias"], sd["head.weight"], sd["head.bias"],
-                    tuple(blocks), k, rank, mode)
+                    tuple(blocks), k, rank, mode, sd.get("dist_token"),
+                    sd.get("head_dist.weight"), sd.get("head_dist.bias"))
 
 
 def _group_shape(group) -> Tuple[int, int]:
@@ -339,26 +350,40 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
 
     def program(p: TPParams, images: Tensor, indices: Tensor) -> Tensor:
         _, x = vit_mod.embed_tokens(cfg, p.patch_weight, p.patch_bias,
-                                    p.cls_token, p.pos_embed, images)
+                                    p.cls_token, p.pos_embed, images,
+                                    p.dist_token)
         saved = []
         for b in p.blocks:
             x, s = fwd_step(x, b)
             saved.append(s)
         xn = bm.ln_fwd(x, p.norm_weight, p.norm_bias, cfg.final_ln_eps)[0]
-        cls = xn[:, 0]
-        logits = kdot(cls, p.head_weight.t(), mxu) + p.head_bias
+        # the head on the CLS row and, distilled, the DIST head on row 1
+        heads = [(p.head_weight, p.head_bias)]
+        if cfg.distilled:
+            heads.append((p.head_dist_weight, p.head_dist_bias))
+        rows = [xn[:, i] for i in range(len(heads))]
+        zs = [kdot(r, w.t(), mxu) + bias for r, (w, bias) in zip(rows, heads)]
+        logits = zs[0] if len(zs) == 1 else (zs[0] + zs[1]) / 2
         onehot = _one_hot_index(logits, indices, cfg.num_classes)
 
-        # gradient seed through head -> CLS pool -> final LayerNorm
+        # gradient seed through the head(s) -> the pooled rows -> final
+        # LayerNorm (each of two fused heads takes half the class gradient)
         g_xn = torch.zeros_like(xn)
-        g_xn[:, 0] = kdot(onehot, p.head_weight, mxu)
+        for i, (w, _) in enumerate(heads):
+            g_xn[:, i] = kdot(onehot, w, mxu) / len(heads)
         g = bm.ln_bwd(g_xn, x, *bm.ln_stats(x, cfg.final_ln_eps),
                       p.norm_weight)
-        # relevance seed: the head rule, then the CLS index_select
-        R_cls = bm.linear_rule_math(cls, p.head_weight, onehot,
-                                    kdot(cls, p.head_weight.t(), rule_mxu),
-                                    rule_mxu)
-        R = rp.index_select_relprop(xn, 1, 0, R_cls[:, None, :])
+        # relevance seed: the add rule between two fused heads, then each
+        # head's rule onto its own row (one head: the CLS index_select)
+        shares = [onehot] if len(zs) == 1 else rp.add_relprop(*zs, onehot)
+        R_rows = [bm.linear_rule_math(r, w, sh, kdot(r, w.t(), rule_mxu),
+                                      rule_mxu)
+                  for r, (w, _), sh in zip(rows, heads, shares)]
+        if len(heads) == 1:
+            R = rp.index_select_relprop(xn, 1, 0, R_rows[0][:, None, :])
+        else:
+            R = torch.zeros_like(xn)
+            R[:, 0], R[:, 1] = R_rows
 
         gcs = [None] * L
         for li in reversed(range(L)):

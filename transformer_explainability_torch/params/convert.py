@@ -42,12 +42,12 @@ def vit_params_from_jax(tree: Mapping[str, Any],
                         cfg: ViTConfig) -> Dict[str, torch.Tensor]:
     """JAX ViT pytree (``vit.init_params`` layout: per-block leaves stacked on
     a leading depth axis, Linear kernels ``(in, out)``, patch kernel
-    ``(C·P·P, D)``) -> the port's state dict (timm names, weights
-    ``(out, in)``, patch conv ``(D, C, P, P)``) on the CPU, in the tree's
-    dtype."""
-    if "dist_token" in tree:
-        raise NotImplementedError("distilled DeiT is not ported yet "
-                                  "(ROADMAP A3, DeiT)")
+    ``(C·P·P, D)``; a distilled config's ``dist_token`` and ``head_dist``)
+    -> the port's state dict (timm names, weights ``(out, in)``, patch conv
+    ``(D, C, P, P)``) on the CPU, in the tree's dtype."""
+    if cfg.distilled != ("dist_token" in tree):
+        raise ValueError("the tree's DIST token does not match the config's "
+                         f"distilled={cfg.distilled}")
     D, C, P = cfg.embed_dim, cfg.in_chans, cfg.patch_size
     pe = np.asarray(tree["patch_embed"]["kernel"])
     sd = {
@@ -68,6 +68,10 @@ def vit_params_from_jax(tree: Mapping[str, Any],
     sd["norm.bias"] = _t(tree["norm"]["bias"])
     sd["head.weight"] = _t(np.asarray(tree["head"]["kernel"]).T)
     sd["head.bias"] = _t(tree["head"]["bias"])
+    if cfg.distilled:
+        sd["dist_token"] = _t(np.asarray(tree["dist_token"]).reshape(1, 1, D))
+        sd["head_dist.weight"] = _t(np.asarray(tree["head_dist"]["kernel"]).T)
+        sd["head_dist.bias"] = _t(tree["head_dist"]["bias"])
     return sd
 
 
