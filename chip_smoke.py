@@ -5,7 +5,9 @@
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line):
-  1. device: a CUDA card, its name and power limit, TF32 off;
+  1. device: a CUDA card, its name and power limit, TF32 off, and which of
+     PIL, h5py, sklearn, matplotlib, cv2, safetensors and tqdm import
+     (printed; nothing is gated on it but the optional cases below);
   2. build: nvcc compiles the kernels from csrc/ (one process per source,
      in parallel; timed);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
@@ -40,7 +42,10 @@ result line):
      BERT rollout method's call); and every ViT kernel (B4, B5, B1's row
      form, B2 / B3 and B10 in both presets' modes, B6 in its two) at
      ViT-L/16's shapes (B=8, n=197, h=16, D=1024, M=4096, 24 blocks; B10
-     at k = 1) and at DeiT-distilled's n = 198 by the same rules;
+     at k = 1) and at DeiT-distilled's n = 198 by the same rules; B1-B5 at
+     ViT-B/16 384 px (B=8, n=577): B1's row form in float64 and float32,
+     B4 and B5 in float32 alone (their float64 instances need more shared
+     memory than a block has at n = 577), B2 / B3 in both presets' modes;
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -86,6 +91,33 @@ result line):
      weights moved one float32 ulp); the tensor-parallel program on DeiT
      at k = 1 in float32 against the single-device plain float64 path by
      the same rule;
+     checkpoints: the seeded parameters written under build/ as a flat
+     timm .pth (ViT-B/16), a .pth with the state dict under "model"
+     (DeiT-B distilled), the port's .npz (save_vit_npz) and BERT-base's
+     pytorch_model.bin (and model.safetensors where phase 1 found
+     safetensors), each loaded by ``create_model(name, checkpoint=path,
+     device="cuda")`` and explained in production on the first batch: the
+     maps bitwise those of the parameters passed directly;
+     ViT-B/16 at 384 px (n = 577; the 224-px weights through
+     ``adapt_pretrained``, fidelity_truth's 17 images resized to 384 on the
+     card and 7 seeded noise images): float32 by the per-sample rule of
+     DeiT's float32 runs (exact FP32 is ill-conditioned on one of these
+     samples, for the plain path too) and production by production's
+     gates, against the plain float64 path of the same preset;
+     the harnesses at ViT-B/16's width on 32 images at 224 px (the 17 and
+     15 seeded smooth ones, labels seeded smooth blobs): ``run_seg_eval``
+     for transformer_attribution in float32 and production and rollout,
+     full_lrp, lrp_last_layer, attn_last_layer and attn_gradcam in float32,
+     each metric within SEG_GATES (0.01 float32, 0.03 production) of the
+     same harness over the plain float64 path, or, where the plain float32
+     path is further, within its distance + the gate, no NaN; then
+     ``run_perturbation_eval`` positive and negative on the kernel path's
+     transformer_attribution maps (visualize's ``saliency_maps``), the step
+     accuracy within PERT_STEP_GATE (2/32) and the AUC within PERT_AUC_GATE
+     (6.25) of the plain float64 forwards', and, where phase 1 found h5py,
+     the same through ``compute_saliency_and_save`` -> results.hdf5 ->
+     ``ImagenetResults`` (hits equal); every harness run's launch counts
+     checked; images/s printed;
   5. times: each kernel beside its plain version and its bound, B4 beside
      ``scaled_dot_product_attention`` (and the CUDA kernel that call ran,
      from the profiler) and in the split path's bf16 mode, B5 in exact
@@ -110,15 +142,19 @@ result line):
      ViT-L/16 and DeiT-distilled), the split
      path beside the megakernel ``bfloat16`` path, each method in exact FP32
      (BERT at S=512 and S=128, and each BERT method at S=512; the
-     tensor-parallel program at k = 1).
+     tensor-parallel program at k = 1); B1-B5 at n = 577 beside their
+     plain versions and bounds.
 
 It imports no JAX. The last line of stdout is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it the card's name and power limit, and the one before that
-a JSON object with one entry per kernel (launches on the main paths, error,
-kernel, plain, bound and library times).
+a JSON object with one entry per kernel (launches on the main paths, the
+checkpoint, 384-px and harness runs included; error, kernel, plain, bound
+and library times).
 """
 
+import dataclasses
+import importlib
 import json
 import os
 import re
@@ -142,6 +178,22 @@ MIN_CORR = 0.999
 PROD_MIN_SLACK = 0.01
 CORE_RTOL = 1e-4
 TAIL_CORR = 0.99
+# the harnesses' gates, fixed before their first chip run: each seg metric
+# (pixAcc, mIoU, mAP, mF1) of the kernel path within SEG_GATES[preset] of
+# the same harness over the plain float64 path, or, where the plain
+# float32 path is itself further than that from it (a method whose exact
+# FP32 answer is ill-conditioned on these inputs, as `full` is, PERF.md
+# §6), within the plain float32 path's distance + SEG_GATES[preset]; the
+# perturbation curve
+# within PERT_STEP_GATE at every step (two of the 32 images) and its AUC
+# within PERT_AUC_GATE points (the trapezoid of a curve moved by at most
+# PERT_STEP_GATE everywhere, on the paper's x100 scale)
+SEG_GATES = {"float32": 0.01, "production": 0.03}
+PERT_STEP_GATE = 2 / 32
+PERT_AUC_GATE = 100 * PERT_STEP_GATE
+# the optional packages the port's readers and writers import lazily
+OPTIONAL_PACKAGES = ("PIL", "h5py", "sklearn", "matplotlib", "cv2",
+                     "safetensors", "tqdm")
 TPU_KERNELS = "transformer_explainability_tpu/ops/pallas_kernels.py"
 # the ViT methods whose map is a rollout chain (the rollout kernel B1)
 ROLLOUT_METHODS = ("transformer_attribution", "grad", "rollout",
@@ -233,6 +285,15 @@ def main() -> int:
     require(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 is on")
     require(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
     dev = torch.device("cuda")
+    have = {}
+    for name in OPTIONAL_PACKAGES:
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except Exception:                  # missing, or broken on import
+            have[name] = False
+    print("optional packages importable: " + ", ".join(
+        f"{name} {'yes' if ok else 'no'}" for name, ok in have.items()))
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -344,26 +405,34 @@ def main() -> int:
     shapes = {"main": (B, n, h, hd), "ragged": (2, 29, 3, 8)}
     errs = {}
 
-    def check_f64_f32(name, kern, plain, args64, label, main, **modes):
+    def check_f64_f32(name, kern, plain, args64, label, main, f64=True,
+                      **modes):
         """The kernel in float64 (rtol 1e-9 against the plain version) and
-        in float32 (the rule above), both from the same inputs."""
+        in float32 (the rule above), both from the same inputs; with
+        ``f64=False`` in float32 alone (a shape whose float64 instance one
+        block's shared memory cannot hold)."""
         args32 = tuple(a.float() if torch.is_tensor(a) else a
                        for a in args64)
         before = kern.launches
-        k64, k32 = kern(*args64, **modes), kern(*args32, **modes)
+        k32 = kern(*args32, **modes)
+        k64 = kern(*args64, **modes) if f64 else None
         torch.cuda.synchronize()
-        require(kern.launches == before + 2,
+        require(kern.launches == before + 1 + f64,
                 f"{name}: launch count did not rise")
         p64, p32 = plain(*args64, **modes), plain(*args32, **modes)
         outs = lambda x: x if isinstance(x, tuple) else (x,)
-        for i, (a64, a32, b64, b32) in enumerate(zip(
-                outs(k64), outs(k32), outs(p64), outs(p32))):
+        for i, (a32, b64, b32) in enumerate(zip(outs(k32), outs(p64),
+                                                outs(p32))):
             require(torch.isfinite(a32).all().item(),
                     f"{name}[{i}] {label}: non-finite float32 output")
-            e64 = (a64 - b64).abs().max().item()
-            require(torch.allclose(a64, b64, rtol=F64_RTOL, atol=F64_ATOL),
-                    f"{name}[{i}] {label}: float64 kernel differs from "
-                    f"plain by {e64:.3e}")
+            e64 = float("nan")
+            if f64:
+                a64 = outs(k64)[i]
+                e64 = (a64 - b64).abs().max().item()
+                require(torch.allclose(a64, b64, rtol=F64_RTOL,
+                                       atol=F64_ATOL),
+                        f"{name}[{i}] {label}: float64 kernel differs from "
+                        f"plain by {e64:.3e}")
             ek = (a32.double() - b64).abs().max().item()
             ep = (b32.double() - b64).abs().max().item()
             lim = F32_FACTOR * ep + F32_FLOOR * b64.abs().max().item()
@@ -996,6 +1065,24 @@ def main() -> int:
                                  b6=check_b6("bf16/bf16", sname, dm))
         del kept
         torch.cuda.empty_cache()
+    # ViT-B/16 at 384 px (n = 577, timm's vit_base_patch16_384 geometry):
+    # the kernels of its float32 and production paths, B4, B5 and B1's row
+    # form from float64 inputs and B2 / B3 in both presets' modes, by the
+    # rules above. B4's and B5's float64 instances need more shared memory
+    # at n = 577 than a block has (357 and 414 KB against 227 KB), so those
+    # two are checked in float32 alone, against the float64 plain version
+    shape577 = (B, 577, h, hd)
+    for name in ("attn_fwd_core", "attn_rev_core"):
+        make, kern, plain = cases[name]
+        check_f64_f32(name, kern, plain, make(*shape577, torch.float64),
+                      f"n=577 {shape577}", False, f64=False)
+    check_f64_f32("rollout_from_grad_cam", K.rollout_from_grad_cam,
+                  K.rollout_plain,
+                  (randn(B, L, 577, 577, dtype=torch.float64).abs() * 1e-3,
+                   0), f"rows=1 n=577 {(B, L, 577)}", False, rows=1)
+    block577 = {preset: check_block(preset, "n=577", shape577)
+                for preset in block_modes}["production"]
+    torch.cuda.empty_cache()
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 4. the slice ----------------------------------------------------------
@@ -1646,8 +1733,328 @@ def main() -> int:
     print(f"tp DeiT-B distilled float32 corr vs the single-device float32 "
           f"kernel path, not gated: min {c_single.min():.6f} median "
           f"{np.median(c_single):.6f}; per sample {fmt(c_single)}")
-    del deit_ref, dparams, d64, d32u, sh_d, sh_du, fn_d, plain_d, heats_dtp
+    deit_prod0 = new_heats[("DeiT-B distilled", "production")][0]
+    del deit_ref, d64, d32u, sh_d, sh_du, fn_d, plain_d, heats_dtp
     del new_heats
+    torch.cuda.empty_cache()
+
+    # checkpoints: the seeded parameters written as the files a user holds
+    # (under build/, git-ignored), loaded by create_model on the card and
+    # explained in production on the first batch; the maps must be bitwise
+    # those of the same parameters passed to the explainer directly (the
+    # runs above). ViT-B/16 as a flat timm .pth, DeiT-B distilled with the
+    # state dict under "model" (DeiT's hub files), ViT-B/16 as the port's
+    # .npz (save_vit_npz), BERT-base as pytorch_model.bin (bert. prefix and
+    # classifier) at S=512 with the padded masks above, and as
+    # model.safetensors where the card's machine has safetensors
+    from transformer_explainability_torch import create_model
+    from transformer_explainability_torch.params.convert import save_vit_npz
+    ck_dir = os.path.join(ROOT, "build", "checkpoints")
+    os.makedirs(ck_dir, exist_ok=True)
+
+    def on_cpu(sd):
+        return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+    def bitwise(a, b):
+        return torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+
+    vit_per = {**none, "block_fwd_core": L, "block_rev_core": L,
+               "rollout_from_grad_cam": 1}
+    bert_per = {**none, "bert_layer_fwd_core": BL, "bert_out_rev_core": BL,
+                "bert_attn_rev_core": BL, "rollout_from_grad_cam": 1}
+    ckpt_cases = [
+        ("vit_base_patch16_224", "flat .pth", "vit_base.pth",
+         lambda path: torch.save(on_cpu(params), path), heats_prod[0]),
+        ("deit_base_distilled_patch16_224", ".pth, state dict under 'model'",
+         "deit_distilled.pth",
+         lambda path: torch.save({"model": on_cpu(dparams)}, path),
+         deit_prod0),
+        ("vit_base_patch16_224", ".npz (save_vit_npz)", "vit_base.npz",
+         lambda path: save_vit_npz(path, params), heats_prod[0])]
+    bert_dir = os.path.join(ck_dir, "bert-base-uncased")
+    os.makedirs(bert_dir, exist_ok=True)
+    ckpt_cases.append(
+        ("bert-base-uncased", "pytorch_model.bin (bert. prefix, classifier)",
+         os.path.join("bert-base-uncased", "pytorch_model.bin"),
+         lambda path: torch.save(on_cpu(bparams), path), bheats_prod[0]))
+    if have["safetensors"]:
+        from safetensors.torch import save_file
+        os.makedirs(os.path.join(ck_dir, "bert-st"), exist_ok=True)
+        ckpt_cases.append(
+            ("bert-base-uncased", "model.safetensors",
+             os.path.join("bert-st", "model.safetensors"),
+             lambda path: save_file(on_cpu(bparams), path), bheats_prod[0]))
+    ckpt_launches = []
+    for name, form, fname, write, want in ckpt_cases:
+        path = os.path.join(ck_dir, fname)
+        write(path)
+        is_bert = name.startswith("bert")
+        ccfg, csd = create_model(
+            name, checkpoint=os.path.dirname(path) if is_bert else path,
+            device="cuda")
+        require(all(v.is_cuda for v in csd.values()),
+                f"checkpoint {name} {form}: state dict not on the card")
+        if is_bert:
+            exc = BertExplainer(csd, ccfg, device="cuda", **prod)
+            (heat,), counts = drive(exc.explain, [bert_batches[0]],
+                                    bert_shape, bert_per,
+                                    f"checkpoint {name} {form}")
+        else:
+            exc = Explainer(csd, ccfg, device="cuda", **prod)
+            (heat,), counts = drive(exc.explain, [batches[0]], vit_shape,
+                                    vit_per, f"checkpoint {name} {form}")
+        ckpt_launches.append(counts)
+        same = bitwise(heat, want)
+        print(f"checkpoint {name} {form}: loaded by create_model, production"
+              f" maps bitwise those of the parameters passed directly: "
+              f"{same}")
+        require(same, f"checkpoint {name} {form}: maps differ from the "
+                f"direct parameters' (max |d| "
+                f"{(heat - want).abs().max().item():.3e})")
+        del exc, csd
+    del dparams
+    torch.cuda.empty_cache()
+
+    # ViT-B/16 at 384 px (n = 577): timm's vit_base_patch16_384 geometry,
+    # reached as the JAX package reaches it, the seeded 224-px weights
+    # through adapt_pretrained (the position table resized 14 -> 24 on the
+    # card); fidelity_truth's 17 images resized to 384 by utils.image on
+    # the card and 7 seeded noise images, three batches of 8. float32 and
+    # production, each per-sample corr against the port's plain float64
+    # path of the same preset: production by production's gates (median
+    # >= MIN_CORR, min no lower than the plain float32 path's -
+    # PROD_MIN_SLACK), float32 by the per-sample rule that DeiT's and the
+    # methods' exact FP32 runs take (>= MIN_CORR where the plain float32
+    # path reaches it, else no lower than its corr - PROD_MIN_SLACK, its
+    # corr the lower of two float32 draws): at 384 px exact FP32 is
+    # ill-conditioned on one of these samples for any float32
+    # implementation (on an H100 the kernel path 0.807550, the plain
+    # float32 path 0.810284, every other sample >= 0.999183)
+    from transformer_explainability_torch.params.convert import (
+        adapt_pretrained)
+    from transformer_explainability_torch.utils.image import (
+        resize_bilinear_chw)
+    cfg384 = dataclasses.replace(cfg, img_size=384)
+    p384 = adapt_pretrained(params, cfg384)
+    require(tuple(p384["pos_embed"].shape) == (1, 577, cfg.embed_dim),
+            f"adapt_pretrained: pos_embed {tuple(p384['pos_embed'].shape)}")
+    imgs384 = torch.cat([
+        resize_bilinear_chw(torch.as_tensor(imgs_all, device=dev), 384, 384),
+        torch.randn(24 - len(imgs_all), 3, 384, 384, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(384))])
+    idx384 = np.concatenate([idx_all, np.full(24 - len(idx_all), -1)])
+    batches384 = []
+    for k in range(3):
+        idx = idx384[8 * k:8 * k + 8].copy()
+        idx[[1, 5]] = -1
+        batches384.append((imgs384[8 * k:8 * k + 8].contiguous(), idx))
+    m64_384 = VisionTransformer(cfg384, device=dev, dtype=torch.float64)
+    m64_384.load_state_dict({k: v.double() for k, v in p384.items()})
+    m64_384.requires_grad_(False)
+    m32u_384 = VisionTransformer(cfg384, device=dev)
+    m32u_384.load_state_dict(ulp_moved(p384, 384))
+    m32u_384.requires_grad_(False)
+    shape384 = (8, cfg384.num_patches)
+    launches384, models384 = [], {}
+    for label, kw, per in (
+            ("float32", {}, dict(attn_fwd_core=L, attn_rev_core=L)),
+            ("production", prod, dict(block_fwd_core=L, block_rev_core=L))):
+        ex384 = Explainer(p384, cfg384, device="cuda", **kw)
+        hs, counts = drive(ex384.explain, batches384, shape384,
+                           {**none, **per, "rollout_from_grad_cam": 1},
+                           f"ViT-B/16 384px {label}")
+        launches384.append(counts)
+        c, c_plain, c_moved = [], [], []
+        for (imgs, idx), heat in zip(batches384, hs):
+            idx_t = torch.as_tensor(idx, device=dev)
+            ref = explain_batch(m64_384, imgs.double(), idx_t,
+                                ops=K.PLAIN_OPS, **kw)
+            c += corr(heat, ref)
+            c_plain += corr(explain_batch(ex384.model, imgs, idx_t,
+                                          ops=K.PLAIN_OPS, **kw), ref)
+            if not kw:
+                c_moved += corr(explain_batch(m32u_384, imgs, idx_t,
+                                              ops=K.PLAIN_OPS), ref)
+        gate(f"ViT-B/16 384px {label}", np.asarray(c), np.asarray(c_plain),
+             "median" if kw else "per-sample",
+             np.asarray(c_moved) if c_moved else None)
+        models384[label] = ex384.model          # timed in phase 5
+        del ex384, hs
+    imgs384_t = batches384[0][0]
+    del m64_384, m32u_384, p384, imgs384, batches384
+    torch.cuda.empty_cache()
+
+    # the harnesses at ViT-B/16's full width, on an in-memory dataset of 32
+    # (image, label) pairs at 224 px: fidelity_truth's 17 images and 15
+    # seeded smooth ones, each label a seeded binary mask of smooth blobs
+    from transformer_explainability_torch.eval.perturbation import (
+        PERTURB_STEPS, run_perturbation_eval)
+    from transformer_explainability_torch.eval.seg import (SEG_METHODS,
+                                                           run_seg_eval)
+    from transformer_explainability_torch.eval.visualize import (
+        compute_saliency_and_save, saliency_maps)
+    hr = np.random.RandomState(15)
+    smooth = lambda a: torch.nn.functional.interpolate(
+        torch.from_numpy(a), size=(224, 224), mode="bilinear",
+        align_corners=False).numpy()
+    seg_imgs = np.concatenate([imgs_all, smooth(
+        hr.randn(32 - len(imgs_all), 3, 28, 28).astype(np.float32))])
+    seg_lbls = (smooth(hr.randn(32, 1, 7, 7).astype(np.float32))[:, 0]
+                > 0.3).astype(np.int64)
+    seg_ds = list(zip(seg_imgs, seg_lbls))
+    params64 = {k: v.double() for k, v in params.items()}
+    print(f"harness gates (fixed before the first chip run): seg metrics "
+          f"|kernel - plain f64| <= {SEG_GATES} (or the plain f32 path's "
+          f"|d| + that, where its |d| exceeds it); perturbation step accuracy "
+          f"|d| <= {PERT_STEP_GATE:.4f} at every step, AUC |d| <= "
+          f"{PERT_AUC_GATE:.2f}")
+
+    def plain_seg_fn(method, preset, bits=64):
+        em, variant, sl = SEG_METHODS[method]
+        kw = precision_kwargs(preset)
+        dtype = torch.float64 if bits == 64 else torch.float32
+
+        def fn(model, imgs, idx):
+            return explain_batch(model, torch.as_tensor(
+                imgs, device=dev, dtype=dtype), idx.to(dev), sl, em,
+                ops=K.PLAIN_OPS, variant=variant, **kw)
+        return fn
+
+    def seg_per(method, preset, nb):
+        if method == "transformer_attribution":
+            fused = (dict(attn_fwd_core=L, attn_rev_core=L)
+                     if preset == "float32" else
+                     dict(block_fwd_core=L, block_rev_core=L))
+            return {**none, **{k: nb * v for k, v in fused.items()},
+                    "rollout_from_grad_cam": nb}
+        if method == "rollout":                # rollout_attn: B1
+            return {**none, "rollout_from_grad_cam": nb}
+        return dict(none)                      # plain layers only
+
+    seg_runs = [("transformer_attribution", "float32"),
+                ("transformer_attribution", "production")] + [
+        (m, "float32") for m in ("rollout", "full_lrp", "lrp_last_layer",
+                                 "attn_last_layer", "attn_gradcam")]
+    harness_launches = []
+    n_seg = len(seg_ds)
+    for method, preset in seg_runs:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_seg_eval(seg_ds, params, cfg, method, batch_size=8,
+                           progress=False, precision=preset, device="cuda")
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        require(counts == seg_per(method, preset, n_seg // 8),
+                f"seg {method} {preset}: launches {counts}")
+        harness_launches.append(counts)
+        ref = run_seg_eval(seg_ds, params64, cfg, method, batch_size=8,
+                           progress=False, precision=preset, device="cuda",
+                           explain_fn=plain_seg_fn(method, preset))
+        p32 = run_seg_eval(seg_ds, params, cfg, method, batch_size=8,
+                           progress=False, precision=preset, device="cuda",
+                           explain_fn=plain_seg_fn(method, preset, 32))
+        d = {k: abs(res[k] - ref[k]) for k in res}
+        dp = {k: abs(p32[k] - ref[k]) for k in res}
+        lim = {k: SEG_GATES[preset] + (dp[k] if dp[k] > SEG_GATES[preset]
+                                       else 0.0) for k in res}
+        print(f"seg {method} {preset}: kernels {res}; plain f64 {ref}; "
+              f"|d| {d} <= {lim} (plain f32 path's |d| {dp}); "
+              f"{n_seg / dt:.1f} images/s (harness wall, metrics included) "
+              f"{tag}")
+        require(all(np.isfinite(list(r.values())).all()
+                    for r in (res, ref, p32)),
+                f"seg {method} {preset}: NaN metric")
+        require(all(d[k] <= lim[k] for k in d),
+                f"seg {method} {preset}: metrics differ by {d}")
+
+    # the perturbation harness, positive and negative, on the
+    # transformer_attribution maps of the kernel path (visualize's
+    # saliency_maps: upsampled and min-max normalised per image on the
+    # card) of the 32 images in [0, 1], each target the float32 model's
+    # own class; its ten forwards a batch in exact FP32 on the kernels
+    # against the plain float64 forwards on the same maps
+    imgs01 = (seg_imgs * 0.5 + 0.5).astype(np.float32)
+    with torch.no_grad():
+        targets = ex.model(torch.as_tensor(seg_imgs, device=dev)).argmax(
+            1).cpu().numpy()
+    K.reset_launch_counts()
+    vis = torch.cat([saliency_maps(ex, imgs01[s:s + 8], targets[s:s + 8],
+                                   "transformer_attribution")
+                     for s in range(0, 32, 8)]).cpu().numpy()
+    counts = K.launch_counts()
+    require(counts == seg_per("transformer_attribution", "float32", 4),
+            f"saliency_maps: launches {counts}")
+    harness_launches.append(counts)
+    require(np.isfinite(vis).all() and vis.min() == 0 and vis.max() == 1,
+            "saliency maps: not finite min-max normalised maps")
+
+    class MemResults:
+        """results.hdf5's reader, in memory (needs no h5py)."""
+
+        def __len__(self):
+            return len(imgs01)
+
+        def batches(self, batch_size):
+            for s in range(0, len(imgs01), batch_size):
+                yield (imgs01[s:s + batch_size], vis[s:s + batch_size],
+                       targets[s:s + batch_size])
+
+    pert_res = {}
+    for neg in (False, True):
+        label = "negative" if neg else "positive"
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = run_perturbation_eval(MemResults(), params, cfg, neg=neg,
+                                  batch_size=8, progress=False,
+                                  device="cuda")
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        nf = 4 * (1 + len(PERTURB_STEPS))      # forwards: 4 batches of 10
+        require(counts == {**none, "attn_fwd_core": nf * L},
+                f"perturbation {label}: launches {counts}")
+        harness_launches.append(counts)
+        r64 = run_perturbation_eval(MemResults(), params64, cfg, neg=neg,
+                                    batch_size=8, progress=False,
+                                    device="cuda", ops=K.PLAIN_OPS)
+        dstep = np.abs(r["step_accuracy"] - r64["step_accuracy"]).max()
+        dauc = abs(r["auc"] - r64["auc"])
+        print(f"perturbation {label}: step accuracy {fmt(r['step_accuracy'])}"
+              f" AUC {r['auc']:.4f}; plain f64 {fmt(r64['step_accuracy'])} "
+              f"AUC {r64['auc']:.4f}; base hits {r['model_hits'].mean():.4f}"
+              f" (plain f64 {r64['model_hits'].mean():.4f}); max step |d| "
+              f"{dstep:.4f} <= {PERT_STEP_GATE:.4f}, AUC |d| {dauc:.4f} <= "
+              f"{PERT_AUC_GATE:.2f}; {len(imgs01) / dt:.1f} images/s "
+              f"(10 forwards each, harness wall) {tag}")
+        require(all(np.isfinite(r[k]).all() for k in r),
+                f"perturbation {label}: non-finite result")
+        require(dstep <= PERT_STEP_GATE and dauc <= PERT_AUC_GATE,
+                f"perturbation {label}: curve or AUC outside the gates")
+        pert_res[neg] = r
+    if have["h5py"]:
+        # the two-stage file path: compute_saliency_and_save ->
+        # results.hdf5 -> ImagenetResults -> run_perturbation_eval; the
+        # same maps, so the same hits as the in-memory run
+        from transformer_explainability_torch.data.expl_hdf5 import (
+            ImagenetResults)
+        h5 = os.path.join(ck_dir, "results.hdf5")
+        if os.path.exists(h5):
+            os.remove(h5)
+        K.reset_launch_counts()
+        wrote = compute_saliency_and_save(
+            ((imgs01[s:s + 8], targets[s:s + 8]) for s in range(0, 32, 8)),
+            params, h5, cfg, vis_class="target", device="cuda")
+        r = run_perturbation_eval(ImagenetResults(h5), params, cfg,
+                                  batch_size=8, progress=False,
+                                  device="cuda")
+        harness_launches.append(K.launch_counts())
+        same = np.array_equal(r["perturbations_hits"],
+                              pert_res[False]["perturbations_hits"])
+        print(f"results.hdf5: wrote {wrote}, perturbation hits equal to the "
+              f"in-memory run's: {same}")
+        require(wrote == 32 and same, "results.hdf5 path differs from the "
+                "in-memory one")
+    del params64
     torch.cuda.empty_cache()
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
@@ -1925,24 +2332,26 @@ def main() -> int:
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
     idx_t = torch.as_tensor(batches[0][1], device=dev)
 
-    def rate(ops, nb=20, model=None, **kw):
+    def rate(ops, nb=20, model=None, imgs=None, **kw):
         model = model or ex.model
+        imgs = imgs_t if imgs is None else imgs
         for _ in range(3):
-            explain_batch(model, imgs_t, idx_t, ops=ops, **kw)
+            explain_batch(model, imgs, idx_t, ops=ops, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(nb):
-            explain_batch(model, imgs_t, idx_t, ops=ops, **kw)
+            explain_batch(model, imgs, idx_t, ops=ops, **kw)
         torch.cuda.synchronize()
         return nb * 8 / (time.perf_counter() - t)
 
-    def peak_gib(ops, model=None, **kw):
+    def peak_gib(ops, model=None, imgs=None, **kw):
         """Device memory one batch needs above what is resident (models,
         prepared weights, references)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        explain_batch(model or ex.model, imgs_t, idx_t, ops=ops, **kw)
+        explain_batch(model or ex.model, imgs_t if imgs is None else imgs,
+                      idx_t, ops=ops, **kw)
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 2**30
 
@@ -1994,6 +2403,19 @@ def main() -> int:
               f"{r0:.2f} expl/s (5-batch window), batch working memory "
               f"{peak_n:.3f} GiB {tag}")
     del new_explainers
+    # ViT-B/16 at 384 px (n = 577), the first 384-px batch, both presets:
+    # kernel path, plain path (5 batches), kernel path
+    for label, m384 in models384.items():
+        kw = prod if label == "production" else {}
+        peak_n = peak_gib(K.KERNEL_OPS, model=m384, imgs=imgs384_t, **kw)
+        r1 = rate(K.KERNEL_OPS, model=m384, imgs=imgs384_t, **kw)
+        r0 = rate(K.PLAIN_OPS, nb=5, model=m384, imgs=imgs384_t, **kw)
+        r2 = rate(K.KERNEL_OPS, model=m384, imgs=imgs384_t, **kw)
+        print(f"e2e transformer_attribution ViT-B/16 384px {label} B=8, "
+              f"20-batch windows: kernel path {r1:.2f} / {r2:.2f} expl/s, "
+              f"plain path {r0:.2f} expl/s (5-batch window), batch working "
+              f"memory {peak_n:.3f} GiB {tag}")
+    del models384, imgs384_t
     torch.cuda.empty_cache()
 
     def tp_rate(fn, sh, nb=20):
@@ -2294,11 +2716,45 @@ def main() -> int:
                   f"{ms / bd[0]:.1f}x the bound {tag}")
         del t, c32, bk, tk, b6k, args
     del new_inputs
+    # B1-B5 at ViT-B/16 384 px (n = 577), from phase 3's inputs there: ms
+    # per call (CUDA events; B1's row form its launch's device time,
+    # profiler) beside the plain version and the bound at that shape, in
+    # the kernels line's modes (B4, B5, B1 exact FP32; B2, B3 production)
+    t = {}
+    for name in ("attn_fwd_core", "attn_rev_core"):
+        make, kern, plain = cases[name]
+        args = make(*shape577, torch.float32)
+        t[name] = (time_ms(lambda: kern(*args),
+                           200 if name == "attn_fwd_core" else 20),
+                   time_ms(lambda: plain(*args)))
+    c32 = randn(B, L, 577, 577, dtype=torch.float32).abs() * 1e-3
+    t["rollout_from_grad_cam"] = (
+        device_ms(lambda: K.rollout_from_grad_cam(c32, 0, rows=1))[0],
+        time_ms(lambda: K.rollout_plain(c32, 0, rows=1)))
+    bk = block577
+    t["block_fwd_core"] = (
+        time_ms(lambda: K.block_fwd_core(bk["x"], bk["p32"], *bk["fargs"])),
+        time_ms(lambda: bm.block_fwd_core_plain(bk["x"], bk["p32"],
+                                                *bk["fargs"])))
+    t["block_rev_core"] = (
+        time_ms(lambda: K.block_rev_core(*bk["a32"], bk["p32"], *bk["rargs"],
+                                         saved=bk["s32"])),
+        time_ms(lambda: bm.block_rev_core_plain(
+            *bk["a32"], bk["p32"], *bk["rargs"], saved=bk["s32"])))
+    wk = vit_work(B, 577, h, hd, cfg.mlp_dim, L)
+    for name, (ms, pms) in t.items():
+        bd = bound(wk[name][0], **wk[name][1])
+        print(f"time {name} n=577 (B, n, h, hd, M, L) "
+              f"{(B, 577, h, hd, cfg.mlp_dim, L)}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{ms / bd[0]:.1f}x the bound {tag}")
+    del t, c32, bk, block577, args
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     slices = (launches, launches_prod, launches_split, launches_bf16,
               launches_diag, launches_mlp, *method_launches, *new_launches,
               blaunches, blaunches_prod, *bert_method_launches,
-              *tp_launches)
+              *tp_launches, *ckpt_launches, *launches384,
+              *harness_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",

@@ -2,7 +2,7 @@
 card: ViT-B/16, ViT-L/16 or DeiT-base distilled at B=8, or BERT-base at B=8
 and sequence length S.
 
-    python3 experiments/torch_profile_vit.py [--model vit|vit_large|deit_distilled|bert]
+    python3 experiments/torch_profile_vit.py [--model vit|vit_384|vit_large|deit_distilled|bert]
                                              [--seq 512]
                                              [--precision float32|production|bfloat16]
                                              [--no-block-kernel] [--method M]
@@ -10,9 +10,11 @@ and sequence length S.
     python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b4] [--b5] [--b6]
                                              [--b7] [--b8] [--b9] [--b10a] [--b10b]
                                              [--seq 512] [--precision production]
-                                             [--model vit|vit_large|deit_distilled]
+                                             [--model vit|vit_384|vit_large|deit_distilled]
 
-``--model`` picks the ViT configuration (``vit``: ViT-B/16, ``vit_large``:
+``--model`` picks the ViT configuration (``vit``: ViT-B/16; ``vit_384``:
+ViT-B/16 at 384 px, n = 577, timm's ``vit_base_patch16_384`` geometry;
+``vit_large``:
 ViT-L/16, 24 blocks at D 1024, h 16, M 4096; ``deit_distilled``: DeiT-base
 with its distillation token, n = 198) for the explain paths, ``--tp`` and
 the ViT layer kernels, or BERT-base. ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
@@ -122,7 +124,8 @@ def vit_config(model: str):
     """The ViT configuration of ``--model`` (ViT-B/16 for ``bert``, whose
     layer kernels do not read it)."""
     from transformer_explainability_torch.models import vit
-    return {"vit_large": vit.VIT_LARGE_16_224,
+    return {"vit_384": vit.ViTConfig(img_size=384),
+            "vit_large": vit.VIT_LARGE_16_224,
             "deit_distilled": vit.DEIT_BASE_DISTILLED_16_224}.get(
                 model, vit.VIT_BASE_16_224)
 
@@ -140,16 +143,16 @@ def vit_case(dev, cfg, prec):
     model = VisionTransformer(cfg, device=dev)
     model.load_state_dict(params)
     model.requires_grad_(False)
-    imgs, idx = vit_inputs(dev)
+    imgs, idx = vit_inputs(dev, cfg.img_size)
     return [(label, lambda ops=ops: explain_batch(model, imgs, idx, ops=ops,
                                                   **prec))
             for label, ops in (("kernel", K.KERNEL_OPS),
                                ("plain", K.PLAIN_OPS))]
 
 
-def vit_inputs(dev):
+def vit_inputs(dev, size=224):
     gen = torch.Generator(device=dev).manual_seed(1)
-    imgs = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
+    imgs = torch.randn(8, 3, size, size, generator=gen, device=dev)
     return imgs, torch.full((8,), -1, dtype=torch.int64, device=dev)
 
 
@@ -169,7 +172,7 @@ def tp_case(dev, cfg, prec):
                          .manual_seed(0), device=dev)
     sh = shard_tp_params(params, cfg, mode=mxu_name(
         prec.get("matmul_precision")))
-    imgs, idx = vit_inputs(dev)
+    imgs, idx = vit_inputs(dev, cfg.img_size)
     out = []
     for label, ops in (("kernel", K.KERNEL_OPS), ("plain", K.PLAIN_OPS)):
         fn = make_tp_explain_fn(cfg, pre_sharded=True, ops=ops, **prec)
@@ -354,7 +357,8 @@ def launch_tag(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="vit",
-                    choices=["vit", "vit_large", "deit_distilled", "bert"])
+                    choices=["vit", "vit_384", "vit_large", "deit_distilled",
+                             "bert"])
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "production", "bfloat16"])

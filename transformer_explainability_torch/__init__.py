@@ -6,11 +6,20 @@ holds the hand-written CUDA kernels' wrappers with their plain PyTorch
 versions, ``models/vit.py`` and ``models/bert.py`` the forward and fused
 reverse passes, ``params/convert.py`` the weight converters, and
 ``explain/generator.py`` / ``explain/bert_generator.py`` the ``Explainer`` /
-``BertExplainer`` entry points.
+``BertExplainer`` entry points. The user's entry points beside them:
+``models/registry.py`` (``create_model``, ``list_models``: a public model
+name and, optionally, a checkpoint file -> config and state dict on the
+card), ``demo.py`` (``Demo``), and the evaluation harnesses
+``eval/seg.py``, ``eval/visualize.py`` and ``eval/perturbation.py``
+(``python -m transformer_explainability_torch.eval.<name> --device ...``),
+with their data readers under ``data/`` and numpy metrics, colormaps and
+device image ops under ``utils/``.
 
-This package imports ``torch`` and numpy only. CUDA sources under ``csrc/``
-are compiled with ``nvcc`` at first use on a CUDA tensor; importing the
-package needs no GPU, no ``nvcc`` and no JAX.
+This package imports ``torch`` and numpy only; h5py, Pillow, OpenCV,
+safetensors and tqdm are imported by the functions that read or write
+their formats, and raise ``ImportError`` there when missing. CUDA sources
+under ``csrc/`` are compiled with ``nvcc`` at first use on a CUDA tensor;
+importing the package needs no GPU, no ``nvcc`` and no JAX.
 """
 
 from transformer_explainability_torch.explain.bert_generator import (
@@ -18,6 +27,8 @@ from transformer_explainability_torch.explain.bert_generator import (
 from transformer_explainability_torch.explain.generator import Explainer
 from transformer_explainability_torch.models.bert import (
     BERT_BASE_UNCASED, BertConfig)
+from transformer_explainability_torch.models.registry import (
+    create_model, list_models)
 from transformer_explainability_torch.models.vit import (
     DEIT_BASE_16_224, DEIT_BASE_DISTILLED_16_224, VIT_BASE_16_224,
     VIT_LARGE_16_224, ViTConfig, VisionTransformer, init_params)
@@ -25,4 +36,5 @@ from transformer_explainability_torch.models.vit import (
 __all__ = ["BERT_BASE_UNCASED", "BertConfig", "BertExplainer",
            "DEIT_BASE_16_224", "DEIT_BASE_DISTILLED_16_224", "Explainer",
            "VIT_BASE_16_224", "VIT_LARGE_16_224", "ViTConfig",
-           "VisionTransformer", "init_params"]
+           "VisionTransformer", "create_model", "init_params",
+           "list_models"]
