@@ -13,11 +13,15 @@ card), ``demo.py`` (``Demo``), and the evaluation harnesses
 ``eval/seg.py``, ``eval/visualize.py`` and ``eval/perturbation.py``
 (``python -m transformer_explainability_torch.eval.<name> --device ...``),
 with their data readers under ``data/`` and numpy metrics, colormaps and
-device image ops under ``utils/``.
+device image ops under ``utils/``. The training paths: ``train.py`` (the
+ViT trainer) with the train-state checkpoints of ``utils/checkpoint.py``,
+and the ERASER pipeline under ``rationale/`` (``python -m
+transformer_explainability_torch.rationale.pipeline --device ...``).
 
-This package imports ``torch`` and numpy only; h5py, Pillow, OpenCV,
-safetensors and tqdm are imported by the functions that read or write
-their formats, and raise ``ImportError`` there when missing. CUDA sources
+This package imports ``torch`` and numpy only (and scipy in the
+rationale scorer); h5py, Pillow, OpenCV, safetensors, tqdm, scikit-learn
+and transformers are imported by the functions that need them, and raise
+``ImportError`` there when missing. CUDA sources
 under ``csrc/`` are compiled with ``nvcc`` at first use on a CUDA tensor;
 importing the package needs no GPU, no ``nvcc`` and no JAX.
 """

@@ -194,8 +194,8 @@ def run_seg_eval(dataset, params, cfg: ViTConfig = VIT_BASE_16_224,
 
 def load_params(checkpoint: Optional[str], cfg: ViTConfig, device):
     """The harnesses' weights: ``checkpoint`` (``load_vit_checkpoint``), or
-    random ones from ``init_params`` seeded 0 on ``device``, with a
-    warning."""
+    random ones from ``init_params`` drawn on a CPU generator seeded 0 and
+    moved to ``device``, with a warning."""
     from transformer_explainability_torch.explain.generator import (
         _resolve_device)
     from transformer_explainability_torch.models.vit import init_params
@@ -205,8 +205,8 @@ def load_params(checkpoint: Optional[str], cfg: ViTConfig, device):
     if checkpoint:
         return load_vit_checkpoint(checkpoint, cfg)
     print("WARNING: no checkpoint given — using random weights")
-    return init_params(cfg, generator=torch.Generator(device=device)
-                       .manual_seed(0), device=device)
+    return init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device=device)
 
 
 def add_common_flags(p, batch_size: int = 16) -> None:

@@ -23,7 +23,9 @@
     layer_params`).
 
 The embeddings, the pooler and the classifier stay exact products in the
-parameters' dtype (float32 on a card needs TF32 off).
+parameters' dtype (float32 on a card needs TF32 off). :func:`train_forward`
+is the training forward (JAX ``bert.train_forward``): plain PyTorch under
+autograd, with dropout at the Hugging Face sites.
 
 The modules hold parameters under the Hugging Face names that the JAX
 package's ``bert_state_dict_from_params`` exports
@@ -204,10 +206,12 @@ def init_params(cfg: BertConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32) -> Dict[str, Tensor]:
     """Random weights in the HF classification layout (JAX
     ``bert.init_params``): normal(0, 0.02) embeddings and Linear weights,
-    zero biases, unit/zero LayerNorms. ``generator`` must live on
-    ``device``; the same seed gives other numbers than JAX's ``PRNGKey``."""
+    zero biases, unit/zero LayerNorms. The numbers are drawn on
+    ``generator``'s device and then moved to ``device`` (pass a CPU
+    generator and a seed is one model on every device); the same seed gives
+    other numbers than JAX's ``PRNGKey``."""
     D, I = cfg.hidden_size, cfg.intermediate_size
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=generator.device, dtype=dtype)
 
     def nrm(*shape):
         return 0.02 * torch.randn(*shape, generator=generator, **kw)
@@ -218,7 +222,7 @@ def init_params(cfg: BertConfig, *, generator: torch.Generator, device,
     e = "bert.embeddings."
     sd = {
         e + "position_ids": torch.arange(cfg.max_position_embeddings,
-                                         device=device)[None],
+                                         device=generator.device)[None],
         e + "word_embeddings.weight": nrm(cfg.vocab_size, D),
         e + "position_embeddings.weight": nrm(cfg.max_position_embeddings, D),
         e + "token_type_embeddings.weight": nrm(cfg.type_vocab_size, D),
@@ -241,7 +245,7 @@ def init_params(cfg: BertConfig, *, generator: torch.Generator, device,
     sd["bert.pooler.dense.bias"] = zeros(D)
     sd["classifier.weight"] = nrm(cfg.num_labels, D)
     sd["classifier.bias"] = zeros(cfg.num_labels)
-    return sd
+    return {k: v.to(device) for k, v in sd.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +432,56 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
     logits = _lin(pooled, model.classifier)
     return logits, Residuals(x0, seq_out=x, first_tok=first_tok,
                              pooled=pooled, ext_mask=ext_mask, **keep)
+
+
+def _dropout(x: Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> Tensor:
+    """Inverted dropout (JAX ``bert._dropout``): each element kept with
+    probability ``1 − rate`` and scaled by ``1 / (1 − rate)``, the mask
+    drawn from ``generator`` (on ``x``'s device). Rate 0 draws nothing."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def train_forward(model: BertForSequenceClassification, input_ids: Tensor,
+                  attention_mask: Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  hidden_dropout: float = 0.1,
+                  attn_dropout: float = 0.1) -> Tensor:
+    """The training forward (JAX ``bert.train_forward``, batched): logits
+    ``(B, num_labels)`` under autograd with dropout at the Hugging Face
+    sites: after the embeddings, on the attention probabilities, after
+    the attention output dense and the output dense of each layer (before
+    their residual adds), and on the pooled output: 3·L + 2 sites, each
+    mask from ``generator``. Token types are 0 and positions ``arange(S)``,
+    as in JAX. Plain PyTorch in the parameters' dtype, no kernel; the
+    explain path (:func:`forward_collect`) keeps no dropout."""
+    cfg = model.cfg
+    x = _dropout(embed(model, input_ids), hidden_dropout, generator)
+    ext_mask = (1.0 - attention_mask.to(x.dtype)) * cfg.mask_value
+    for layer in model.bert.encoder.layer:
+        sa, ao = layer.attention.self, layer.attention.output
+        q = _heads(_lin(x, sa.query), cfg)
+        k = _heads(_lin(x, sa.key), cfg)
+        v = _heads(_lin(x, sa.value), cfg)
+        scaled = (q @ k.transpose(-1, -2)) / math.sqrt(cfg.head_dim)
+        probs = torch.softmax(scaled + ext_mask[:, None, None, :], dim=-1)
+        probs = _dropout(probs, attn_dropout, generator)
+        dense_out = _dropout(_lin(bm.merge_heads(probs @ v), ao.dense),
+                             hidden_dropout, generator)
+        att_ln = _layernorm(dense_out + x, ao.LayerNorm)
+        inter_g = _act(_lin(att_ln, layer.intermediate.dense),
+                       cfg.hidden_act)
+        dense2 = _dropout(_lin(inter_g, layer.output.dense), hidden_dropout,
+                          generator)
+        x = _layernorm(dense2 + att_ln, layer.output.LayerNorm)
+    pooled = torch.tanh(_lin(x[:, 0], model.bert.pooler.dense))
+    pooled = _dropout(pooled, hidden_dropout, generator)
+    return _lin(pooled, model.classifier)
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,9 @@ def create_model(name: str, checkpoint: Optional[str] = None, seed: int = 0,
                  device="cuda", **overrides) -> Tuple[Any, Dict[str, Any]]:
     """Returns ``(config, state dict on device)``. ``checkpoint``: a local
     ``.pth`` / ``.npz`` (ViT) or HF directory / ``.safetensors`` / ``.bin``
-    (BERT); without one, ``init_params`` with a generator on ``device``
-    seeded from ``seed`` (other numbers than JAX's ``PRNGKey``).
+    (BERT); without one, ``init_params`` drawn on a CPU generator seeded
+    from ``seed`` and moved to ``device``, so that a seed is one model on
+    every device (other numbers than JAX's ``PRNGKey``).
     ``overrides`` replace config fields (e.g. ``num_classes=2``)."""
     if name in VIT_CONFIGS:
         cfg, mod = VIT_CONFIGS[name], vit_mod
@@ -63,5 +64,5 @@ def create_model(name: str, checkpoint: Optional[str] = None, seed: int = 0,
                 else convert.load_bert_checkpoint)
         return cfg, {k: v.to(device) for k, v in
                      load(checkpoint, cfg).items()}
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     return cfg, mod.init_params(cfg, generator=gen, device=device)

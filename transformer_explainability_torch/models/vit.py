@@ -32,7 +32,9 @@ branches are JAX's:
     (:func:`_block_acts_from_anchors`) and runs :func:`block_backward` and
     :func:`block_relprop` on them, fused or not.
 
-The gradients are written by hand, autograd is not used. The embedding, the
+The gradients are written by hand, autograd is not used; only
+:func:`train_forward`, the plain forward of training (JAX ``vit.forward``
+under the trainer's matmul precision), runs under autograd. The embedding, the
 final norm and the head stay exact products in the parameters' dtype.
 
 The configurations are ViT-B/16, ViT-L/16, DeiT-base and DeiT-base
@@ -208,11 +210,14 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32) -> Dict[str, Tensor]:
     """Random weights in timm's layout (JAX ``vit.init_params``):
     trunc-normal(std 0.02, cut at ±2σ) Linear/conv weights, CLS (and DIST)
-    token and position embedding; zero biases; unit/zero LayerNorm.
-    ``generator`` must live on ``device``; the same seed gives other numbers
-    than JAX's ``PRNGKey``."""
+    token and position embedding; zero biases; unit/zero LayerNorm. The
+    numbers are drawn on ``generator``'s device and then moved to
+    ``device``: pass a CPU generator, as
+    :func:`..models.registry.create_model` does, and a seed is one model on
+    every device (JAX pins ``init_params`` to the CPU for the same reason).
+    The same seed gives other numbers than JAX's ``PRNGKey``."""
     D, C, P = cfg.embed_dim, cfg.in_chans, cfg.patch_size
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=generator.device, dtype=dtype)
 
     def tn(*shape):
         return nn.init.trunc_normal_(torch.empty(*shape, **kw), std=0.02,
@@ -248,7 +253,7 @@ def init_params(cfg: ViTConfig, *, generator: torch.Generator, device,
     if cfg.distilled:
         sd["head_dist.weight"] = tn(cfg.num_classes, D)
         sd["head_dist.bias"] = torch.zeros(cfg.num_classes, **kw)
-    return sd
+    return {k: v.to(device) for k, v in sd.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +513,44 @@ def _forward_acts(model: VisionTransformer, cat_x: Tensor,
         x = x_out
     return _tail(model, x, Residuals(x0, cat_x, x_ins, x_mids, None, x, None,
                                      None, attns=torch.stack(attns, dim=1)))
+
+
+def train_forward(model: VisionTransformer, img: Tensor,
+                  matmul_precision: str = "float32") -> Tensor:
+    """The differentiable plain forward of training: the logits ``(B,
+    classes)`` that JAX ``vit.forward`` computes under
+    ``default_matmul_precision(matmul_precision)``, with autograd taking the
+    gradients. Every product but the patch embedding (exact, as JAX pins
+    it) runs in ``matmul_precision``'s product mode, forward and backward
+    (:func:`..ops.precision.pmatmul`): ``"float32"`` exact FP32,
+    ``"bfloat16"`` and ``"tensorfloat32"`` as :func:`..ops.precision.kdot`
+    defines them. No kernel runs here; the explain path
+    (:func:`forward_collect`) is untouched."""
+    if matmul_precision not in prec.MODES:
+        raise ValueError(f"unknown precision {matmul_precision!r}; "
+                         f"available: {list(prec.MODES)}")
+    cfg = model.cfg
+
+    def mm(a, b):
+        return prec.pmatmul(a, b, matmul_precision)
+
+    def lin(x, layer):
+        return _bias(mm(x, layer.weight.t()), layer)
+
+    x = embed(model, img)[1]
+    for blk in model.blocks:
+        qkv = lin(_layernorm(x, blk.norm1), blk.attn.qkv)
+        q, k, v = bm.split_heads(qkv, cfg.num_heads, cfg.head_dim)
+        attn = torch.softmax(mm(q, k.transpose(-1, -2))
+                             * cfg.head_dim ** -0.5, dim=-1)
+        x = x + lin(bm.merge_heads(mm(attn, v)), blk.attn.proj)
+        h1 = lin(_layernorm(x, blk.norm2), blk.mlp.fc1)
+        x = x + lin(bm.gelu_exact(h1), blk.mlp.fc2)
+    xn = _layernorm(x, model.norm)
+    logits = lin(xn[:, 0], model.head)
+    if cfg.distilled:
+        logits = (logits + lin(xn[:, 1], model.head_dist)) / 2
+    return logits
 
 
 # ---------------------------------------------------------------------------

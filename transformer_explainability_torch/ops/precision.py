@@ -146,6 +146,54 @@ def kdot(a: Tensor, b: Weight, mode: str) -> Tensor:
     return a.to(acc) @ b.to(acc)
 
 
+def _sum_to(x: Tensor, shape) -> Tensor:
+    """``x`` summed over the leading dimensions that broadcasting added."""
+    while x.ndim > len(shape):
+        x = x.sum(dim=0)
+    return x
+
+
+class _ModedProduct(torch.autograd.Function):
+    """``a @ b`` in a bf16 product mode, forward and backward: JAX's
+    ``default_matmul_precision`` sets the precision of every dot, the
+    transposed dots of the gradients included, so each of the three
+    products rounds its own operands (:func:`kdot`)."""
+
+    @staticmethod
+    def forward(ctx, a: Tensor, b: Tensor, mode: str) -> Tensor:
+        ctx.save_for_backward(a, b)
+        ctx.mode = mode
+        return kdot(a, b, mode)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _sum_to(kdot(g, b.mT, ctx.mode), a.shape)
+        if ctx.needs_input_grad[1]:
+            if b.ndim == 2:       # a weight: one product over every row
+                gb = kdot(a.reshape(-1, a.shape[-1]).mT,
+                          g.reshape(-1, g.shape[-1]), ctx.mode)
+            else:
+                gb = _sum_to(kdot(a.mT, g, ctx.mode), b.shape)
+        return ga, gb, None
+
+
+def pmatmul(a: Tensor, b: Tensor, mode: str) -> Tensor:
+    """``a @ b`` under autograd in product mode ``mode`` (JAX's ambient
+    ``default_matmul_precision`` for a differentiated program): the exact
+    product for ``"float32"``; for ``"bfloat16"`` and ``"tensorfloat32"``
+    the forward product and both products of its gradient are
+    :func:`kdot` products, each on its own operands. ``a`` and ``b`` are
+    tensors (a weight as ``(in, out)``)."""
+    if mode == "float32":
+        return a @ b
+    if mode not in MODES:
+        raise ValueError(f"unknown product mode {mode!r}")
+    return _ModedProduct.apply(a, b, mode)
+
+
 __all__ = ["MODES", "mxu_name", "islands_exceed_base", "bf16_head",
            "split_hi_lo", "kabs", "transpose", "PreparedWeight",
-           "prepare_weight", "kdot"]
+           "prepare_weight", "kdot", "pmatmul"]

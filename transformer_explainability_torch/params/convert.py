@@ -355,21 +355,23 @@ def adapt_classifier(weight: Tensor, bias: Tensor, num_classes: int,
     the reference's ``helpers.py:137-147``): equal sizes keep it, 1001 ->
     1000 drops the background class (row 0), any other size draws a new
     head in float32, trunc-normal (std 0.02, cut at ±2σ) from
-    ``generator`` (on the weight's device; a seed-0 generator when None)
-    with a zero bias. The same seed gives other numbers than JAX's
-    ``PRNGKey``. Returns ``(weight, bias)``."""
+    ``generator`` (a seed-0 CPU generator when None), drawn on the
+    generator's device and moved to the weight's, with a zero bias. The
+    same seed gives other numbers than JAX's ``PRNGKey``. Returns
+    ``(weight, bias)``."""
     if num_classes == pretrained_classes:
         return weight, bias
     if num_classes == 1000 and pretrained_classes == 1001:
         return weight[1:], bias[1:]
     if generator is None:
-        generator = torch.Generator(device=weight.device).manual_seed(0)
+        generator = torch.Generator().manual_seed(0)
     D = weight.shape[1]
-    kw = dict(dtype=torch.float32, device=weight.device)
-    new = torch.nn.init.trunc_normal_(torch.empty(num_classes, D, **kw),
-                                      std=0.02, a=-0.04, b=0.04,
-                                      generator=generator)
-    return new, torch.zeros(num_classes, **kw)
+    new = torch.nn.init.trunc_normal_(
+        torch.empty(num_classes, D, dtype=torch.float32,
+                    device=generator.device),
+        std=0.02, a=-0.04, b=0.04, generator=generator)
+    return new.to(weight.device), torch.zeros(
+        num_classes, dtype=torch.float32, device=weight.device)
 
 
 def resize_pos_embed(pos_embed: Tensor, new_tokens: int,
