@@ -263,16 +263,31 @@ def test_plain_reverse_matches_autograd():
     dict(matmul_precision="bfloat16", relprop_precision="float32"),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bg.check_supported(BertConfig(**SMALL), **kw)
+    """Raw tensorfloat32 rules have no layer-kernel mode (ROADMAP B); an
+    island on the float32 base or above a reduced base runs on the plain
+    layers, as in JAX."""
+    if kw["matmul_precision"] == "tensorfloat32":
+        with pytest.raises(NotImplementedError, match="ROADMAP B"):
+            bg.check_supported(BertConfig(**SMALL), **kw)
+        # longer than the layer kernels take: the plain layers
+        bg.check_supported(BertConfig(**SMALL), **kw,
+                           seq_len=bg.KERNEL_MAX_SEQ + 1)
+    else:
+        cfg = BertConfig(**SMALL)
+        bg.check_supported(cfg, **kw)
+        assert not (bg.eligible(cfg, "transformer_attribution", 1.0, "ours",
+                                kw["matmul_precision"],
+                                kw.get("relprop_precision"))
+                    and bg.use_kernel_path(bg.KERNEL_MAX_SEQ,
+                                           kw["matmul_precision"]))
+
 
 
 def test_unported_configs_raise():
-    """relu and the rollout method run now; S > 512 at a reduced base is
-    JAX's non-kernel path, not ported."""
+    """relu and the rollout method run; S > 512 at a reduced base is
+    JAX's non-kernel path, which the plain layers take."""
     bg.check_supported(BertConfig(hidden_act="relu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3, other bases"):
-        bg.use_kernel_path(bg.KERNEL_MAX_SEQ + 1, "bfloat16")
+    assert not bg.use_kernel_path(bg.KERNEL_MAX_SEQ + 1, "bfloat16")
     assert not bg.use_kernel_path(bg.KERNEL_MAX_SEQ + 1, "float32")
     assert bg.use_kernel_path(bg.KERNEL_MAX_SEQ, "tensorfloat32")
     ex = BertExplainer(init_params(BertConfig(**SMALL), generator=torch

@@ -360,16 +360,22 @@ def test_launches_per_method(method):
     dict(act="relu")])
 @pytest.mark.parametrize("preset", ["production", "bfloat16"])
 def test_reduced_bases_run_only_the_kernel_method(kw, preset):
-    """JAX's non-kernel path at a reduced-precision base is not ported:
-    everything but ``transformer_attribution`` (``ours``, α=1, GELU)
-    raises there, naming the ROADMAP item; the same runs in float32."""
+    """Only ``transformer_attribution`` (``ours``, α=1, GELU) takes the
+    layer kernels at a reduced-precision base; everything else runs there
+    on JAX's non-kernel path (the plain layers in the preset's modes), as
+    it does in float32."""
     kw = dict(kw)
     cfg = dataclasses.replace(BertConfig(**SMALL),
                               hidden_act=kw.pop("act", "gelu"))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A3, other bases"):
-        bg.check_supported(cfg, **kw, **precision_kwargs(preset))
+    bg.check_supported(cfg, **kw, **precision_kwargs(preset))
     bg.check_supported(cfg, **kw)
+    call = dict(method="transformer_attribution", alpha=1.0, variant="ours")
+    call.update(kw)
+    assert not bg.eligible(cfg, call["method"], call["alpha"],
+                           call["variant"], **{
+                               k: v for k, v in precision_kwargs(
+                                   preset).items()
+                               if k != "attn_precision"})
 
 
 def test_kernel_branch_refuses_what_jax_asserts():

@@ -354,8 +354,7 @@ def test_explain_stage_precisions(tmp_path):
                .all() for r in rows)
     for method, prec, item in (
             ("transformer_attribution", "tensorfloat32",
-             "ROADMAP B, raw tensorfloat32"),
-            ("rollout", "bfloat16", "ROADMAP A3, other bases")):
+             "ROADMAP B, raw tensorfloat32"),):
         out = tmp_path / f"raise_{prec}"
         with pytest.raises(NotImplementedError, match=item):
             tpl.explain_test_split(sd, BertConfig(**PIPE), test, interned,

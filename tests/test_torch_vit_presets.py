@@ -146,14 +146,14 @@ def test_production_takes_the_block_kernels_and_prepares_once():
 
 @pytest.mark.parametrize("kw,raises", [
     (dict(matmul_precision="tensorfloat32"), NotImplementedError),
-    (dict(matmul_precision="bfloat16", relprop_precision="float32"),
-     NotImplementedError),
+    # islands above the base: the non-kernel branch, no kernel mode asked
+    (dict(matmul_precision="bfloat16", relprop_precision="float32"), None),
     (dict(matmul_precision="bfloat16", mlp_precision="tensorfloat32"),
-     NotImplementedError),
+     None),
     (dict(matmul_precision="bfloat16", attn_precision="tensorfloat32"),
      NotImplementedError),
-    (dict(matmul_precision="float32", mlp_precision="bfloat16"),
-     NotImplementedError),
+    # the float32 base's kernel branch runs its MLP at the base
+    (dict(matmul_precision="float32", mlp_precision="bfloat16"), None),
     (dict(matmul_precision="float16"), ValueError),
     (dict(matmul_precision="bfloat16", attn_precision="half"), ValueError),
     (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16"),

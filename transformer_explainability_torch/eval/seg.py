@@ -240,8 +240,10 @@ def main(argv=None):
     p.add_argument("--precision", default="float32",
                    choices=["float32", "production", "bfloat16"],
                    help="precision preset: float32 = exact FP32; production "
-                        "= the block megakernels (PERF.md); bfloat16 = one "
-                        "bf16 pass per product")
+                        "= bf16x3 products with float32 attention and bf16 "
+                        "rules (transformer_attribution on the block "
+                        "megakernels, PERF.md); bfloat16 = one bf16 pass "
+                        "per product")
     args = p.parse_args(argv)
 
     no_mesh(args.mesh)

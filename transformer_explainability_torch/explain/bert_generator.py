@@ -7,23 +7,26 @@ picks the path:
 
   * ``transformer_attribution`` with variant ``ours``, α=1 and exact GELU
     at a ``bfloat16`` or ``tensorfloat32`` base with S ≤
-    :data:`KERNEL_MAX_SEQ` (the ``production`` and ``bfloat16`` presets)
-    takes the layer kernels: :func:`..models.bert.forward_collect` runs one
+    :data:`KERNEL_MAX_SEQ` and no rule or MLP island above the base (the
+    ``production`` and ``bfloat16`` presets) takes the layer kernels: :func:`..models.bert.forward_collect` runs one
     ``bert_layer_fwd_core`` per layer with the slim rich anchors, and
     :func:`..models.bert.reverse_pass` ``bert_out_rev_core`` and
     ``bert_attn_rev_core``, each layer emitting its head-mean ``(grad ⊙
     cam)⁺`` map;
-  * at the ``float32`` base (exact FP32) every method, both rule variants
-    and any α take the plain layers, keeping what the method reads: the
-    relevance chain, the class gradient, the per-layer probabilities.
+  * everything else, at any base and with any islands, takes the plain
+    layers (every method, both rule variants, any α), keeping what the
+    method reads: the relevance chain, the class gradient, the per-layer
+    probabilities; their products run in JAX's modes
+    (:mod:`..models.bert`).
 
-``transformer_attribution`` and ``rollout`` chain their maps in the
-``rollout_from_grad_cam`` kernel (``rollout`` from the per-head
-probabilities, through its head-mean pass). The wrappers run their plain
-versions on the CPU and the kernels on a card. JAX's non-kernel path at a
-reduced-precision base and the precision combinations the kernels do not
-run raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-Any batch size runs as it is.
+``transformer_attribution`` chains its maps in the ``rollout_from_grad_cam``
+kernel, as JAX does in its Pallas chain; ``rollout`` too at the ``float32``
+base (from the per-head probabilities, through its head-mean pass), while
+at a reduced base it is JAX's XLA chain at the base's mode
+(:func:`..ops.relprop.compute_rollout`). The wrappers run their plain
+versions on the CPU and the kernels on a card. The kernel modes no ported
+kernel has (raw ``tensorfloat32`` rules) raise ``NotImplementedError``
+naming ROADMAP B item 1. Any batch size runs as it is.
 """
 
 from __future__ import annotations
@@ -33,11 +36,14 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from transformer_explainability_torch.explain.generator import (
-    _check_fp32_matmul, _one_hot_index, _resolve_device, check_precision)
+    _check_fp32_matmul, _check_names, _one_hot_index, _resolve_device,
+    check_precision)
 from transformer_explainability_torch.models import bert as bert_mod
 from transformer_explainability_torch.models.bert import BertConfig
 from transformer_explainability_torch.models.vit import megakernel_base
 from transformer_explainability_torch.ops import kernels as K
+from transformer_explainability_torch.ops import precision as prec
+from transformer_explainability_torch.ops import relprop as rp
 
 Tensor = torch.Tensor
 
@@ -64,8 +70,11 @@ def check_supported(cfg: BertConfig, method: str = "transformer_attribution",
                     matmul_precision: str = "float32",
                     relprop_precision: Optional[str] = None,
                     attn_precision: Optional[str] = None,
-                    mlp_precision: Optional[str] = None) -> None:
-    """Raise for every configuration the port does not run."""
+                    mlp_precision: Optional[str] = None,
+                    seq_len: Optional[int] = None) -> None:
+    """Raise for every configuration the port does not run; without
+    ``seq_len`` an eligible call is checked as the layer kernels would
+    take it (S ≤ :data:`KERNEL_MAX_SEQ`)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(METHODS)}")
@@ -74,33 +83,37 @@ def check_supported(cfg: BertConfig, method: str = "transformer_attribution",
     if cfg.hidden_act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {cfg.hidden_act!r}; "
                          f"available: {list(ACTIVATIONS)}")
-    check_precision(matmul_precision, relprop_precision, attn_precision,
-                    mlp_precision)
-    # JAX explain_single's eligibility for the layer kernels: the fused
-    # method with variant ours at alpha 1 and exact GELU
-    eligible = (method == "transformer_attribution"
-                and cfg.hidden_act == "gelu" and variant == "ours"
-                and alpha == 1.0)
-    if megakernel_base(matmul_precision) and not eligible:
-        raise NotImplementedError(
-            f"BERT method {method!r}, variant {variant!r}, alpha {alpha}, "
-            f"activation {cfg.hidden_act!r} at a {matmul_precision} base "
-            "takes JAX's non-kernel reduced-precision path, not ported yet "
-            "(ROADMAP A3, other bases)")
+    _check_names(matmul_precision, relprop_precision, attn_precision,
+                 mlp_precision)
+    if (eligible(cfg, method, alpha, variant, matmul_precision,
+                 relprop_precision, mlp_precision)
+            and use_kernel_path(seq_len or KERNEL_MAX_SEQ, matmul_precision)):
+        # the layer kernels' modes; the plain path takes any
+        check_precision(matmul_precision, relprop_precision, attn_precision,
+                        mlp_precision)
+
+
+def eligible(cfg: BertConfig, method: str, alpha: float, variant: str,
+             matmul_precision: str = "float32",
+             relprop_precision: Optional[str] = None,
+             mlp_precision: Optional[str] = None) -> bool:
+    """JAX ``explain_single``'s eligibility for the layer kernels: the
+    fused method with variant ``ours`` at α=1, exact GELU and no rule or
+    MLP island above the base (the kernels' prepared weights cannot serve
+    one)."""
+    return (method == "transformer_attribution"
+            and cfg.hidden_act == "gelu" and variant == "ours"
+            and alpha == 1.0
+            and not prec.islands_exceed_base(
+                matmul_precision, relprop_precision, mlp_precision))
 
 
 def use_kernel_path(seq_len: int, matmul_precision: str) -> bool:
-    """JAX ``explain_single``'s gate: the layer kernels for a ``bfloat16`` /
-    ``tensorfloat32`` base at S ≤ :data:`KERNEL_MAX_SEQ`; the plain path
-    for ``float32``."""
-    if not megakernel_base(matmul_precision):
-        return False
-    if seq_len > KERNEL_MAX_SEQ:
-        raise NotImplementedError(
-            f"S={seq_len} > {KERNEL_MAX_SEQ} at a {matmul_precision} base "
-            "takes JAX's non-kernel reduced-precision path, not ported yet "
-            "(ROADMAP A3, other bases)")
-    return True
+    """JAX ``explain_single``'s gate for an eligible call: the layer
+    kernels for a ``bfloat16`` / ``tensorfloat32`` base at S ≤
+    :data:`KERNEL_MAX_SEQ`; the plain path for ``float32`` and above
+    :data:`KERNEL_MAX_SEQ`, in the base's modes."""
+    return megakernel_base(matmul_precision) and seq_len <= KERNEL_MAX_SEQ
 
 
 @torch.no_grad()
@@ -140,10 +153,13 @@ def explain_batch(model: bert_mod.BertForSequenceClassification,
                      attn_precision=attn_precision,
                      mlp_precision=mlp_precision)
     check_supported(cfg, method, alpha, variant,
-                    relprop_precision=relprop_precision, **precision)
+                    relprop_precision=relprop_precision, **precision,
+                    seq_len=input_ids.shape[1])
     dtype = model.classifier.weight.dtype
     _check_fp32_matmul(input_ids.device, dtype)
-    use_kernel = use_kernel_path(input_ids.shape[1], matmul_precision)
+    use_kernel = (eligible(cfg, method, alpha, variant, matmul_precision,
+                           relprop_precision, mlp_precision)
+                  and use_kernel_path(input_ids.shape[1], matmul_precision))
     needs_grads, needs_relprop = METHODS[method]
     fused = method == "transformer_attribution"
     logits, res = bert_mod.forward_collect(
@@ -162,7 +178,11 @@ def explain_batch(model: bert_mod.BertForSequenceClassification,
         row = joint[:, 0].clone()
         row[:, 0] = row.min(dim=-1).values       # rollout[:, 0, 0] = min
         return row
-    if method == "rollout":
+    if method == "rollout" and megakernel_base(matmul_precision):
+        # JAX chains the head means in XLA at the base's mode here
+        row = rp.compute_rollout(res.probs.mean(dim=2), start_layer, True,
+                                 prec.mxu_name(matmul_precision))[:, 0]
+    elif method == "rollout":
         row = ops.rollout_from_grad_cam(res.probs, start_layer, True,
                                         rows=1)[:, 0]
     elif method == "last_layer":
@@ -195,7 +215,10 @@ def make_explain_fn(cfg: BertConfig, device,
                      relprop_precision=relprop_precision,
                      attn_precision=attn_precision,
                      mlp_precision=mlp_precision)
-    check_supported(cfg, method, alpha, variant, **precision)
+    # the calls' lengths are theirs (explain_batch checks each); here the
+    # longest the config takes
+    check_supported(cfg, method, alpha, variant, **precision,
+                    seq_len=cfg.max_position_embeddings)
     device = _resolve_device(device)
 
     def fn(model: bert_mod.BertForSequenceClassification, input_ids,
@@ -235,7 +258,11 @@ class BertExplainer:
                               relprop_precision=relprop_precision,
                               attn_precision=attn_precision,
                               mlp_precision=mlp_precision)
-        check_supported(cfg, variant=variant, **self.precision)
+        # the method and the length are the call's: each explain checks
+        if variant not in ("ours", "lrp"):
+            raise ValueError(f"unknown variant {variant!r} ('ours' or "
+                             "'lrp')")
+        _check_names(*self.precision.values())
         self.device = _resolve_device(device)
         self.cfg = cfg
         dtype = params["classifier.weight"].dtype
@@ -285,5 +312,5 @@ class BertExplainer:
 
 
 __all__ = ["KERNEL_MAX_SEQ", "METHODS", "PROBS_METHODS", "ACTIVATIONS",
-           "check_supported", "use_kernel_path", "explain_batch",
+           "check_supported", "eligible", "use_kernel_path", "explain_batch",
            "make_explain_fn", "BertExplainer"]

@@ -8,18 +8,22 @@ precision presets ``float32`` (exact FP32), ``production`` and ``bfloat16``
 decides the branch of :mod:`..models.vit`:
 
   * ``transformer_attribution`` (and its alias ``grad``) with variant
-    ``ours`` at α=1 take the kernel branch: the forward with the attention
-    core in ``attn_fwd_core`` (float32; bfloat16 with ``block_kernel=False``)
-    or whole blocks in ``block_fwd_core``; the reverse with ``attn_rev_core``
-    (and ``mlp_rev_core`` on the split path) or ``block_rev_core``, each
-    block emitting its head-mean ``(grad ⊙ cam)⁺`` map; the
+    ``ours`` at α=1 and no rule or MLP island above the base take the
+    kernel branch: the forward with the attention core in
+    ``attn_fwd_core`` (float32, with the attention island's mode;
+    bfloat16 with ``block_kernel=False``) or whole blocks in
+    ``block_fwd_core``; the reverse with ``attn_rev_core`` (and
+    ``mlp_rev_core`` on the split path) or ``block_rev_core``, each block
+    emitting its head-mean ``(grad ⊙ cam)⁺`` map; the
     ``rollout_from_grad_cam`` kernel chains the maps;
-  * every other method and option takes the non-kernel branch, exact
-    products at the float32 base, with the rollout kernel where the method
+  * every other method and option takes the non-kernel branch, at any
+    base and with any islands, its products in the modes of JAX's lowered
+    program (:mod:`..models.vit`), with the rollout kernel where the method
     rolls out.
 
-In every preset the embedding, the final norm and the head(s) are exact
-products in the parameters' dtype (float32 on a card needs TF32 off).
+The patch embedding is an exact product in every preset; on the kernel
+branch the head is too, on the non-kernel branch it runs at the base, as
+in JAX (float32 on a card needs TF32 off).
 ``mlp_fwd_precision`` / ``mlp_bwd_precision`` split ``mlp_precision``
 between the forward's MLP products and the reverse's (JAX's split); with
 ``with_diagnostics`` the fused method also returns the :data:`DIAG_FIELDS`
@@ -29,9 +33,10 @@ The JAX package jit-compiles one program per configuration and pads
 batches to power-of-two buckets; here PyTorch runs eagerly, the batch is
 the leading dimension, and any batch size runs as it is.
 
-The non-kernel branch at the reduced-precision bases, the tensorfloat32
-split arm and the precision combinations the kernels do not run raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The tensorfloat32 modes that no ported kernel has (raw
+``tensorfloat32`` on the kernel branch, the tf32 split arm, a
+tensorfloat32 attention or rule island on the float32 base's kernels)
+raise ``NotImplementedError`` naming ROADMAP B item 1.
 """
 
 from __future__ import annotations
@@ -138,10 +143,20 @@ def mlp_split(mlp_precision: Optional[str] = None,
 
 
 def uses_kernel_branch(method: str, alpha: float = 1.0,
-                       variant: str = "ours") -> bool:
+                       variant: str = "ours",
+                       matmul_precision: str = "float32",
+                       relprop_precision: Optional[str] = None,
+                       mlp_fwd_precision: Optional[str] = None,
+                       mlp_bwd_precision: Optional[str] = None) -> bool:
     """JAX's kernel gate (``generator._explain_single_impl``): the fused
-    method with variant ``ours`` at α=1 takes the kernel branch."""
-    return method in FUSED_METHODS and variant == "ours" and alpha == 1.0
+    method with variant ``ours`` at α=1 takes the kernel branch, unless a
+    rule or MLP island asks for more than the base (the kernels' prepared
+    weights cannot serve it; the whole program then takes the non-kernel
+    branch)."""
+    return (method in FUSED_METHODS and variant == "ours" and alpha == 1.0
+            and not prec.islands_exceed_base(
+                matmul_precision, relprop_precision, mlp_fwd_precision,
+                mlp_bwd_precision))
 
 
 def check_supported(method: str = "transformer_attribution",
@@ -163,16 +178,22 @@ def check_supported(method: str = "transformer_attribution",
     if with_diagnostics and method not in FUSED_METHODS:
         raise ValueError("with_diagnostics is defined for the "
                          "transformer_attribution method only")
-    check_precision(matmul_precision, relprop_precision, attn_precision,
-                    mlp_precision, block_kernel, mlp_fwd_precision,
-                    mlp_bwd_precision)
-    if (not uses_kernel_branch(method, alpha, variant)
-            and matmul_precision != "float32"):
-        raise NotImplementedError(
-            f"method {method!r}, variant {variant!r}, alpha {alpha} take the "
-            "non-kernel branch, which runs at the float32 base only: its "
-            "products at other bases need a fidelity measurement on the card "
-            "first (ROADMAP A3, other bases)")
+    _check_names(matmul_precision, relprop_precision, attn_precision,
+                 mlp_precision, mlp_fwd_precision, mlp_bwd_precision)
+    mlp_fwd, mlp_bwd = mlp_split(mlp_precision, mlp_fwd_precision,
+                                 mlp_bwd_precision)
+    if uses_kernel_branch(method, alpha, variant, matmul_precision,
+                          relprop_precision, mlp_fwd, mlp_bwd):
+        check_precision(matmul_precision, relprop_precision, attn_precision,
+                        mlp_precision, block_kernel, mlp_fwd_precision,
+                        mlp_bwd_precision)
+
+
+def _check_names(*precisions: Optional[str]) -> None:
+    for p in precisions:
+        if p is not None and p not in prec.MODES:
+            raise ValueError(f"unknown precision {p!r}; available: "
+                             f"{list(prec.MODES)}")
 
 
 def check_precision(matmul_precision: str = "float32",
@@ -182,34 +203,31 @@ def check_precision(matmul_precision: str = "float32",
                     block_kernel: bool = True,
                     mlp_fwd_precision: Optional[str] = None,
                     mlp_bwd_precision: Optional[str] = None) -> None:
-    """The JAX gates of the kernel paths (generator.py, vit.py): float32
-    runs the B4/B5 path with no islands; bfloat16 / tensorfloat32 run the
-    block megakernels when no weight-consuming island (the rules', the
-    forward's and the reverse's MLP products, :func:`mlp_split`) exceeds
-    the base, the rule products are bfloat16 and the attention's are
-    float32 or bfloat16; with ``block_kernel=False`` the bfloat16 base runs
-    the split path (B4, B5, B6) under the same island rules."""
+    """The kernel modes the kernel branch needs (JAX generator.py,
+    vit.py): the float32 base runs ``step_lite`` / ``kstep`` with B4 and
+    B5 in the attention and rule islands' modes (float32 or bfloat16; the
+    MLP islands do not reach it, JAX's plain MLP arm runs at the base);
+    bfloat16 / tensorfloat32 run the block megakernels when the rule
+    products are bfloat16 and the attention's float32 or bfloat16; with
+    ``block_kernel=False`` the bfloat16 base runs the split path (B4, B5,
+    B6) under the same rules. A rule or MLP island above a reduced base is
+    not the kernel branch's (:func:`uses_kernel_branch`) and passes here."""
     mlp_fwd, mlp_bwd = mlp_split(mlp_precision, mlp_fwd_precision,
                                  mlp_bwd_precision)
-    for p in (matmul_precision, relprop_precision, attn_precision,
-              mlp_precision, mlp_fwd, mlp_bwd):
-        if p is not None and p not in prec.MODES:
-            raise ValueError(f"unknown precision {p!r}; available: "
-                             f"{list(prec.MODES)}")
-    islands = (relprop_precision, attn_precision, mlp_fwd, mlp_bwd)
+    _check_names(matmul_precision, relprop_precision, attn_precision,
+                 mlp_precision, mlp_fwd, mlp_bwd)
+    rule = prec.mxu_name(relprop_precision, matmul_precision)
+    attn = prec.mxu_name(attn_precision, matmul_precision)
     if matmul_precision == "float32":
-        if any(p is not None for p in islands):
+        if "tensorfloat32" in (rule, attn):
             raise NotImplementedError(
-                "precision islands on the float32 base are not ported yet "
-                "(ROADMAP A3, other bases)")
+                "a tensorfloat32 attention or rule island on the float32 "
+                "base runs B4 and B5 in tensorfloat32 modes, which have no "
+                "kernel instantiation yet (ROADMAP B, raw tensorfloat32)")
         return
     if prec.islands_exceed_base(matmul_precision, relprop_precision,
                                 mlp_fwd, mlp_bwd):
-        raise NotImplementedError(
-            "a rule or MLP precision above the base takes the non-kernel "
-            "path, not ported yet (ROADMAP A3, other bases)")
-    rule = prec.mxu_name(relprop_precision, matmul_precision)
-    attn = prec.mxu_name(attn_precision, matmul_precision)
+        return
     if rule != "bfloat16" or attn == "tensorfloat32":
         raise NotImplementedError(
             "tensorfloat32 rule or attention products have no block-kernel "
@@ -294,7 +312,8 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
         is_ablation and method in ("last_layer", "second_layer"))
     needs_relprop = METHODS[method][1]
     fused = method in FUSED_METHODS
-    kernel = uses_kernel_branch(method, alpha, variant)
+    kernel = uses_kernel_branch(method, alpha, variant, matmul_precision,
+                                relprop_precision, mlp_fwd, mlp_bwd)
     branch = dict(use_attn_kernel=kernel, block_kernel=block_kernel,
                   matmul_precision=matmul_precision,
                   attn_precision=attn_precision)
@@ -318,7 +337,7 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
         return heat
     if method == "full":
         return vit_mod.full_lrp_input_relevance(model, res, R_tokens, images,
-                                                variant)
+                                                variant, matmul_precision)
     if method in ("last_layer", "second_layer"):
         li = cfg.depth - 1 if method == "last_layer" else 1
         cam = cams[:, li]
@@ -427,7 +446,12 @@ class Explainer:
                               block_kernel=block_kernel,
                               mlp_fwd_precision=mlp_fwd_precision,
                               mlp_bwd_precision=mlp_bwd_precision)
-        check_supported(variant=variant, **self.precision)
+        # the method is the call's: each explain checks its own pair
+        if variant not in ("ours", "lrp"):
+            raise ValueError(f"unknown variant {variant!r} ('ours' or "
+                             "'lrp')")
+        _check_names(*(v for k, v in self.precision.items()
+                       if k != "block_kernel"))
         self.device = _resolve_device(device)
         self.cfg = cfg
         dtype = params["cls_token"].dtype

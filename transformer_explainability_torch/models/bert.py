@@ -1,8 +1,10 @@
 """Explainable BERT in PyTorch (port of
 ``transformer_explainability_tpu/models/bert.py``).
 
-  * The plain path (``matmul_precision="float32"``, exact FP32, and every
-    method but ``transformer_attribution``): :func:`forward_collect` is the
+  * The plain path (``matmul_precision="float32"``, and at every base each
+    method but ``transformer_attribution`` with variant ``ours``, α=1 and
+    GELU, that one too at S > 512 or with an island above the base):
+    :func:`forward_collect` is the
     JAX ``lax.scan`` forward (:func:`layer_acts`, two anchors per layer,
     the per-layer attention probabilities kept when a method reads them)
     and :func:`reverse_pass` the JAX reverse scan (:func:`layer_backward`
@@ -10,7 +12,13 @@
     gradient, the LRP relevance or both, in either rule variant and any α,
     per-head or folded into the ``(grad ⊙ cam)⁺`` head mean. Activations
     ``gelu`` (exact), ``relu`` and ``tanh``, token types and an ``(L, h)``
-    head mask are taken as JAX takes them. All plain PyTorch.
+    head mask are taken as JAX takes them. All plain PyTorch, each product
+    in the mode of a :class:`..ops.precision.Policy` as JAX's lowered
+    program runs it: the attention products (scores, P·V, their backward)
+    in the attention island's mode, the rules inside the layers in the
+    rule island's, every other product (the layers' Linear products and
+    their gradients, the pooler and the classifier with their seeds) at
+    the base; JAX's plain layers take no MLP precision.
   * The kernel path (``matmul_precision`` ``"bfloat16"`` or
     ``"tensorfloat32"``, the ``production`` and ``bfloat16`` presets;
     ``transformer_attribution``, variant ``ours``, α=1, exact GELU, no head
@@ -22,8 +30,9 @@
     per model and mode (:meth:`BertForSequenceClassification.
     layer_params`).
 
-The embeddings, the pooler and the classifier stay exact products in the
-parameters' dtype (float32 on a card needs TF32 off). :func:`train_forward`
+The embeddings have no product; on the kernel path the pooler and the
+classifier stay exact products in the parameters' dtype (float32 on a card
+needs TF32 off). :func:`train_forward`
 is the training forward (JAX ``bert.train_forward``): plain PyTorch under
 autograd, with dropout at the Hugging Face sites.
 
@@ -257,9 +266,10 @@ def _layernorm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
     return bm.ln_fwd(x, ln.weight, ln.bias, ln.eps)[0]
 
 
-def _lin(x: Tensor, lin: nn.Linear) -> Tensor:
-    """``x @ kernel + bias`` as the JAX package writes it."""
-    return x @ lin.weight.t() + lin.bias
+def _lin(x: Tensor, lin: nn.Linear, mode: str = "float32") -> Tensor:
+    """``x @ kernel + bias`` as the JAX package writes it, the product in
+    ``mode``."""
+    return prec.product(x, lin.weight.t(), mode) + lin.bias
 
 
 def _act(x: Tensor, name: str) -> Tensor:
@@ -310,30 +320,34 @@ class LayerActs(NamedTuple):
 
 def layer_acts(x_in: Tensor, att_ln: Optional[Tensor], layer: BertLayer,
                ext_mask: Tensor, cfg: BertConfig,
-               head_mask: Optional[Tensor] = None
+               head_mask: Optional[Tensor] = None,
+               pol: prec.Policy = prec.EXACT
                ) -> Tuple[Tensor, Tensor, LayerActs]:
     """One encoder layer from its input (JAX ``bert._layer_acts``); pass
     the saved ``att_ln`` to recompute. ``head_mask`` ``(h,)`` multiplies
-    the post-softmax probabilities per head. Returns ``(att_ln, out,
-    acts)``."""
+    the post-softmax probabilities per head. The scores and P·V run in
+    ``pol.attn``, the Linear products at ``pol.base``. Returns ``(att_ln,
+    out, acts)``."""
     sa = layer.attention.self
-    q = _heads(_lin(x_in, sa.query), cfg)
-    k = _heads(_lin(x_in, sa.key), cfg)
-    v = _heads(_lin(x_in, sa.value), cfg)
-    raw = q @ k.transpose(-1, -2)
+    base = pol.base
+    q = _heads(_lin(x_in, sa.query, base), cfg)
+    k = _heads(_lin(x_in, sa.key, base), cfg)
+    v = _heads(_lin(x_in, sa.value, base), cfg)
+    raw = prec.product(q, k.transpose(-1, -2), pol.attn)
     scaled = raw / math.sqrt(cfg.head_dim)
     probs = torch.softmax(scaled + ext_mask[:, None, None, :], dim=-1)
     probs_m = None
     if head_mask is not None:
         probs_m = probs * head_mask[:, None, None]
-    ctx = bm.merge_heads((probs if probs_m is None else probs_m) @ v)
-    dense_out = _lin(ctx, layer.attention.output.dense)
+    ctx = bm.merge_heads(prec.product(
+        probs if probs_m is None else probs_m, v, pol.attn))
+    dense_out = _lin(ctx, layer.attention.output.dense, base)
     att_mid = dense_out + x_in
     if att_ln is None:
         att_ln = _layernorm(att_mid, layer.attention.output.LayerNorm)
-    inter_pre = _lin(att_ln, layer.intermediate.dense)
+    inter_pre = _lin(att_ln, layer.intermediate.dense, base)
     inter_g = _act(inter_pre, cfg.hidden_act)
-    dense2 = _lin(inter_g, layer.output.dense)
+    dense2 = _lin(inter_g, layer.output.dense, base)
     out = _layernorm(dense2 + att_ln, layer.output.LayerNorm)
     return att_ln, out, LayerActs(q, k, v, scaled, probs, ctx, dense_out,
                                   att_mid, inter_pre, inter_g, dense2,
@@ -389,7 +403,9 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
     ``bert_layer_fwd_core`` per layer with the slim rich anchors (JAX
     ``use_kernel=True, rich_anchors=True``), else the plain layers, which
     take a head mask ``(L, h)`` and, with ``keep_probs``, keep every
-    layer's probabilities in ``Residuals.probs``."""
+    layer's probabilities in ``Residuals.probs``; they run at the
+    ``matmul_precision`` base with the attention island, and JAX's plain
+    layers take no ``mlp_precision``."""
     cfg = model.cfg
     x0 = embed(model, input_ids, token_type_ids)
     ext_mask = (1.0 - attention_mask.to(x0.dtype)) * cfg.mask_value
@@ -415,9 +431,10 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
             x = outs[0]
         keep["probs"] = None
     else:
+        pol = prec.Policy.resolve(matmul_precision, attn_precision)
         for li, layer in enumerate(layers):
             att_ln, out, acts = layer_acts(x, None, layer, ext_mask, cfg,
-                                           _layer_mask(head_mask, li))
+                                           _layer_mask(head_mask, li), pol)
             keep["x_ins"].append(x)
             keep["att_lns"].append(att_ln)
             if keep_probs:
@@ -427,9 +444,12 @@ def forward_collect(model: BertForSequenceClassification, input_ids: Tensor,
             keep[k] = None
         keep["probs"] = (torch.stack(keep["probs"], dim=1) if keep_probs
                          else None)
+    # the pooler and the classifier at the plain path's base (exact on the
+    # kernel path, as before it)
+    head_mode = "float32" if use_kernel else prec.mxu_name(matmul_precision)
     first_tok = x[:, 0]
-    pooled = torch.tanh(_lin(first_tok, model.bert.pooler.dense))
-    logits = _lin(pooled, model.classifier)
+    pooled = torch.tanh(_lin(first_tok, model.bert.pooler.dense, head_mode))
+    logits = _lin(pooled, model.classifier, head_mode)
     return logits, Residuals(x0, seq_out=x, first_tok=first_tok,
                              pooled=pooled, ext_mask=ext_mask, **keep)
 
@@ -508,66 +528,79 @@ def _check_kernel_path(cfg: BertConfig, head_mask: Optional[Tensor]) -> None:
 
 def layer_backward(g_out: Tensor, x_in: Tensor, att_ln: Tensor,
                    acts: LayerActs, layer: BertLayer, cfg: BertConfig,
-                   head_mask: Optional[Tensor] = None
+                   head_mask: Optional[Tensor] = None,
+                   pol: prec.Policy = prec.EXACT
                    ) -> Tuple[Tensor, Tensor]:
     """Hand-written VJP of one layer from its activations (JAX
     ``bert.layer_backward``): ``(g_in, g_probs)``, ``g_probs`` the
     cotangent of the post-softmax probabilities before the head mask
-    ``(h,)`` (so it carries the mask's factor)."""
+    ``(h,)`` (so it carries the mask's factor). The attention chain's
+    products run in ``pol.attn``, the Linear gradients at ``pol.base``."""
     out_d, ao_d = layer.output.dense, layer.attention.output.dense
+    base, ap = pol.base, pol.attn
+
+    def mm(a, b, mode):
+        return prec.product(a, b, mode)
+
     g_sum2 = _layernorm_bwd(g_out, acts.dense2 + att_ln,
                             layer.output.LayerNorm)
-    g_ig = g_sum2 @ out_d.weight
+    g_ig = mm(g_sum2, out_d.weight, base)
     g_h1 = g_ig * _act_grad(acts.inter_pre, cfg.hidden_act)
-    g_attln = g_sum2 + g_h1 @ layer.intermediate.dense.weight
+    g_attln = g_sum2 + mm(g_h1, layer.intermediate.dense.weight, base)
 
     g_sum1 = _layernorm_bwd(g_attln, acts.att_mid,
                             layer.attention.output.LayerNorm)
-    g_o = _heads(g_sum1 @ ao_d.weight, cfg)
-    g_probs = g_o @ acts.v.transpose(-1, -2)
+    g_o = _heads(mm(g_sum1, ao_d.weight, base), cfg)
+    g_probs = mm(g_o, acts.v.transpose(-1, -2), ap)
     probs_av = acts.probs if acts.probs_m is None else acts.probs_m
-    g_v = probs_av.transpose(-1, -2) @ g_o
+    g_v = mm(probs_av.transpose(-1, -2), g_o, ap)
     if acts.probs_m is not None:
         g_probs = g_probs * head_mask[:, None, None]
     inner = (g_probs * acts.probs).sum(dim=-1, keepdim=True)
     g_raw = (acts.probs * (g_probs - inner)) / math.sqrt(cfg.head_dim)
-    g_q = g_raw @ acts.k
-    g_k = g_raw.transpose(-1, -2) @ acts.q
+    g_q = mm(g_raw, acts.k, ap)
+    g_k = mm(g_raw.transpose(-1, -2), acts.q, ap)
     sa = layer.attention.self
-    g_in = (g_sum1 + bm.merge_heads(g_q) @ sa.query.weight
-            + bm.merge_heads(g_k) @ sa.key.weight
-            + bm.merge_heads(g_v) @ sa.value.weight)
+    g_in = (g_sum1 + mm(bm.merge_heads(g_q), sa.query.weight, base)
+            + mm(bm.merge_heads(g_k), sa.key.weight, base)
+            + mm(bm.merge_heads(g_v), sa.value.weight, base))
     return g_in, g_probs
 
 
 def layer_relprop(R: Tensor, x_in: Tensor, att_ln: Tensor, acts: LayerActs,
                   layer: BertLayer, ext_mask: Tensor, cfg: BertConfig,
                   alpha: float = 1.0, variant: str = "ours",
-                  head_mask: Optional[Tensor] = None
+                  head_mask: Optional[Tensor] = None,
+                  pol: prec.Policy = prec.EXACT
                   ) -> Tuple[Tensor, Tensor]:
     """LRP through one layer (JAX ``bert.layer_relprop``): ``(R_in,
-    attn_cam)``. With a head mask ``(h,)`` the AV split is followed by the
-    z-rule through the mask's product, keeping the probabilities' share."""
+    attn_cam)``, every rule product in ``pol.rule`` (``acts`` are the
+    forward's, recomputed outside the rule island as JAX does). With a
+    head mask ``(h,)`` the AV split is followed by the z-rule through the
+    mask's product, keeping the probabilities' share."""
+    rule = pol.rule
     out_d, inter_d = layer.output.dense, layer.intermediate.dense
     ao_d, sa = layer.attention.output.dense, layer.attention.self
     # BertOutput: LN(id) -> add split -> dense
     R1, R2 = rp.add_relprop(acts.dense2, att_ln, R, variant)
     R1 = rp.linear_alphabeta(acts.inter_g, out_d.weight.t(), R1, alpha,
-                             variant, y_pre=acts.dense2 - out_d.bias)
+                             variant, y_pre=acts.dense2 - out_d.bias,
+                             mode=rule)
     # BertIntermediate: act(id) -> dense
     R1 = rp.linear_alphabeta(att_ln, inter_d.weight.t(), R1, alpha, variant,
-                             y_pre=acts.inter_pre - inter_d.bias)
+                             y_pre=acts.inter_pre - inter_d.bias, mode=rule)
     R_att = rp.clone_relprop(att_ln, [R1, R2])
 
     # BertSelfOutput: LN(id) -> add split -> dense
     R1, R2 = rp.add_relprop(acts.dense_out, x_in, R_att, variant)
     R1 = rp.linear_alphabeta(acts.ctx, ao_d.weight.t(), R1, alpha, variant,
-                             y_pre=acts.dense_out - ao_d.bias)
+                             y_pre=acts.dense_out - ao_d.bias, mode=rule)
 
     # BertSelfAttention
     cam = _heads(R1, cfg)
     cam1, cam_v = rp.einsum_av_relprop(
-        acts.probs if acts.probs_m is None else acts.probs_m, acts.v, cam)
+        acts.probs if acts.probs_m is None else acts.probs_m, acts.v, cam,
+        rule)
     cam1 = cam1 / 2
     cam_v = cam_v / 2
     if acts.probs_m is not None:
@@ -577,11 +610,12 @@ def layer_relprop(R: Tensor, x_in: Tensor, att_ln: Tensor, acts: LayerActs,
     # the attention-mask Add (masked scores = scaled + ext_mask)
     cam1, _ = rp.add_relprop(acts.scaled, ext_mask[:, None, None, :]
                              .expand_as(acts.scaled), cam1, variant)
-    cam_q, cam_k = rp.einsum_qk_relprop(acts.q, acts.k, cam1)
+    cam_q, cam_k = rp.einsum_qk_relprop(acts.q, acts.k, cam1, rule)
     cam_q = cam_q / 2
     cam_k = cam_k / 2
     Rs = [rp.linear_alphabeta(x_in, lin.weight.t(), bm.merge_heads(c), alpha,
-                              variant, y_pre=bm.merge_heads(t) - lin.bias)
+                              variant, y_pre=bm.merge_heads(t) - lin.bias,
+                              mode=rule)
           for lin, c, t in ((sa.query, cam_q, acts.q), (sa.key, cam_k, acts.k),
                             (sa.value, cam_v, acts.v))]
     R_h1 = rp.clone_relprop(x_in, Rs)                  # 3-way clone
@@ -623,21 +657,24 @@ def reverse_pass(model: BertForSequenceClassification, res: Residuals,
     elif fuse_grad_cam and not (need_grads and need_relprop):
         raise ValueError("fuse_grad_cam needs both passes")
 
+    # the seeds at the plain path's base, outside the rule island (exact on
+    # the kernel path, as before it)
+    seed = "float32" if use_kernel else prec.mxu_name(matmul_precision)
     g = R = None
     if need_grads:
         # gradient seed: classifier -> tanh pooler -> first token
-        g_pooled = onehot @ cls.weight
+        g_pooled = prec.product(onehot, cls.weight, seed)
         t = res.pooled
-        g_first = (g_pooled * (1.0 - t * t)) @ pool.weight
+        g_first = prec.product(g_pooled * (1.0 - t * t), pool.weight, seed)
         g = torch.zeros_like(res.seq_out)
         g[:, 0] = g_first
     if need_relprop:
         # relevance seed: classifier and pooler rules, then the first-token
         # index_select
         R = rp.linear_alphabeta(res.pooled, cls.weight.t(), onehot, alpha,
-                                variant)
+                                variant, mode=seed)
         R = rp.linear_alphabeta(res.first_tok, pool.weight.t(), R, alpha,
-                                variant)
+                                variant, mode=seed)
         R = rp.index_select_relprop(res.seq_out, 1, 0, R[:, None, :])
 
     cams: List[Optional[Tensor]] = [None] * cfg.num_layers
@@ -662,17 +699,20 @@ def reverse_pass(model: BertForSequenceClassification, res: Residuals,
                 saved)
         return R, torch.stack(cams, dim=1), None
 
+    pol = prec.Policy.resolve(matmul_precision, attn_precision,
+                              relprop_precision)
     for li in reversed(range(cfg.num_layers)):
         x_in, att_ln = res.x_ins[li], res.att_lns[li]
         hm = _layer_mask(head_mask, li)
         _, _, acts = layer_acts(x_in, att_ln, layers[li], res.ext_mask, cfg,
-                                hm)
+                                hm, pol)
         if need_grads:
             g, grads[li] = layer_backward(g, x_in, att_ln, acts, layers[li],
-                                          cfg, hm)
+                                          cfg, hm, pol)
         if need_relprop:
             R, cams[li] = layer_relprop(R, x_in, att_ln, acts, layers[li],
-                                        res.ext_mask, cfg, alpha, variant, hm)
+                                        res.ext_mask, cfg, alpha, variant, hm,
+                                        pol)
         if fuse_grad_cam:
             cams[li] = (grads[li] * cams[li]).clamp(min=0).mean(dim=1)
             grads[li] = None
@@ -682,14 +722,20 @@ def reverse_pass(model: BertForSequenceClassification, res: Residuals,
 
 def relprop(model: BertForSequenceClassification, res: Residuals,
             R_logits: Tensor, alpha: float = 1.0, variant: str = "ours",
-            head_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+            head_mask: Optional[Tensor] = None,
+            matmul_precision: str = "float32",
+            relprop_precision: Optional[str] = None,
+            attn_precision: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     """Relevance only, classifier down to the layer-0 input (JAX
     ``bert.relprop``): ``(R_tokens (B, S, D), attn_cams (B, L, h, S, S))``
     from the plain residuals; ``head_mask`` is the ``(L, h)`` mask the
-    forward ran with."""
+    forward ran with. The precisions are those JAX's ambient
+    ``default_matmul_precision`` and islands give it (exact by
+    default)."""
     R_tokens, attn_cams, _ = reverse_pass(
         model, res, R_logits, alpha=alpha, variant=variant, need_grads=False,
-        head_mask=head_mask)
+        head_mask=head_mask, matmul_precision=matmul_precision,
+        relprop_precision=relprop_precision, attn_precision=attn_precision)
     return R_tokens, attn_cams
 
 

@@ -25,17 +25,29 @@ branches are JAX's:
       ambient ``default_matmul_precision``), the attention kernels in their
       bf16 modes and :func:`..ops.kernels.mlp_rev_core` for the MLP half;
 
+    - ``"float32"`` with precision islands (the ``attn_precision`` and
+      ``relprop_precision`` of JAX's kernel branch on its float32 base):
+      ``step_lite`` and ``kstep`` as at float32, the attention kernels in
+      the islands' modes, the rules outside them in the rule mode;
+
   * the non-kernel branch (``use_attn_kernel=False``; every other method,
-    variant ``lrp`` and α ≠ 1), exact products at the float32 base only: the
+    variant ``lrp`` and α ≠ 1, and any island above the base): the
     forward keeps the block inputs, midpoints and post-softmax attention
     maps; the reverse recomputes each block's activations
     (:func:`_block_acts_from_anchors`) and runs :func:`block_backward` and
-    :func:`block_relprop` on them, fused or not.
+    :func:`block_relprop` on them, fused or not. Its products run in the
+    modes of a :class:`..ops.precision.Policy`, as JAX's lowered program
+    runs them: the attention products (the scores, P·V and their backward)
+    in the attention island's mode, the rules' products in the rule
+    island's, every other product at the base; the MLP islands do not
+    reach this branch (JAX's non-kernel blocks take no MLP precision).
 
 The gradients are written by hand, autograd is not used; only
 :func:`train_forward`, the plain forward of training (JAX ``vit.forward``
-under the trainer's matmul precision), runs under autograd. The embedding, the
-final norm and the head stay exact products in the parameters' dtype.
+under the trainer's matmul precision), runs under autograd. The patch
+embedding stays an exact product in the parameters' dtype, as JAX pins it;
+the head runs at the base on the non-kernel branch and exact on the kernel
+branch.
 
 The configurations are ViT-B/16, ViT-L/16, DeiT-base and DeiT-base
 distilled (``ViTConfig.distilled``: timm's DIST token after CLS and a second
@@ -61,7 +73,7 @@ from transformer_explainability_torch.ops import precision as prec
 from transformer_explainability_torch.ops import relprop as rp
 from transformer_explainability_torch.ops import block_math as bm
 from transformer_explainability_torch.ops.block_math import BlockParams
-from transformer_explainability_torch.ops.precision import kdot, transpose
+from transformer_explainability_torch.ops.precision import transpose
 
 Tensor = torch.Tensor
 
@@ -265,11 +277,12 @@ def _layernorm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
     return bm.ln_fwd(x, ln.weight, ln.bias, ln.eps)[0]
 
 
-def _pre(x: Tensor, lin: nn.Linear) -> Tensor:
-    """The pre-bias product ``x @ Wᵀ``. The bias is added apart, so that the
-    forward and the reverse recompute form every activation with the same
-    operations (the LRP rules need the forward's values bitwise)."""
-    return x @ lin.weight.t()
+def _pre(x: Tensor, lin: nn.Linear, mode: str = "float32") -> Tensor:
+    """The pre-bias product ``x @ Wᵀ`` in product ``mode``. The bias is
+    added apart, so that the forward and the reverse recompute form every
+    activation with the same operations (the LRP rules need the forward's
+    values bitwise)."""
+    return prec.product(x, lin.weight.t(), mode)
 
 
 def _bias(y: Tensor, lin: nn.Linear) -> Tensor:
@@ -322,7 +335,8 @@ def embed_tokens(cfg: ViTConfig, patch_weight: Tensor, patch_bias: Tensor,
         raise ValueError("a distilled config takes a DIST token, another "
                          "config none")
     patches = rp.patchify(img, cfg.patch_size)
-    tok = patches @ patch_weight.reshape(cfg.embed_dim, -1).t() + patch_bias
+    tok = prec.product(patches, patch_weight.reshape(cfg.embed_dim, -1).t(),
+                       "float32") + patch_bias
     prefix = [cls_token] + ([dist_token] if cfg.distilled else [])
     cat_x = torch.cat([t.expand(img.shape[0], -1, -1) for t in prefix]
                       + [tok], dim=1)
@@ -336,32 +350,28 @@ def megakernel_base(matmul_precision: str) -> bool:
     return matmul_precision in ("bfloat16", "tensorfloat32")
 
 
-def _lite_mode(matmul_precision: str, block_kernel: bool) -> Optional[str]:
+def _lite_mode(matmul_precision: str, block_kernel: bool,
+               *islands: Optional[str]) -> Optional[str]:
     """The product mode of the ``step_lite`` / ``kstep`` blocks, or None
     where the kernel branch runs the megakernels. Raises for the
-    tensorfloat32 base without them (JAX takes its plain MLP arm there at
-    the ambient tf32 precision, which has no CPU oracle)."""
+    tensorfloat32 base without them (the tf32 split arm, which goes with
+    raw tensorfloat32 in ROADMAP B item 1), and for a weight-consuming
+    island above a reduced base, which JAX's generator sends down the
+    non-kernel branch."""
     if not megakernel_base(matmul_precision):
         return "float32"
+    if prec.islands_exceed_base(matmul_precision, *islands):
+        raise ValueError(
+            "an island above a reduced base runs on the non-kernel branch "
+            "(use_attn_kernel=False), as JAX's generator sends it")
     if block_kernel:
         return None
     if matmul_precision != "bfloat16":
         raise NotImplementedError(
             "the split path (block_kernel=False) runs at the bfloat16 base; "
-            "at tensorfloat32 JAX takes its plain MLP arm at the ambient "
-            "precision, which waits for an on-card fidelity measurement "
+            "the tensorfloat32 split arm goes with raw tensorfloat32 "
             "(ROADMAP B, the tf32 split arm)")
     return "bfloat16"
-
-
-def _exact_only(*precisions: Optional[str]) -> None:
-    """The non-kernel branch runs exact products only."""
-    if (precisions[0] != "float32"
-            or any(p is not None for p in precisions[1:])):
-        raise NotImplementedError(
-            "the non-kernel branch runs at the float32 base without islands; "
-            "other bases need a fidelity measurement on the card first "
-            "(ROADMAP A3, other bases)")
 
 
 def forward_collect(model: VisionTransformer, img: Tensor,
@@ -381,13 +391,9 @@ def forward_collect(model: VisionTransformer, img: Tensor,
     cfg = model.cfg
     cat_x, x0 = embed(model, img)
     if not use_attn_kernel:
-        _exact_only(matmul_precision, attn_precision, mlp_precision)
-        return _forward_acts(model, cat_x, x0)
-    if (megakernel_base(matmul_precision)
-            and prec.islands_exceed_base(matmul_precision, mlp_precision)):
-        raise NotImplementedError("an MLP precision above the base is "
-                                  "not ported yet (ROADMAP A3, other bases)")
-    mxu = _lite_mode(matmul_precision, block_kernel)
+        return _forward_acts(model, cat_x, x0, prec.Policy.resolve(
+            matmul_precision, attn_precision))
+    mxu = _lite_mode(matmul_precision, block_kernel, mlp_precision)
     attn_mxu = prec.mxu_name(attn_precision, matmul_precision)
     if mxu is None:
         return _forward_blocks(model, cat_x, x0, ops, matmul_precision,
@@ -398,13 +404,15 @@ def forward_collect(model: VisionTransformer, img: Tensor,
     x_ins, x_mids, outs = [], [], []
     for i, blk in enumerate(model.blocks):
         p = model.block_params(i, mxu)
-        qkv = kdot(_layernorm(x, blk.norm1), transpose(p.wqkv), mxu) + p.bqkv
+        qkv = (prec.product(_layernorm(x, blk.norm1), transpose(p.wqkv), mxu)
+               + p.bqkv)
         out_merged = ops.attn_fwd_core(qkv, cfg.num_heads, cfg.head_dim,
                                        scale, mxu=attn_mxu)
-        x_mid = x + (kdot(out_merged, transpose(p.wproj), mxu) + p.bproj)
-        hg = bm.gelu_exact(kdot(_layernorm(x_mid, blk.norm2),
-                                transpose(p.w1), mxu) + p.b1)
-        x_out = x_mid + (kdot(hg, transpose(p.w2), mxu) + p.b2)
+        x_mid = x + (prec.product(out_merged, transpose(p.wproj), mxu)
+                     + p.bproj)
+        hg = bm.gelu_exact(prec.product(_layernorm(x_mid, blk.norm2),
+                                        transpose(p.w1), mxu) + p.b1)
+        x_out = x_mid + (prec.product(hg, transpose(p.w2), mxu) + p.b2)
         x_ins.append(x)
         x_mids.append(x_mid)
         outs.append(out_merged)
@@ -413,16 +421,18 @@ def forward_collect(model: VisionTransformer, img: Tensor,
                                      None, None))
 
 
-def _tail(model: VisionTransformer, x: Tensor, res: Residuals):
-    """Final norm, CLS pool and head (a distilled model's two heads fused,
-    ``(head(cls) + head_dist(dist)) / 2``); fills ``x_final``, ``xn`` and
-    ``cls`` of ``res``."""
+def _tail(model: VisionTransformer, x: Tensor, res: Residuals,
+          mode: str = "float32"):
+    """Final norm, CLS pool and head in product ``mode`` (a distilled
+    model's two heads fused, ``(head(cls) + head_dist(dist)) / 2``); fills
+    ``x_final``, ``xn`` and ``cls`` of ``res``. The non-kernel branch runs
+    the head at its base, as JAX does; the kernel branch keeps it exact."""
     xn = _layernorm(x, model.norm)
     cls = xn[:, 0]
-    logits = _bias(_pre(cls, model.head), model.head)
+    logits = _bias(_pre(cls, model.head, mode), model.head)
     if model.cfg.distilled:
         hd = model.head_dist
-        logits = (logits + _bias(_pre(xn[:, 1], hd), hd)) / 2
+        logits = (logits + _bias(_pre(xn[:, 1], hd, mode), hd)) / 2
     return logits, res._replace(x_final=x, xn=xn, cls=cls)
 
 
@@ -467,52 +477,58 @@ class BlockActs(NamedTuple):
 
 
 def _block_acts(x_in: Tensor, blk: Block, cfg: ViTConfig,
-                x_mid: Optional[Tensor] = None
+                x_mid: Optional[Tensor] = None,
+                pol: prec.Policy = prec.EXACT
                 ) -> Tuple[Tensor, Tensor, BlockActs]:
-    """One block from its input, exact products (JAX ``vit._block_acts``);
-    returns ``(x_mid, x_out, acts)``. A given ``x_mid`` anchor feeds the MLP
-    half instead of the recomputed midpoint (JAX
-    ``_block_acts_from_anchors``)."""
+    """One block from its input (JAX ``vit._block_acts``): the scores and
+    P·V in ``pol.attn``, the Linear products at ``pol.base``; returns
+    ``(x_mid, x_out, acts)``. A given ``x_mid`` anchor feeds the MLP half
+    instead of the recomputed midpoint (JAX ``_block_acts_from_anchors``)."""
     qkv_l, proj = blk.attn.qkv, blk.attn.proj
+    base = pol.base
     xn1 = _layernorm(x_in, blk.norm1)
-    qkv = _bias(_pre(xn1, qkv_l), qkv_l)
+    qkv = _bias(_pre(xn1, qkv_l, base), qkv_l)
     q, k, v = bm.split_heads(qkv, cfg.num_heads, cfg.head_dim)
-    dots = q @ k.transpose(-1, -2)
+    dots = prec.product(q, k.transpose(-1, -2), pol.attn)
     attn = torch.softmax(dots * cfg.head_dim ** -0.5, dim=-1)
-    out_merged = bm.merge_heads(attn @ v)
-    attn_out = _pre(out_merged, proj) + proj.bias
+    out_merged = bm.merge_heads(prec.product(attn, v, pol.attn))
+    attn_out = _pre(out_merged, proj, base) + proj.bias
     if x_mid is None:
         x_mid = x_in + attn_out
     fc1, fc2 = blk.mlp.fc1, blk.mlp.fc2
     xn2 = _layernorm(x_mid, blk.norm2)
-    h1 = _pre(xn2, fc1) + fc1.bias
+    h1 = _pre(xn2, fc1, base) + fc1.bias
     hg = bm.gelu_exact(h1)
-    mlp_out = _pre(hg, fc2) + fc2.bias
+    mlp_out = _pre(hg, fc2, base) + fc2.bias
     return x_mid, x_mid + mlp_out, BlockActs(
         xn1, qkv, q, k, v, attn, out_merged, attn_out, xn2, h1, hg, mlp_out)
 
 
 def _block_acts_from_anchors(x_in: Tensor, x_mid: Tensor, blk: Block,
-                             cfg: ViTConfig) -> BlockActs:
+                             cfg: ViTConfig,
+                             pol: prec.Policy = prec.EXACT) -> BlockActs:
     """Every activation of a block recomputed from its two anchors, each by
-    the forward's own operations (JAX ``vit._block_acts_from_anchors``)."""
-    return _block_acts(x_in, blk, cfg, x_mid)[2]
+    the forward's own operations in the forward's modes (JAX
+    ``vit._block_acts_from_anchors``)."""
+    return _block_acts(x_in, blk, cfg, x_mid, pol)[2]
 
 
-def _forward_acts(model: VisionTransformer, cat_x: Tensor,
-                  x0: Tensor) -> Tuple[Tensor, Residuals]:
+def _forward_acts(model: VisionTransformer, cat_x: Tensor, x0: Tensor,
+                  pol: prec.Policy = prec.EXACT
+                  ) -> Tuple[Tensor, Residuals]:
     """The non-kernel forward (JAX ``forward_collect``'s checkpointed
     ``step``): block inputs, midpoints and post-softmax attention maps."""
     x = x0
     x_ins, x_mids, attns = [], [], []
     for blk in model.blocks:
-        x_mid, x_out, acts = _block_acts(x, blk, model.cfg)
+        x_mid, x_out, acts = _block_acts(x, blk, model.cfg, pol=pol)
         x_ins.append(x)
         x_mids.append(x_mid)
         attns.append(acts.attn)
         x = x_out
     return _tail(model, x, Residuals(x0, cat_x, x_ins, x_mids, None, x, None,
-                                     None, attns=torch.stack(attns, dim=1)))
+                                     None, attns=torch.stack(attns, dim=1)),
+                 pol.base)
 
 
 def train_forward(model: VisionTransformer, img: Tensor,
@@ -563,38 +579,49 @@ def _layernorm_bwd(g_y: Tensor, x: Tensor, ln: nn.LayerNorm) -> Tensor:
 
 
 def block_backward(g_out: Tensor, x_in: Tensor, x_mid: Tensor,
-                   acts: BlockActs, blk: Block, cfg: ViTConfig
+                   acts: BlockActs, blk: Block, cfg: ViTConfig,
+                   pol: prec.Policy = prec.EXACT
                    ) -> Tuple[Tensor, Tensor]:
     """Hand-written VJP of one block from its activations (JAX
     ``vit.block_backward``): ``(g_in, g_attn)``, ``g_attn (B, h, n, n)`` the
     cotangent of the post-softmax attention (the reference's
-    ``register_hook`` gradient)."""
+    ``register_hook`` gradient). The attention chain's products run in
+    ``pol.attn``, the Linear gradients at ``pol.base``."""
     h, hd = cfg.num_heads, cfg.head_dim
-    g_h1 = (g_out @ blk.mlp.fc2.weight) * bm.gelu_grad(acts.h1)
-    g_mid = g_out + _layernorm_bwd(g_h1 @ blk.mlp.fc1.weight, x_mid,
-                                   blk.norm2)
-    g_o = bm.to_heads(g_mid @ blk.attn.proj.weight, h, hd)
-    g_attn = g_o @ acts.v.transpose(-1, -2)
-    g_v = acts.attn.transpose(-1, -2) @ g_o
+    base, ap = pol.base, pol.attn
+
+    def mm(a, b, mode):
+        return prec.product(a, b, mode)
+
+    g_h1 = mm(g_out, blk.mlp.fc2.weight, base) * bm.gelu_grad(acts.h1)
+    g_mid = g_out + _layernorm_bwd(mm(g_h1, blk.mlp.fc1.weight, base),
+                                   x_mid, blk.norm2)
+    g_o = bm.to_heads(mm(g_mid, blk.attn.proj.weight, base), h, hd)
+    g_attn = mm(g_o, acts.v.transpose(-1, -2), ap)
+    g_v = mm(acts.attn.transpose(-1, -2), g_o, ap)
     inner = (g_attn * acts.attn).sum(dim=-1, keepdim=True)
     g_dots = acts.attn * (g_attn - inner) * hd ** -0.5
-    g_qkv = bm.merge3(g_dots @ acts.k, g_dots.transpose(-1, -2) @ acts.q,
-                      g_v)
-    g_in = g_mid + _layernorm_bwd(g_qkv @ blk.attn.qkv.weight, x_in,
-                                  blk.norm1)
+    g_qkv = bm.merge3(mm(g_dots, acts.k, ap),
+                      mm(g_dots.transpose(-1, -2), acts.q, ap), g_v)
+    g_in = g_mid + _layernorm_bwd(mm(g_qkv, blk.attn.qkv.weight, base),
+                                  x_in, blk.norm1)
     return g_in, g_attn
 
 
 def block_relprop(R: Tensor, x_in: Tensor, x_mid: Tensor, blk: Block,
                   cfg: ViTConfig, alpha: float = 1.0, variant: str = "ours",
-                  acts: Optional[BlockActs] = None
+                  acts: Optional[BlockActs] = None,
+                  pol: prec.Policy = prec.EXACT
                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """LRP through one block in reverse order (JAX ``vit.block_relprop``,
-    exact products): ``(R_in, attn_cam (B, h, n, n), v_cam (B, h, n, hd))``.
-    The activations are recomputed from the two anchors unless ``acts`` is
-    given."""
+    """LRP through one block in reverse order (JAX ``vit.block_relprop``):
+    ``(R_in, attn_cam (B, h, n, n), v_cam (B, h, n, hd))``, every rule
+    product in ``pol.rule``. The activations are recomputed from the two
+    anchors unless ``acts`` is given, in the forward's modes (JAX
+    recomputes them outside the rule context, so the rules' linearisation
+    points are the forward's)."""
     if acts is None:
-        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg)
+        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg, pol)
+    rule = pol.rule
     qkv_l, proj = blk.attn.qkv, blk.attn.proj
     fc1, fc2 = blk.mlp.fc1, blk.mlp.fc2
     # the forward's pre-bias products from the activations, as JAX forms
@@ -604,35 +631,43 @@ def block_relprop(R: Tensor, x_in: Tensor, x_mid: Tensor, blk: Block,
     # add2 -> fc2 -> fc1 -> clone
     R1, R2 = rp.add_relprop(x_mid, acts.mlp_out, R, variant)
     R2 = rp.linear_alphabeta(acts.hg, fc2.weight.t(), R2, alpha, variant,
-                             y_pre=acts.mlp_out - fc2.bias)
+                             y_pre=acts.mlp_out - fc2.bias, mode=rule)
     R2 = rp.linear_alphabeta(acts.xn2, fc1.weight.t(), R2, alpha, variant,
-                             y_pre=acts.h1 - fc1.bias)
+                             y_pre=acts.h1 - fc1.bias, mode=rule)
     Rm = rp.clone_relprop(x_mid, [R1, R2])
 
     # add1 (Z = the stored x_mid) -> proj -> attention -> qkv -> clone
     R1, R2 = rp.add_relprop(x_in, acts.attn_out, Rm, variant, Z=x_mid)
     R2 = rp.linear_alphabeta(acts.out_merged, proj.weight.t(), R2, alpha,
-                             variant, y_pre=acts.attn_out - proj.bias)
+                             variant, y_pre=acts.attn_out - proj.bias,
+                             mode=rule)
     cam = bm.to_heads(R2, cfg.num_heads, cfg.head_dim)
-    cam1, cam_v = rp.einsum_av_relprop(acts.attn, acts.v, cam)
+    cam1, cam_v = rp.einsum_av_relprop(acts.attn, acts.v, cam, rule)
     cam1, cam_v = cam1 / 2, cam_v / 2
-    cam_q, cam_k = rp.einsum_qk_relprop(acts.q, acts.k, cam1)
+    cam_q, cam_k = rp.einsum_qk_relprop(acts.q, acts.k, cam1, rule)
     cam_qkv = bm.merge3(cam_q / 2, cam_k / 2, cam_v)
     R2 = rp.linear_alphabeta(acts.xn1, qkv_l.weight.t(), cam_qkv, alpha,
-                             variant, y_pre=qkv_pre)
+                             variant, y_pre=qkv_pre, mode=rule)
     return rp.clone_relprop(x_in, [R1, R2]), cam1, cam_v
 
 
 def relprop(model: VisionTransformer, res: Residuals, R_logits: Tensor,
-            alpha: float = 1.0, variant: str = "ours"
+            alpha: float = 1.0, variant: str = "ours",
+            matmul_precision: str = "float32",
+            relprop_precision: Optional[str] = None,
+            attn_precision: Optional[str] = None
             ) -> Tuple[Tensor, Tensor]:
     """Relevance from ``R_logits (B, num_classes)`` through the head, the
     pool, the final norm and the blocks (JAX ``vit.relprop``): the
-    non-kernel reverse without gradients. Returns ``(R_tokens, attn_cams
-    (B, L, h, n, n))``; ``res`` from the non-kernel forward."""
+    non-kernel reverse without gradients, at the base and islands JAX's
+    ambient ``default_matmul_precision`` would give it (exact by default).
+    Returns ``(R_tokens, attn_cams (B, L, h, n, n))``; ``res`` from the
+    non-kernel forward."""
     R_tokens, attn_cams, _ = reverse_pass(
         model, res, R_logits, alpha, variant, need_grads=False,
-        fuse_grad_cam=False, use_attn_kernel=False)
+        fuse_grad_cam=False, use_attn_kernel=False,
+        matmul_precision=matmul_precision,
+        relprop_precision=relprop_precision, attn_precision=attn_precision)
     return R_tokens, attn_cams
 
 
@@ -648,13 +683,15 @@ def _trunk_stats(g: Tensor, R: Tensor) -> Tensor:
 
 
 def _seeds(model: VisionTransformer, res: Residuals, onehot: Tensor,
-           alpha: float, variant: str, need_grads: bool, need_relprop: bool
+           alpha: float, variant: str, need_grads: bool, need_relprop: bool,
+           mode: str = "float32"
            ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
     """The reverse's seeds at the last block's output (JAX
     ``vit.reverse_pass``): the class gradient through the head(s), the
     pooled rows and the final LayerNorm, and the relevance through the head
-    rule(s) and the pooling (the final norm is an identity rule). A
-    distilled model's logits are ``(head(cls) + head_dist(dist)) / 2``: the
+    rule(s) and the pooling (the final norm is an identity rule), every
+    product at the base ``mode`` (JAX forms the seeds outside the rule
+    island). A distilled model's logits are ``(head(cls) + head_dist(dist)) / 2``: the
     gradient reaches rows 0 and 1, each ``onehot @ W / 2``; the relevance
     splits between the two heads by the add rule (the /2 is an identity
     rule) and each head's rule puts its share on its own row."""
@@ -663,26 +700,27 @@ def _seeds(model: VisionTransformer, res: Residuals, onehot: Tensor,
     if need_grads:
         g_xn = torch.zeros_like(res.xn)
         if model.cfg.distilled:
-            g_xn[:, 0] = onehot @ head.weight / 2
-            g_xn[:, 1] = onehot @ model.head_dist.weight / 2
+            g_xn[:, 0] = prec.product(onehot, head.weight, mode) / 2
+            g_xn[:, 1] = prec.product(onehot, model.head_dist.weight,
+                                      mode) / 2
         else:
-            g_xn[:, 0] = onehot @ head.weight
+            g_xn[:, 0] = prec.product(onehot, head.weight, mode)
         g = _layernorm_bwd(g_xn, res.x_final, model.norm)
     if need_relprop:
         if model.cfg.distilled:
             hdist = model.head_dist
             x_cls, x_dist = res.xn[:, 0], res.xn[:, 1]
-            R1, R2 = rp.add_relprop(_bias(_pre(x_cls, head), head),
-                                    _bias(_pre(x_dist, hdist), hdist),
+            R1, R2 = rp.add_relprop(_bias(_pre(x_cls, head, mode), head),
+                                    _bias(_pre(x_dist, hdist, mode), hdist),
                                     onehot, variant)
             R = torch.zeros_like(res.xn)
             R[:, 0] = rp.linear_alphabeta(x_cls, head.weight.t(), R1, alpha,
-                                          variant)
+                                          variant, mode=mode)
             R[:, 1] = rp.linear_alphabeta(x_dist, hdist.weight.t(), R2,
-                                          alpha, variant)
+                                          alpha, variant, mode=mode)
         else:
             R_cls = rp.linear_alphabeta(res.cls, head.weight.t(), onehot,
-                                        alpha, variant)
+                                        alpha, variant, mode=mode)
             R = rp.index_select_relprop(res.xn, 1, 0, R_cls[:, None, :])
     return g, R
 
@@ -711,8 +749,11 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
     ``ours`` at α=1): ``kstep`` with the plain MLP arm at float32, with
     ``mlp_rev_core`` at bfloat16 when ``block_kernel`` is off, else
     ``kstep_block``. Without: the plain ``step`` over the recomputed
-    activations, exact products only. ``mlp_precision`` is the MLP's
-    reverse-side products' (the generator's ``mlp_bwd_precision``).
+    activations, in the modes of the branch's policy (the seeds at the
+    base, the attention chain in the attention island's mode, the rules in
+    the rule island's). ``mlp_precision`` is the MLP's reverse-side
+    products' (the generator's ``mlp_bwd_precision``) on the kernel
+    branch; the non-kernel branch runs the MLP at the base, as JAX does.
 
     Returns ``(R_tokens (B, n, D), gc (B, L, n, n), None)`` with
     ``fuse_grad_cam``: the relevance at the block-0 input and, per block, the
@@ -726,26 +767,24 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
         raise ValueError("fuse_grad_cam needs both passes")
     if with_trunk_stats and not fuse_grad_cam:
         raise ValueError("trunk stats are taken by the fused reverse only")
-    g, R = _seeds(model, res, onehot, alpha, variant, need_grads,
-                  need_relprop)
     trunk = [None] * cfg.depth if with_trunk_stats else None
 
     if not use_attn_kernel:
-        _exact_only(matmul_precision, relprop_precision, attn_precision,
-                    mlp_precision)
+        pol = prec.Policy.resolve(matmul_precision, attn_precision,
+                                  relprop_precision)
+        g, R = _seeds(model, res, onehot, alpha, variant, need_grads,
+                      need_relprop, pol.base)
         return _reverse_acts(model, res, g, R, alpha, variant, need_grads,
-                             need_relprop, fuse_grad_cam, trunk)
+                             need_relprop, fuse_grad_cam, trunk, pol)
     if not (fuse_grad_cam and variant == "ours" and alpha == 1.0):
         raise NotImplementedError(
             "the kernel branch runs the fused method with variant 'ours' at "
             "alpha 1; the others take use_attn_kernel=False")
-    if (megakernel_base(matmul_precision)
-            and prec.islands_exceed_base(matmul_precision, relprop_precision,
-                                         mlp_precision)):
-        raise NotImplementedError("the block kernels run islands at or "
-                                  "below the base (ROADMAP A3, other bases)")
+    g, R = _seeds(model, res, onehot, alpha, variant, need_grads,
+                  need_relprop)
     gcs = [None] * cfg.depth
-    mxu = _lite_mode(matmul_precision, block_kernel)
+    mxu = _lite_mode(matmul_precision, block_kernel, relprop_precision,
+                     mlp_precision)
     attn_mxu = prec.mxu_name(attn_precision, matmul_precision)
     rule_mxu = prec.mxu_name(relprop_precision, matmul_precision)
     if mxu is None:
@@ -774,8 +813,8 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
 
         # recompute (the same ops as the forward)
         xn1 = _layernorm(x_in, blk.norm1)
-        qkv_pre = kdot(xn1, transpose(p.wqkv), mxu)
-        proj_pre = kdot(out_merged, transpose(p.wproj), mxu)
+        qkv_pre = prec.product(xn1, transpose(p.wqkv), mxu)
+        proj_pre = prec.product(out_merged, transpose(p.wproj), mxu)
         if mxu == "float32":
             g_mid, Rm = bm.mlp_rev_math(x_mid, g, R, p, eps=cfg.block_ln_eps,
                                         mxu=mxu, rule_mxu=rule_mxu)
@@ -783,7 +822,7 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
             g_mid, Rm = ops.mlp_rev_core(x_mid, g, R, p, cfg.block_ln_eps,
                                          mlp_mxu, rule_mxu)
 
-        g_om = kdot(g_mid, p.wproj, mxu)
+        g_om = prec.product(g_mid, p.wproj, mxu)
         Ra1, Ra2 = rp.add_relprop(x_in, proj_pre + p.bproj, Rm, Z=x_mid)
         cam_o = bm.linear_rule_math(out_merged, p.wproj, Ra2, proj_pre,
                                     rule_mxu)
@@ -791,7 +830,8 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
             qkv_pre + p.bqkv, g_om, cam_o, cfg.num_heads, cfg.head_dim,
             scale, attn_mxu=attn_mxu, rule_mxu=rule_mxu)
 
-        g = g_mid + _layernorm_bwd(kdot(g_qkv, p.wqkv, mxu), x_in, blk.norm1)
+        g = g_mid + _layernorm_bwd(prec.product(g_qkv, p.wqkv, mxu), x_in,
+                                   blk.norm1)
         Rq = bm.linear_rule_math(xn1, p.wqkv, cam_qkv, qkv_pre, rule_mxu)
         R = rp.clone_relprop(x_in, [Ra1, Rq])
         if trunk is not None:
@@ -802,20 +842,22 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
 def _reverse_acts(model: VisionTransformer, res: Residuals,
                   g: Optional[Tensor], R: Optional[Tensor], alpha: float,
                   variant: str, need_grads: bool, need_relprop: bool,
-                  fuse_grad_cam: bool, trunk: Optional[List[Tensor]] = None):
-    """The non-kernel reverse (JAX ``reverse_pass``'s plain ``step``);
-    ``trunk`` (a list of L, fused only) receives each step's
-    :func:`_trunk_stats`."""
+                  fuse_grad_cam: bool, trunk: Optional[List[Tensor]] = None,
+                  pol: prec.Policy = prec.EXACT):
+    """The non-kernel reverse (JAX ``reverse_pass``'s plain ``step``) in
+    the modes of ``pol``; ``trunk`` (a list of L, fused only) receives each
+    step's :func:`_trunk_stats`."""
     cfg = model.cfg
     cams, grads = [None] * cfg.depth, [None] * cfg.depth
     for li in reversed(range(cfg.depth)):
         blk, x_in, x_mid = model.blocks[li], res.x_ins[li], res.x_mids[li]
-        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg)
+        acts = _block_acts_from_anchors(x_in, x_mid, blk, cfg, pol)
         if need_grads:
-            g, grads[li] = block_backward(g, x_in, x_mid, acts, blk, cfg)
+            g, grads[li] = block_backward(g, x_in, x_mid, acts, blk, cfg,
+                                          pol)
         if need_relprop:
             R, cams[li], _ = block_relprop(R, x_in, x_mid, blk, cfg, alpha,
-                                           variant, acts)
+                                           variant, acts, pol)
         if fuse_grad_cam:
             cams[li] = (grads[li] * cams[li]).clamp(min=0).mean(dim=1)
             if trunk is not None:
@@ -828,18 +870,20 @@ def _reverse_acts(model: VisionTransformer, res: Residuals,
 
 def full_lrp_input_relevance(model: VisionTransformer, res: Residuals,
                              R_tokens: Tensor, img: Tensor,
-                             variant: str = "ours") -> Tensor:
+                             variant: str = "ours",
+                             matmul_precision: str = "float32") -> Tensor:
     """Relevance continued to the pixels (JAX
     ``vit.full_lrp_input_relevance``, method ``full``): the pos-embed add,
-    the CLS (and DIST) rows dropped, the patch conv's z^B rule, the channel
-    sum.
+    the CLS (and DIST) rows dropped, the patch conv's z^B rule with its
+    products at the base, the channel sum.
     Returns ``(B, H, W)``."""
     cfg = model.cfg
     Rx, _ = rp.add_relprop(res.cat_x, model.pos_embed.expand_as(res.cat_x),
                            R_tokens, variant)
     w = model.patch_embed.proj.weight.reshape(cfg.embed_dim, -1).t()
     cam = rp.conv_patch_zB_relprop(img, w, Rx[:, cfg.num_prefix_tokens:],
-                                   cfg.patch_size)
+                                   cfg.patch_size,
+                                   prec.mxu_name(matmul_precision))
     return cam.sum(dim=1)
 
 

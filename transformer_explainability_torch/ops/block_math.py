@@ -14,7 +14,9 @@ names its counterpart), with a leading batch dimension written out:
 These are the CPU path of the wrappers in :mod:`.kernels` and the oracle
 the CUDA kernels ``csrc/block_fwd.cu`` and ``csrc/block_rev.cu`` are held
 to. Every product goes through :func:`.precision.kdot` in the mode the
-caller names; weights are the prepared splits of :class:`BlockParams`.
+caller names (:func:`.precision.product` in the MLP half and the linear
+rule, which the plain paths share); weights are the prepared splits of
+:class:`BlockParams`.
 The rules are variant ``ours`` at α=1, the only ones the megakernels run.
 """
 
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from transformer_explainability_torch.ops.precision import (
-    kabs, kdot, transpose)
+    kabs, kdot, product, transpose)
 from transformer_explainability_torch.ops.relprop import safe_divide
 
 Tensor = torch.Tensor
@@ -111,9 +113,9 @@ def linear_rule_math(x: Tensor, w: Prepared, R: Tensor, y_pre: Tensor,
     ``y_pre = x @ wᵀ`` (``w`` in the ``(out, in)`` layout)."""
     ax = x.abs()
     aw = kabs(w)
-    axw = kdot(ax, transpose(aw), rule_mxu)
+    axw = product(ax, transpose(aw), rule_mxu)
     S = safe_divide(R, 0.5 * (y_pre + axw))
-    return 0.5 * (x * kdot(S, w, rule_mxu) + ax * kdot(S, aw, rule_mxu))
+    return 0.5 * (x * product(S, w, rule_mxu) + ax * product(S, aw, rule_mxu))
 
 
 def split_heads(qkv: Tensor, num_heads: int, head_dim: int):
@@ -153,15 +155,15 @@ def mlp_rev_math(x_mid, g_out, R, p: BlockParams, *, eps: float, mxu: str,
     if saved_mlp is not None:
         fc1_pre, fc2_pre = saved_mlp
     else:
-        fc1_pre = kdot(xn2, transpose(p.w1), mmx)
+        fc1_pre = product(xn2, transpose(p.w1), mmx)
     h1 = fc1_pre + p.b1
     hg = gelu_exact(h1)
     if saved_mlp is None:
-        fc2_pre = kdot(hg, transpose(p.w2), mmx)
+        fc2_pre = product(hg, transpose(p.w2), mmx)
     mlp_out = fc2_pre + p.b2
 
-    g_h1 = kdot(g_out, p.w2, mmx) * gelu_grad(h1)
-    g_xn2 = kdot(g_h1, p.w1, mmx)
+    g_h1 = product(g_out, p.w2, mmx) * gelu_grad(h1)
+    g_xn2 = product(g_h1, p.w1, mmx)
     g_mid = g_out + ln_bwd(g_xn2, x_mid, mu, inv, p.ln2s)
 
     Ca, Cb = add_rule_math(x_mid, mlp_out, R)

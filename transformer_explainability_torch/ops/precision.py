@@ -28,7 +28,8 @@ operands bit for bit.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -180,6 +181,51 @@ class _ModedProduct(torch.autograd.Function):
         return ga, gb, None
 
 
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """The product mode of each part of a plain explain program, as JAX's
+    lowered program gives it: ``base`` for every product no island names
+    (JAX's ambient ``default_matmul_precision``), ``attn`` for the
+    attention products (the scores, P·V and their backward), ``rule`` for
+    the LRP rules' products inside a block. Each is a product mode of
+    :data:`MODES`; :meth:`resolve` maps the explain arguments to them as
+    JAX's ``_mxu_name`` does. The default is exact FP32 in every part. The
+    plain paths take no MLP mode: JAX's non-kernel blocks run the MLP at
+    the base."""
+    base: str = "float32"
+    attn: str = "float32"
+    rule: str = "float32"
+
+    @classmethod
+    def resolve(cls, matmul_precision: str = "float32",
+                attn_precision: Optional[str] = None,
+                relprop_precision: Optional[str] = None) -> "Policy":
+        """Each island's mode, or the base's where it is None."""
+        base = mxu_name(matmul_precision)
+        return cls(base, mxu_name(attn_precision, base),
+                   mxu_name(relprop_precision, base))
+
+
+EXACT = Policy()
+
+# Test-only: when set, every :func:`product` calls it with ``(a, b, mode)``
+# and runs the product in the mode it returns (the CPU tests record each
+# product's shapes and mode, or turn every rounding off).
+product_hook: Optional[Callable[[Tensor, Tensor, str], str]] = None
+
+
+def product(a: Tensor, b: Tensor, mode: str) -> Tensor:
+    """``a @ b`` of tensors in product ``mode``, the one product of the
+    plain paths (the products outside the kernels): ``a @ b`` itself for
+    ``"float32"``, else :func:`kdot`. ``b`` may be broadcast against
+    ``a``, as ``@`` broadcasts."""
+    if product_hook is not None:
+        mode = product_hook(a, b, mode)
+    if mode == "float32":
+        return a @ b
+    return kdot(a, b, mode)
+
+
 def pmatmul(a: Tensor, b: Tensor, mode: str) -> Tensor:
     """``a @ b`` under autograd in product mode ``mode`` (JAX's ambient
     ``default_matmul_precision`` for a differentiated program): the exact
@@ -196,4 +242,5 @@ def pmatmul(a: Tensor, b: Tensor, mode: str) -> Tensor:
 
 __all__ = ["MODES", "mxu_name", "islands_exceed_base", "bf16_head",
            "split_hi_lo", "kabs", "transpose", "PreparedWeight",
-           "prepare_weight", "kdot", "pmatmul"]
+           "prepare_weight", "kdot", "Policy", "EXACT", "product",
+           "pmatmul"]

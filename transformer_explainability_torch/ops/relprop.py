@@ -16,7 +16,10 @@ names its counterpart). The JAX rules are per example and batch through
     conv rules take ``(B, C, H, W)`` images (the pixel bounds are per
     sample).
 
-Identity-rule ops (softmax, LayerNorm, GELU) need no function.
+Identity-rule ops (softmax, LayerNorm, GELU) need no function. The rules
+with products take a product ``mode`` (:func:`..ops.precision.product`):
+the JAX rules follow the ambient ``default_matmul_precision``, which the
+explain programs set to the rule island's; the default is exact.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+
+from transformer_explainability_torch.ops.precision import product
 
 EPS = 1e-9
 
@@ -126,32 +131,35 @@ def index_select_relprop(x: Tensor, axis: int,
     return x * C
 
 
-def einsum_qk_relprop(q: Tensor, k: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
+def einsum_qk_relprop(q: Tensor, k: Tensor, R: Tensor,
+                      mode: str = "float32") -> Tuple[Tensor, Tensor]:
     """z-rule through ``A = Q Kᵀ`` (JAX ``relprop.einsum_qk_relprop``);
     q, k are ``(..., i, d)``, R is ``(..., i, j)``."""
-    Z = q @ k.transpose(-1, -2)
+    Z = product(q, k.transpose(-1, -2), mode)
     S = safe_divide(R, Z)
-    Cq = S @ k
-    Ck = S.transpose(-1, -2) @ q
+    Cq = product(S, k, mode)
+    Ck = product(S.transpose(-1, -2), q, mode)
     return q * Cq, k * Ck
 
 
-def einsum_av_relprop(attn: Tensor, v: Tensor,
-                      R: Tensor) -> Tuple[Tensor, Tensor]:
+def einsum_av_relprop(attn: Tensor, v: Tensor, R: Tensor,
+                      mode: str = "float32") -> Tuple[Tensor, Tensor]:
     """z-rule through ``out = A V`` (JAX ``relprop.einsum_av_relprop``);
     attn is ``(..., i, j)``, v ``(..., j, d)``, R ``(..., i, d)``."""
-    Z = attn @ v
+    Z = product(attn, v, mode)
     S = safe_divide(R, Z)
-    Ca = S @ v.transpose(-1, -2)
-    Cv = attn.transpose(-1, -2) @ S
+    Ca = product(S, v.transpose(-1, -2), mode)
+    Cv = product(attn.transpose(-1, -2), S, mode)
     return attn * Ca, v * Cv
 
 
-def matmul_relprop(a: Tensor, b: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
+def matmul_relprop(a: Tensor, b: Tensor, R: Tensor,
+                   mode: str = "float32") -> Tuple[Tensor, Tensor]:
     """z-rule through a batched matmul ``(..., i, k) @ (..., k, j)`` (JAX
     ``relprop.matmul_relprop``)."""
-    S = safe_divide(R, a @ b)
-    return a * (S @ b.transpose(-1, -2)), b * (a.transpose(-1, -2) @ S)
+    S = safe_divide(R, product(a, b, mode))
+    return (a * product(S, b.transpose(-1, -2), mode),
+            b * product(a.transpose(-1, -2), S, mode))
 
 
 def mul_relprop(a: Tensor, b: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
@@ -163,7 +171,8 @@ def mul_relprop(a: Tensor, b: Tensor, R: Tensor) -> Tuple[Tensor, Tensor]:
 
 def linear_alphabeta(x: Tensor, w: Tensor, R: Tensor, alpha: float = 1.0,
                      variant: str = "ours",
-                     y_pre: Optional[Tensor] = None) -> Tensor:
+                     y_pre: Optional[Tensor] = None,
+                     mode: str = "float32") -> Tensor:
     """α-β LRP rule for ``y = x @ w`` (JAX ``relprop.linear_alphabeta``).
 
     ``w`` is ``(in, out)`` as in the JAX package (pass ``weight.t()`` of an
@@ -173,19 +182,23 @@ def linear_alphabeta(x: Tensor, w: Tensor, R: Tensor, alpha: float = 1.0,
     it, saves one product. ``variant="lrp"`` uses separate denominators.
     """
     beta = alpha - 1.0
+
+    def mm(a, b):
+        return product(a, b, mode)
+
     if variant == "ours":
         ax = x.abs()
         aw = w.abs()
-        xw = x @ w if y_pre is None else y_pre
-        axw = ax @ aw
+        xw = mm(x, w) if y_pre is None else y_pre
+        axw = mm(ax, aw)
         Z = 0.5 * (xw + axw)
         S = safe_divide(R, Z)
-        act = 0.5 * (x * (S @ w.t()) + ax * (S @ aw.t()))
+        act = 0.5 * (x * mm(S, w.t()) + ax * mm(S, aw.t()))
         if beta == 0.0:
             return alpha * act
         Zi = 0.5 * (xw - axw)
         Si = safe_divide(R, Zi)
-        inh = 0.5 * (x * (Si @ w.t()) - ax * (Si @ aw.t()))
+        inh = 0.5 * (x * mm(Si, w.t()) - ax * mm(Si, aw.t()))
         return alpha * act - beta * inh
     if variant != "lrp":
         raise ValueError(f"unknown variant {variant!r}")
@@ -196,9 +209,9 @@ def linear_alphabeta(x: Tensor, w: Tensor, R: Tensor, alpha: float = 1.0,
     nx = x.clamp(max=0.0)
 
     def f(w1, w2, x1, x2):
-        S1 = safe_divide(R, x1 @ w1)
-        S2 = safe_divide(R, x2 @ w2)
-        return x1 * (S1 @ w1.t()) + x2 * (S2 @ w2.t())
+        S1 = safe_divide(R, mm(x1, w1))
+        S2 = safe_divide(R, mm(x2, w2))
+        return x1 * mm(S1, w1.t()) + x2 * mm(S2, w2.t())
 
     activator = f(pw, nw, px, nx)
     if beta == 0.0:
@@ -239,7 +252,7 @@ def unpatchify(x: Tensor, patch: int, c: int, h: int, w: int) -> Tensor:
 
 
 def conv_patch_zB_relprop(img: Tensor, w: Tensor, R: Tensor,
-                          patch: int) -> Tensor:
+                          patch: int, mode: str = "float32") -> Tensor:
     """z^B rule through the patch-embedding conv down to pixels bounded by
     each image's own min and max (JAX ``relprop.conv_patch_zB_relprop``).
     ``img (B, C, H, W)``; ``w (C*patch*patch, D)`` in the :func:`patchify`
@@ -254,9 +267,12 @@ def conv_patch_zB_relprop(img: Tensor, w: Tensor, R: Tensor,
     X = patchify(img, patch)
     L = lo.expand_as(X)
     H = hi.expand_as(X)
-    Za = X @ w - L @ pw - H @ nw + EPS
+    def mm(a, b):
+        return product(a, b, mode)
+
+    Za = mm(X, w) - mm(L, pw) - mm(H, nw) + EPS
     S = R / Za
-    C = X * (S @ w.t()) - L * (S @ pw.t()) - H * (S @ nw.t())
+    C = X * mm(S, w.t()) - L * mm(S, pw.t()) - H * mm(S, nw.t())
     return unpatchify(C, patch, c, h, wd)
 
 
@@ -286,7 +302,8 @@ def conv_patch_alphabeta_relprop(img: Tensor, w: Tensor, R: Tensor,
 
 
 def compute_rollout(cams: Tensor, start_layer: int = 0,
-                    row_normalize: bool = False) -> Tensor:
+                    row_normalize: bool = False,
+                    mode: str = "float32") -> Tensor:
     """Rollout chain ``Π_{i=L-1..start} (cams_i + I)`` (JAX
     ``relprop.compute_rollout``); cams is ``(..., L, n, n)``."""
     L, n = cams.shape[-3], cams.shape[-1]
@@ -296,7 +313,7 @@ def compute_rollout(cams: Tensor, start_layer: int = 0,
         mats = mats / mats.sum(dim=-1, keepdim=True)
     joint = mats[..., start_layer, :, :]
     for i in range(start_layer + 1, L):
-        joint = mats[..., i, :, :] @ joint
+        joint = product(mats[..., i, :, :], joint, mode)
     return joint
 
 

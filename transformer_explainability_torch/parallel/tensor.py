@@ -243,7 +243,9 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
     the kernels or, for a reference run, their plain versions.
 
     Raises as the JAX gates do: another method, variant or α, or a
-    precision combination the kernels do not run, ``NotImplementedError``;
+    precision combination the kernels do not run, ``NotImplementedError``
+    (islands on the float32 base or above the base too: JAX's TP islands
+    are not ported, ROADMAP A8);
     heads or MLP width not divisible by the group's size, ``ValueError``.
     """
     if method not in FUSED_METHODS:
@@ -257,6 +259,16 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
             "the tensor-parallel program runs variant 'ours' at alpha 1, as "
             "the JAX one does; the others run on one device or over the data "
             "axis (ROADMAP A8, parallel paths)")
+    if ((matmul_precision == "float32"
+         and (relprop_precision, attn_precision, mlp_precision)
+         != (None, None, None))
+            or prec.islands_exceed_base(matmul_precision, relprop_precision,
+                                        mlp_precision)):
+        raise NotImplementedError(
+            "the tensor-parallel program runs the presets' islands; islands "
+            "on the float32 base and islands above the base (JAX's TP "
+            "islands, parallel/tensor.py) are not ported (ROADMAP A8, "
+            "parallel paths)")
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision)
     k, _ = _group_shape(group)

@@ -103,10 +103,10 @@ def check_explain_supported(cfg: BertConfig, method: str,
                             matmul_precision: str) -> None:
     """Raise, before any work, for an explain stage the port does not run:
     an unknown method, or a method and precision that have no path on the
-    card (``tensorfloat32``'s rules, which JAX runs at bf16×3, have no
-    kernel mode: ROADMAP B, raw tensorfloat32; a method off the kernel
-    path at a reduced base: ROADMAP A3, other bases). The CPU takes the
-    same paths, so it raises alike."""
+    card (``transformer_attribution``'s rules at ``tensorfloat32``, which
+    JAX runs at bf16×3 in its layer kernels, have no kernel mode: ROADMAP
+    B, raw tensorfloat32). The CPU takes the same paths, so it raises
+    alike."""
     if method not in METHOD_TABLE:
         raise ValueError(f"unknown method {method!r}; available: "
                          f"{sorted(METHOD_TABLE)}")
@@ -560,9 +560,12 @@ def main(argv=None):
                         choices=["float32", "tensorfloat32", "bfloat16"],
                         help="explain-stage precision: float32 is exact "
                              "FP32 (plain layers + the rollout kernel), "
-                             "bfloat16 the BERT layer kernels; "
-                             "tensorfloat32 raises (no kernel mode for its "
-                             "bf16x3 rules yet)")
+                             "bfloat16 the BERT layer kernels for "
+                             "transformer_attribution and the plain layers "
+                             "in bf16 for the other methods; tensorfloat32 "
+                             "runs the other methods and raises for "
+                             "transformer_attribution (no kernel mode for "
+                             "its bf16x3 rules yet)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     with open(args.model_params) as f:
