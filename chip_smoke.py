@@ -1190,6 +1190,444 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
     return launches
 
 
+# the bf16×3 ("tensorfloat32") instances of B2-B5 (A3b). B5's (attention,
+# rule) pairs with a bf16×3 product (with the four that predate them, the
+# nine the float32 base's islands reach); the block presets (mxu, attn_mxu,
+# rule_mxu, mlp_mxu) that reach B2's bf16×3 attention core and B3's four
+# new pairs: raw tensorfloat32 (B3 bf16×3 / bf16×3), the bfloat16 base
+# with a tensorfloat32 attention island (bf16×3 / bf16) and the
+# tensorfloat32 base with a float32 or bfloat16 attention island (float32
+# or bf16 / bf16×3)
+TF32 = "tensorfloat32"
+TF32_B5_PAIRS = (("float32", TF32), ("bfloat16", TF32), (TF32, TF32),
+                 (TF32, "float32"), (TF32, "bfloat16"))
+TF32_BLOCK_MODES = {"tensorfloat32": (TF32, TF32, TF32, None),
+                    "bf16-tf32-attn": ("bfloat16", TF32, "bfloat16", None),
+                    "tf32-f32-attn": (TF32, "float32", TF32, None),
+                    "tf32-bf16-attn": (TF32, "bfloat16", TF32, None)}
+# the float32 checks of the new instances hold the kernel as one more
+# float32 draw: its error against the float64 plain version may be
+# F32_FACTOR times the largest of the plain float32 version's on the inputs
+# as they are and on DRAWS copies with every element moved one float32 ulp
+# (seeded), plus F32_FLOOR of the output's magnitude. An operand one ulp
+# from a bf16 tie (the mixed pairs' bf16 rule products) or an
+# ill-conditioned divide makes any one float32 run a draw (C4): on the
+# emulator B5's bf16×3 outputs at n = 133 ran 3-60 times the plain float32
+# version's error as it is, and inside its draws'
+DRAWS = 4
+# C5 (step 0 of A3b): B6's Rm, the output that missed the 2-norm rule at
+# ViT-L widths, over C5_SEEDS draws of the inputs in each (MLP, rule) pair,
+# beside the plain float32 version on DRAWS ulp-moved copies of each draw
+# (repaired in csrc/gemm.cuh: the bf16x3 MLP products' chains are summed a
+# k-step at a time, kBf16x3Rn)
+C5_SEEDS = 16
+C5_PAIRS = {"tf32/bf16": (TF32, "bfloat16"), "tf32/tf32": (TF32, TF32)}
+
+
+def ulp_moved_tensor(t, gen):
+    """``t`` with every element moved one float32 ulp up or down at random
+    (``gen`` on ``t``'s device)."""
+    import torch
+    inf = torch.tensor(float("inf"), device=t.device)
+    up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+    return torch.where(up, torch.nextafter(t, inf), torch.nextafter(t, -inf))
+
+
+def drawn_f32_rule(label, k32, plain, args32, p64, names, seed):
+    """The new instances' float32 rule (DRAWS): ``k32`` the kernel's float32
+    outputs, ``p64`` the plain float64 version's, ``plain(*a)`` the plain
+    version on float32 tensors ``a`` (``args32`` as they are, then moved).
+    Returns the largest |kernel - plain float32| over the outputs."""
+    import torch
+    gen = torch.Generator(device=args32[0].device).manual_seed(seed)
+    draws = [plain(*args32)] + [
+        plain(*(ulp_moved_tensor(t, gen) for t in args32))
+        for _ in range(DRAWS)]
+    e_max = 0.0
+    for i, name in enumerate(names):
+        k, w = k32[i], p64[i]
+        require(torch.isfinite(k).all().item(),
+                f"{label}[{name}]: non-finite float32 output")
+        ek = (k.double() - w).abs().max().item()
+        eps = [(d[i].double() - w).abs().max().item() for d in draws]
+        lim = F32_FACTOR * max(eps) + F32_FLOOR * w.abs().max().item()
+        e32 = (k - draws[0][i]).abs().max().item()
+        e_max = max(e_max, e32)
+        print(f"check {label}[{name}]: f32 max|k-p|={e32:.3e}, "
+              f"max|k32-p64|={ek:.3e} <= {lim:.3e} (plain f32 as it is "
+              f"{eps[0]:.3e}, on {DRAWS} ulp-moved draws up to "
+              f"{max(eps[1:]):.3e})")
+        require(ek <= lim, f"{label}[{name}]: float32 kernel error {ek:.3e} "
+                f"above {lim:.3e}")
+    return e_max
+
+
+def tf32_kernel_checks(dev, K, bm, prec, shapes):
+    """Phase 3's checks of the bf16×3 instances: B4 and B5 (every pair of
+    TF32_B5_PAIRS) in float64 (rtol 1e-9) and float32 (drawn_f32_rule, B4
+    by the F32 rule with one bf16×3 re-rounding, 2⁻¹⁶·max|v|, allowed) at
+    each of ``shapes`` {name: (B, n, h, hd)}, and at n = 577 in float32
+    where the instance fits a block (bf16 rules do not, C6; float64 does
+    not); B2 and B3 in TF32_BLOCK_MODES at those shapes (float32); B5's P
+    bitwise B2's probs from B2's own qkv in bf16×3 attention. Returns
+    (the largest float32 |kernel - plain| at "main" of each wrapper, the
+    float32 inputs of each main-shape call for phase 5's timings)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(1901)
+
+    def randn(*shape, offset=0.0):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.float64) + offset
+
+    errs, inputs = {}, {}
+
+    def note(name, sname, e):
+        if sname == "main":
+            errs[name] = max(errs.get(name, 0.0), e)
+
+    def counted(kern, *args, **kw):
+        before = kern.launches
+        out = kern(*args, **kw)
+        torch.cuda.synchronize()
+        require(kern.launches == before + 1,
+                f"{kern.__name__}: launch count did not rise")
+        return out
+
+    def attn(sname, shp, f64=True):
+        b, n, h, hd = shp
+        scale = hd ** -0.5
+        qkv = randn(b, n, 3 * h * hd, offset=1.0)
+        g_o, cam_o = randn(b, n, h * hd), randn(b, n, h * hd)
+        label = f"{sname} {tuple(shp)}"
+        # B4
+        k32 = counted(K.attn_fwd_core, qkv.float(), h, hd, scale, mxu=TF32)
+        p64 = K.attn_fwd_core_plain(qkv, h, hd, scale, TF32)
+        if f64:
+            k64 = counted(K.attn_fwd_core, qkv, h, hd, scale, mxu=TF32)
+            e64 = (k64 - p64).abs().max().item()
+            require(torch.allclose(k64, p64, rtol=F64_RTOL, atol=F64_ATOL),
+                    f"attn_fwd_core tf32 {label}: float64 kernel differs "
+                    f"from plain by {e64:.3e}")
+        p32 = K.attn_fwd_core_plain(qkv.float(), h, hd, scale, TF32)
+        ek = (k32.double() - p64).abs().max().item()
+        ep = (p32.double() - p64).abs().max().item()
+        v_max = qkv[..., 2 * h * hd:].abs().max().item()
+        lim = (F32_FACTOR * ep + F32_FLOOR * p64.abs().max().item()
+               + 2.0 ** -16 * v_max)
+        e32 = (k32 - p32).abs().max().item()
+        print(f"check attn_fwd_core tensorfloat32 {label}: f64 "
+              f"{'max|k-p|=%.3e' % e64 if f64 else 'not checked'}; f32 "
+              f"max|k-p|={e32:.3e}, max|k32-p64|={ek:.3e} <= {lim:.3e} "
+              f"(plain f32 {ep:.3e})")
+        require(ek <= lim, f"attn_fwd_core tf32 {label}: float32 kernel "
+                f"error {ek:.3e} above {lim:.3e}")
+        note("attn_fwd_core", sname, e32)
+        if sname == "main":
+            inputs["attn_fwd_core"] = (qkv.float(), h, hd, scale)
+        # B5, every pair with a bf16x3 product
+        for a, r in TF32_B5_PAIRS if f64 else ((TF32, TF32),
+                                                (TF32, "float32")):
+            kw = dict(attn_mxu=a, rule_mxu=r)
+            args32 = tuple(t.float() for t in (qkv, g_o, cam_o))
+            k32 = counted(K.attn_rev_core, *args32, h, hd, scale, **kw)
+            p64 = K.attn_rev_core_plain(qkv, g_o, cam_o, h, hd, scale, **kw)
+            names = ["g_qkv", "cam_qkv", "gc"]
+            if f64:
+                k64 = counted(K.attn_rev_core, qkv, g_o, cam_o, h, hd, scale,
+                              **kw)
+                for nm, x, y in zip(names, k64, p64):
+                    e = (x - y).abs().max().item()
+                    print(f"check attn_rev_core {a}/{r} {label}[{nm}]: f64 "
+                          f"max|k-p|={e:.3e}")
+                    require(torch.allclose(x, y, rtol=F64_RTOL,
+                                           atol=F64_ATOL),
+                            f"attn_rev_core {a}/{r} {label}[{nm}]: float64 "
+                            f"kernel differs from plain by {e:.3e}")
+            e = drawn_f32_rule(
+                f"attn_rev_core {a}/{r} {label}", k32,
+                lambda *x, kw=kw: K.attn_rev_core_plain(*x, h, hd, scale,
+                                                        **kw),
+                args32, p64, names, 1902)
+            note("attn_rev_core", sname, e)
+            if sname == "main" and a == r == TF32:
+                inputs["attn_rev_core"] = (*args32, h, hd, scale)
+
+    def block_case(b, n, h, hd, base):
+        D, M = h * hd, 4 * h * hd
+        ws = [prec.prepare_weight(randn(o, i) / i ** 0.5, base)
+              for o, i in ((3 * D, D), (D, D), (M, D), (D, M))]
+        vecs = [1.0 + 0.1 * randn(D), 0.1 * randn(D), 1.0 + 0.1 * randn(D),
+                0.1 * randn(D), 0.1 * randn(3 * D), 0.1 * randn(D),
+                0.1 * randn(M), 0.1 * randn(D)]
+        return (bm.BlockParams(*vecs, *ws),
+                bm.BlockParams(*[v.float() for v in vecs], *ws),
+                randn(b, n, D, offset=0.5), randn(b, n, D), randn(b, n, D))
+
+    def block(preset, sname, shp):
+        mxu, attn_m, rule, mlp = TF32_BLOCK_MODES[preset]
+        b, n, h, hd = shp
+        p64, p32, x, g_out, R = block_case(b, n, h, hd, mxu)
+        eps = 1e-6
+        fargs = (h, hd, eps, mxu, attn_m, mlp, True, True)
+        label = f"{preset} {sname} {tuple(shp)}"
+        k32 = counted(K.block_fwd_core, x.float(), p32, *fargs)
+        f64 = bm.block_fwd_core_plain(x, p64, *fargs)
+        f32 = bm.block_fwd_core_plain(x.float(), p32, *fargs)
+        names = ["x_out", "x_mid", "out_m", "qkv_pre", "proj_pre", "dots",
+                 "probs", "fc1_pre", "fc2_pre"]
+        for i, nm in enumerate(names):
+            ek = (k32[i].double() - f64[i]).abs().max().item()
+            ep = (f32[i].double() - f64[i]).abs().max().item()
+            lim = F32_FACTOR * ep + F32_FLOOR * f64[i].abs().max().item()
+            e32 = (k32[i] - f32[i]).abs().max().item()
+            print(f"check block_fwd_core[{nm}] {label}: f32 max|k-p|="
+                  f"{e32:.3e}, max|k32-p64|={ek:.3e} <= {lim:.3e} (plain "
+                  f"f32 {ep:.3e})")
+            require(torch.isfinite(k32[i]).all().item() and ek <= lim,
+                    f"block_fwd_core[{nm}] {label}: float32 kernel error "
+                    f"{ek:.3e} above {lim:.3e}")
+            if attn_m == TF32:
+                note("block_fwd_core", sname, e32)
+        # the reverse from the float64 forward's own anchors
+        a64 = (x, f64[1], f64[2], g_out, R)
+        a32 = tuple(t.float() for t in a64)
+        s64, s32 = f64[3:], tuple(t.float() for t in f64[3:])
+        rargs = (h, hd, eps, mxu, attn_m, rule, mlp)
+        k32 = counted(K.block_rev_core, *a32, p32, *rargs, saved=s32)
+        r64 = bm.block_rev_core_plain(*a64, p64, *rargs, saved=s64)
+        e = drawn_f32_rule(
+            f"block_rev_core {label}", k32,
+            lambda *t: bm.block_rev_core_plain(*t[:5], p32, *rargs,
+                                               saved=t[5:]),
+            a32 + s32, r64, ["g_in", "R_in", "gc"], 1903)
+        note("block_rev_core", sname, e)
+        if sname == "main" and preset == "tensorfloat32":
+            inputs["block_fwd_core"] = (x.float(), p32, *fargs)
+            inputs["block_rev_core"] = (a32, p32, rargs, s32)
+
+    for sname, shp in shapes.items():
+        attn(sname, shp)
+        for preset in TF32_BLOCK_MODES:
+            block(preset, sname, shp)
+        torch.cuda.empty_cache()
+    attn("n=577", (8, 577, *shapes["main"][2:]), f64=False)
+    # B5's P from B2's own qkv in bf16x3 attention: bitwise B2's probs (a
+    # direct call of B5's C entry, which keeps its scratch maps; not
+    # counted)
+    from transformer_explainability_torch.ops import _build
+    lib = _build.load_library()
+    b, n, h, hd = shapes["main"]
+    mxu, attn_m, rule, mlp = TF32_BLOCK_MODES["tensorfloat32"]
+    _, p32, x, _, _ = block_case(b, n, h, hd, mxu)
+    fwd = K.block_fwd_core(x.float(), p32, h, hd, 1e-6, mxu, attn_m, mlp,
+                           save_attn=True)
+    qkv = fwd[3] + p32.bqkv
+    g_o, cam_o = (randn(b, n, h * hd).float() for _ in range(2))
+    outs = [torch.empty_like(qkv), torch.empty_like(qkv),
+            torch.empty(b, n, n, device=dev)]
+    maps = [torch.empty(b, h, n, n, device=dev) for _ in range(4)]
+    S1 = torch.empty(b, h, n, hd, device=dev)
+    code = lib.te_attn_rev_f32(
+        *[t.data_ptr() for t in (qkv, g_o, cam_o, *outs, *maps, S1)], b, n,
+        h, hd, hd ** -0.5, K._ATTN_MODE[attn_m], K._ATTN_MODE[rule],
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    require(code == 0, f"attn_rev_core C entry failed ({code})")
+    same = torch.equal(maps[0].view(torch.int32),
+                       fwd[6].view(b, h, n, n).view(torch.int32))
+    print(f"check B5's P vs B2's probs tensorfloat32 {(b, n, h, hd)}: "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    require(same, "B5's probabilities are not bitwise B2's (tensorfloat32)")
+    return errs, inputs
+
+
+def c5_measurement(dev, K, bm, prec, shapes):
+    """C5: B6's Rm against its plain version by the 2-norm rule (|k32 -
+    p64| / |p64| <= F32_FACTOR · the plain float32 version's + F32_FLOOR)
+    over C5_SEEDS draws of the inputs, at each of ``shapes`` {name: (B, n,
+    D, M)} and in each C5_PAIRS pair; beside it, the same rule applied to
+    the plain float32 version on DRAWS ulp-moved copies of each draw's
+    inputs (each a float32 implementation of the same function). Prints a
+    line per draw and a summary per (shape, pair); returns {(shape, pair):
+    (kernel misses, plain-draw misses, plain draws)}. Its inputs are made
+    as phase 3's B6 check makes them. B3's MLP half is this code
+    (csrc/mlp_rev.cuh)."""
+    import torch
+    out = {}
+    eps = 1e-6
+    for sname, (b, n, D, M) in shapes.items():
+        for pname, (mlp, rule) in C5_PAIRS.items():
+            k_miss = p_miss = 0
+            ratios = []
+            for seed in range(C5_SEEDS):
+                gen = torch.Generator(device=dev).manual_seed(2000 + seed)
+
+                def randn(*shape):
+                    return torch.randn(*shape, generator=gen, device=dev,
+                                       dtype=torch.float64)
+
+                w1 = prec.prepare_weight(randn(M, D) / D ** 0.5, mlp)
+                w2 = prec.prepare_weight(randn(D, M) / M ** 0.5, mlp)
+                vecs = (1.0 + 0.1 * randn(D), 0.1 * randn(D), 0.1 * randn(M),
+                        0.1 * randn(D))
+                z = torch.zeros(1, device=dev)
+
+                def params(ln2s, ln2b, b1, b2):
+                    return bm.BlockParams(z, z, ln2s, ln2b, z, z, b1, b2,
+                                          None, None, w1, w2)
+
+                q64, q32 = params(*vecs), params(*(v.float() for v in vecs))
+                a64 = (4.0 + 0.5 * randn(b, n, D), randn(b, n, D),
+                       randn(b, n, D))
+                a32 = tuple(t.float() for t in a64)
+                k = K.mlp_rev_core(*a32, q32, eps, mlp, rule)[1].double()
+                p64 = K.mlp_rev_core_plain(*a64, q64, eps, mlp, rule)[1]
+                rel = lambda t: (t.double() - p64).norm().item() / \
+                    p64.norm().item()
+                npl = rel(K.mlp_rev_core_plain(*a32, q32, eps, mlp, rule)[1])
+                lim = F32_FACTOR * npl + F32_FLOOR
+                nk = rel(k)
+                mg = torch.Generator(device=dev).manual_seed(3000 + seed)
+                nd = [rel(K.mlp_rev_core_plain(
+                    *(ulp_moved_tensor(t, mg) for t in a32), q32, eps, mlp,
+                    rule)[1]) for _ in range(DRAWS)]
+                k_miss += nk > lim
+                p_miss += sum(v > lim for v in nd)
+                ratios.append(nk / lim)
+                print(f"c5 {sname} {pname} seed {seed}: Rm |k32-p64|/|p64| "
+                      f"{nk:.3e}, limit {lim:.3e} (plain f32 {npl:.3e}); "
+                      f"plain f32 on ulp-moved inputs {fmt(nd)}")
+            out[(sname, pname)] = (k_miss, p_miss, C5_SEEDS * DRAWS)
+            print(f"c5 {sname} {(b, n, D, M)} {pname}: kernel misses the "
+                  f"2-norm rule on {k_miss} of {C5_SEEDS} draws (its error "
+                  f"over the limit: max {max(ratios):.3f}, median "
+                  f"{float(np.median(ratios)):.3f}); the plain float32 "
+                  f"version on ulp-moved inputs misses it on {p_miss} of "
+                  f"{C5_SEEDS * DRAWS}")
+            torch.cuda.empty_cache()
+    return out
+
+
+# the new end-to-end paths of A3b (phase 4): ViT-B/16 on the three
+# batches, each by preset_gate against the same path's plain float64
+# version on the card, PLAIN_DRAWS plain float32 draws on the card, the
+# kernel path on the moved weights its witnesses; launches a batch:
+# "mega" B2 + B3 a block and B1, "split" B4 + B5 a block and B1
+TF32_PATHS = {
+    "tensorfloat32": (dict(matmul_precision=TF32), "mega"),
+    "tf32 split arm": (dict(matmul_precision=TF32, block_kernel=False),
+                       "split"),
+    "float32 + tf32 attention island": (dict(attn_precision=TF32), "split"),
+    "float32 + tf32 rule island": (dict(relprop_precision=TF32), "split"),
+}
+
+
+def tf32_paths_phase(dev, tag, params, cfg, batches, exact64, drive,
+                     preset_corrs, corr, moved_vit, none):
+    """Drive each of TF32_PATHS through ``Explainer`` (launch counts,
+    bitwise repeatable; ``drive``), gate it by preset_gate (``preset_corrs(
+    model32, heats, kw, moved)``: main's, against the plain float64 model,
+    with witnesses) and print its fidelity (corr) against the exact float64
+    path, ``exact64`` (the three batches' float64 heatmaps of the float32
+    preset's plain path). Returns {label: launch counts}."""
+    import torch
+    from transformer_explainability_torch import Explainer
+    L = cfg.depth
+    counts = {}
+    for label, (kw, route) in TF32_PATHS.items():
+        t0 = time.perf_counter()
+        per = {**none, "rollout_from_grad_cam": 1}
+        per.update({"block_fwd_core": L, "block_rev_core": L} if route ==
+                   "mega" else {"attn_fwd_core": L, "attn_rev_core": L})
+        ex = Explainer(params, cfg, device="cuda", **kw)
+        heats, counts[label] = drive(ex.explain, batches,
+                                     (8, cfg.num_patches), per, label)
+        c, c_plain, c_moved, k_moved = preset_corrs(ex.model, heats, kw,
+                                                    moved_vit)
+        preset_gate(f"{label} slice", c, [c_plain, *c_moved], k_moved)
+        fid = np.asarray(sum((corr(hk, ref) for hk, ref in zip(heats,
+                                                                exact64)),
+                             []))
+        print(f"{label} slice corr vs exact f64 (float32 preset, plain) on "
+              f"the card, not gated: min {fid.min():.6f} median "
+              f"{np.median(fid):.6f} mean {fid.mean():.6f}; per sample "
+              f"{fmt(fid)} ({time.perf_counter() - t0:.1f} s) {tag}")
+        del ex, heats
+        torch.cuda.empty_cache()
+    return counts
+
+
+def tf32_times(tag, K, bm, inputs):
+    """Phase 5's times of the bf16×3 instances at ViT-B/16's main shapes
+    (``inputs``: tf32_kernel_checks'): ms per call (CUDA events) beside the
+    plain version and the bound (bytes over 3.35 TB/s or the products as
+    three bf16 passes at 989 TFLOP/s, float32 ones at 67, whichever is
+    larger); B4's beside one scaled_dot_product_attention call on the same
+    q, k, v in float32 (timed only; the port never calls it); B5 in every
+    pair of TF32_B5_PAIRS. Returns {name: (ms, plain ms, bound ms, bound
+    by, library ms or None)} of the kernels line's bf16×3 entries (B5 at
+    bf16×3 / bf16×3, B2 and B3 raw tensorfloat32)."""
+    import torch
+
+    def bound(nbytes, bf16=0, bf16x3=0, f32=0):
+        t_mem = nbytes / HBM_BYTES_S
+        t_ops = (bf16 + 3 * bf16x3) / BF16_FLOPS + f32 / FP32_FLOPS
+        return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
+                                          else "operations")
+
+    qkv, h, hd, scale = inputs["attn_fwd_core"]
+    b, n = qkv.shape[:2]
+    D, R, f4 = h * hd, b * n, 4
+    at = b * h * n * n * hd             # half the FLOPs of one (n, n, hd)
+    out = {}
+    t = (time_ms(lambda: K.attn_fwd_core(qkv, h, hd, scale, mxu=TF32), 200),
+         time_ms(lambda: K.attn_fwd_core_plain(qkv, h, hd, scale, TF32)))
+    q_, k_, v_ = bm.split_heads(qkv, h, hd)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, scale=scale), 200)
+    out["attn_fwd_core"] = (*t, *bound(f4 * 4 * R * D, bf16x3=4 * at), lib)
+    args = inputs["attn_rev_core"]
+    for a, r in TF32_B5_PAIRS:
+        kw = dict(attn_mxu=a, rule_mxu=r)
+        t = (time_ms(lambda: K.attn_rev_core(*args, **kw)),
+             time_ms(lambda: K.attn_rev_core_plain(*args, **kw)))
+        ops = {"f32": 0, "bf16": 0, "bf16x3": 0}
+        mode = {"float32": "f32", "bfloat16": "bf16", TF32: "bf16x3"}
+        ops[mode[a]] += 12 * at     # recompute and gradient products
+        ops[mode[r]] += 8 * at      # rule products
+        bd = bound(f4 * (11 * R * D + b * n * n), **ops)
+        print(f"time attn_rev_core {(b, n, h, hd)} f32 {a}/{r} modes: "
+              f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {bd[0]:.4f}"
+              f" ms ({bd[1]}), {t[0] / bd[0]:.1f}x the bound {tag}")
+        if a == r == TF32:
+            out["attn_rev_core"] = (*t, *bd, None)
+    x, p32, *fargs = inputs["block_fwd_core"]
+    a32, _, rargs, s32 = inputs["block_rev_core"]
+    M = p32.b1.shape[0]
+    pr = 4 * 4 * D * D + 2 * 2 * 2 * M * D   # the four weights' (hi, lo)
+    t = (time_ms(lambda: K.block_fwd_core(x, p32, *fargs)),
+         time_ms(lambda: bm.block_fwd_core_plain(x, p32, *fargs)))
+    out["block_fwd_core"] = (*t, *bound(
+        f4 * (9 * D + M) + pr + f4 * (R * D + 8 * R * D + 2 * b * h * n * n
+                                      + R * M),
+        bf16x3=8 * R * D * D + 4 * at + 4 * R * D * M), None)
+    t = (time_ms(lambda: K.block_rev_core(*a32, p32, *rargs, saved=s32)),
+         time_ms(lambda: bm.block_rev_core_plain(*a32, p32, *rargs,
+                                                 saved=s32)))
+    out["block_rev_core"] = (*t, *bound(
+        2 * pr + f4 * (9 * D + M) + f4 * (10 * R * D + 2 * b * h * n * n
+                                          + R * M)
+        + f4 * (2 * R * D + b * n * n),
+        bf16x3=16 * R * D * M + 32 * R * D * D + 16 * at), None)
+    for name, (ms, pms, bd, by, lib_ms) in out.items():
+        print(f"time {name} tensorfloat32 {(b, n, h, hd)} f32: kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bd:.4f} ms ({by}), "
+              f"{ms / bd:.1f}x the bound"
+              + (f"; scaled_dot_product_attention f32 {lib_ms:.4f} ms"
+                 if lib_ms is not None else "") + f" {tag}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # transformers, where phase 1 finds it, reads local files only
@@ -1267,9 +1705,14 @@ def main() -> int:
         # may spill, and no instance of B5's row pass, of the column pass
         # or of B4's tile as B2 instantiates it
         entry, spill, regs, core_regs, core_spills = None, "", [], [], []
-        remarks, redesign_spills = [], []
+        remarks, redesign_spills, nvcc_secs, source = [], [], [], None
         for line in log.read_text().splitlines():
-            if "Compiling entry function" in line:
+            if line.startswith("/") and " -c -o " in line:
+                source = line.split()[-1].rsplit("/", 1)[-1]
+            elif line.startswith("seconds") and source:
+                nvcc_secs.append((float(line.split()[1]), source))
+                source = None
+            elif "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "wgmma" in line or "setmaxnreg" in line:
                 remarks.append(line.strip())
@@ -1294,7 +1737,7 @@ def main() -> int:
                 # template argument true), B5's row pass, the column pass,
                 # B1's chain
                 redesigned = bool(re.search(
-                    r"attn_fwd_kernelI[fd]Lb[01]ELi\d+ELb1E", entry)) or (
+                    r"attn_fwd_kernelI[fd]Li[012]ELi\d+ELb1E", entry)) or (
                     "blk_attn_rev_cols_kernel" in entry) or (
                     "attn_rev_rows_kernel" in entry
                     and "blk_attn" not in entry and "bert_attn" not in entry
@@ -1307,6 +1750,9 @@ def main() -> int:
                     print(f"  ptxas {entry[:72]}: {regs[-1]} registers; "
                           f"{spill}")
                 entry = None
+        print("  nvcc seconds a source (all at once): " + ", ".join(
+            f"{src} {sec:.1f}" for sec, src in sorted(nvcc_secs,
+                                                      reverse=True)))
         print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers; the others spill nothing")
         print(f"  ptxas: {len(core_regs)} GEMM-core instances (wgmma), "
@@ -1702,7 +2148,7 @@ def main() -> int:
         S1 = torch.empty(B, h, n, hd, device=dev)
         code = lib.te_attn_rev_f32(
             *[t.data_ptr() for t in (qkv, g_o, cam_o, *outs, *maps, S1)], B,
-            n, h, hd, hd ** -0.5, K._ATTN_BF16[attn], K._ATTN_BF16[rule],
+            n, h, hd, hd ** -0.5, K._ATTN_MODE[attn], K._ATTN_MODE[rule],
             torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         require(code == 0, f"attn_rev_core C entry failed ({code})")
@@ -1989,8 +2435,10 @@ def main() -> int:
     # in both presets' modes, B6 in the split path's pair (bf16/bf16), the
     # only one a path runs. Their errors are printed, not carried into the
     # kernels line (ViT-B's main shapes). (B6's other pair, bf16x3 MLP
-    # products with bf16 rules, is checked at ViT-B only: at ViT-L its Rm
-    # misses the 2-norm rule, ROADMAP C5)
+    # products with bf16 rules, is checked at ViT-B only; at ViT-L one draw
+    # of its Rm is a draw of an ill-conditioned function, and
+    # c5_measurement holds it over 16 draws beside the plain version's,
+    # ROADMAP C5)
     new_shapes = {
         "ViT-L": (B, VIT_LARGE_16_224.num_tokens, VIT_LARGE_16_224.num_heads,
                   VIT_LARGE_16_224.head_dim, VIT_LARGE_16_224.depth),
@@ -2037,6 +2485,20 @@ def main() -> int:
     block577 = {preset: check_block(preset, "n=577", shape577)
                 for preset in block_modes}["production"]
     torch.cuda.empty_cache()
+    # the bf16x3 instances of B2-B5 (A3b) at ViT-B/16's main and ragged
+    # shapes, ViT-L/16's and n = 198, then C5 on B6 (the MLP half B3
+    # shares) at ViT-B and ViT-L widths
+    t0 = time.perf_counter()
+    tf32_errs, tf32_inputs = tf32_kernel_checks(dev, K, bm, prec, {
+        "main": shapes["main"], "ragged": shapes["ragged"],
+        "ViT-L": new_shapes["ViT-L"][:4], "n=198": new_shapes["n=198"][:4]})
+    print(f"bf16x3 kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c5_measurement(dev, K, bm, prec, {
+        "ViT-B": tp_shapes["main"],
+        "ViT-L": (B, n, VIT_LARGE_16_224.embed_dim,
+                  VIT_LARGE_16_224.mlp_dim)})
+    print(f"C5 measurement: {time.perf_counter() - t0:.1f} s")
 
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
     # 4. the slice ----------------------------------------------------------
@@ -2222,6 +2684,19 @@ def main() -> int:
     preset_gate("split bfloat16 slice", s_corrs, [s_plain_corrs, *s_moved],
                 sk_moved)
     del ex_split, ex_bf16
+
+    # raw tensorfloat32 on the megakernels, the tf32 split arm and the
+    # float32 base's tensorfloat32 islands (A3b), each gated as the split
+    # path is; their fidelity against the exact float64 path printed
+    exact64 = [explain_batch(model64, torch.as_tensor(
+        imgs, device=dev, dtype=torch.float64), torch.as_tensor(
+        idx, device=dev), ops=K.PLAIN_OPS) for imgs, idx in batches]
+    tf32_launches = tf32_paths_phase(
+        dev, tag, params, cfg, batches, exact64, drive,
+        lambda m32, hs, kw, mv: preset_corrs(m32, model64, hs, kw, mv,
+                                             witness=True),
+        corr, moved_vit, none)
+    del exact64
 
     # the guarded mode's diagnostics on the production kernel path: the
     # heatmaps bitwise those of the calls without them (above), each
@@ -3212,6 +3687,8 @@ def main() -> int:
               f"({', '.join(f'{t:.4f}' for t in parts)}) (profiler) {tag}")
     del x_mid, g_out, xn2, fc1, h1, hg, g_h1, Sr, fc1_b, hg2, R2, S1, b10_mm
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
+    tf32_t = tf32_times(tag, K, bm, tf32_inputs)
+    del tf32_inputs
     del b6_inputs, b6, b6_args, b5_args
     # the GEMM core alone at each checked shape: its launch's device time
     # (profiler: a call of the core alone is shorter than the host's work
@@ -3306,6 +3783,30 @@ def main() -> int:
           f"path {rs[0]:.2f} / {rs[3]:.2f} expl/s, plain path {rs[1]:.2f} "
           f"expl/s, batch working memory {peak_s:.3f} GiB; megakernel "
           f"bfloat16 path {rs[2]:.2f} / {rs[4]:.2f} expl/s {tag}")
+    # raw tensorfloat32 on the megakernels and the tf32 split arm beside
+    # the presets, in alternating windows, then each new path's plain path
+    tf32_kw = {label: kw for label, (kw, _) in TF32_PATHS.items()}
+    order = ["tensorfloat32", "tf32 split arm", "production", "bfloat16",
+             "float32", "tensorfloat32", "tf32 split arm"]
+    presets_kw = {"production": prod, "bfloat16": bf16, "float32": {}}
+    rates_t = {}
+    for label in order:
+        rates_t.setdefault(label, []).append(
+            rate(K.KERNEL_OPS, **{**presets_kw, **tf32_kw}[label]))
+    for label, kw in tf32_kw.items():
+        peak_t = peak_gib(K.KERNEL_OPS, **kw)
+        r_plain = rate(K.PLAIN_OPS, nb=5, **kw)
+        if label not in rates_t:
+            rates_t[label] = [rate(K.KERNEL_OPS, **kw)]
+        print(f"e2e transformer_attribution ViT-B/16 {label} B=8, "
+              f"{RATE_BATCHES}-batch windows: kernel path "
+              f"{' / '.join(f'{r:.2f}' for r in rates_t[label])} expl/s, "
+              f"plain path {r_plain:.2f} expl/s (5-batch window), batch "
+              f"working memory {peak_t:.3f} GiB {tag}")
+    print("e2e transformer_attribution ViT-B/16 B=8 in the same windows: "
+          + ", ".join(f"{label} {' / '.join(f'{r:.2f}' for r in rs_)} "
+                      f"expl/s" for label, rs_ in rates_t.items())
+          + f" {tag}")
     # each method in exact FP32, kernels (the rollout kernel, and B4/B5 on
     # the fused method's kernel branch)
     for m, variant, kw in method_runs:
@@ -3676,11 +4177,26 @@ def main() -> int:
               f"{ms / bd[0]:.1f}x the bound {tag}")
     del t, c32, bk, block577, args
     print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    tf32_names = {"attn_fwd_core": "attn_fwd.cuh",
+                  "attn_rev_core": "attn_rev.cu",
+                  "block_fwd_core": "block_fwd.cu",
+                  "block_rev_core": "block_rev.cu"}
+    tf32_entries = [
+        {"name": f"{name} (tensorfloat32)", "route": "cuda",
+         "source": f"transformer_explainability_torch/csrc/{src}",
+         "replaces": f"{TPU_KERNELS}:{tpu_lines[name]}",
+         "launches": sum(c[name] for c in tf32_launches.values()),
+         "max_abs_err": tf32_errs[name],
+         "ms": tf32_t[name][0], "plain_ms": tf32_t[name][1],
+         "bound_ms": tf32_t[name][2], "bound_by": tf32_t[name][3],
+         "library_ms": tf32_t[name][4]}
+        for name, src in tf32_names.items()]
     slices = (launches, launches_prod, launches_split, launches_bf16,
               launches_diag, launches_mlp, *method_launches, *new_launches,
               blaunches, blaunches_prod, *bert_method_launches,
               *tp_launches, *ckpt_launches, *launches384,
-              *harness_launches, *train_launches, *reduced_launches)
+              *harness_launches, *train_launches, *reduced_launches,
+              *tf32_launches.values())
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",
@@ -3690,7 +4206,7 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library[name]}
-        for name in sources]}))
+        for name in sources] + tf32_entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ and sequence length S.
 
     python3 experiments/torch_profile_vit.py [--model vit|vit_384|vit_large|deit_distilled|bert]
                                              [--seq 512]
-                                             [--precision float32|production|bfloat16]
+                                             [--precision float32|production|bfloat16|tensorfloat32]
                                              [--no-block-kernel] [--method M]
                                              [--tp] [--batches 4] [--out DIR]
     python3 experiments/torch_profile_vit.py [--b2] [--b3] [--b4] [--b5] [--b6]
@@ -19,7 +19,9 @@ ViT-L/16, 24 blocks at D 1024, h 16, M 4096; ``deit_distilled``: DeiT-base
 with its distillation token, n = 198) for the explain paths, ``--tp`` and
 the ViT layer kernels, or BERT-base. ``--precision`` names a preset of ``PRECISION_PRESETS`` (default float32:
 exact FP32; production and bfloat16 run the block megakernels, or for BERT
-the layer kernels). ``--seq`` is BERT's S (at most 512); each sample is
+the layer kernels; tensorfloat32, raw ``precision_kwargs("tensorfloat32")``:
+ViT's megakernels, or with ``--no-block-kernel`` the tf32 split arm, in
+their bf16×3 modes). ``--seq`` is BERT's S (at most 512); each sample is
 padded to its own length, seeded. ``--no-block-kernel`` takes ViT's split
 path (``block_kernel=False``: at the bfloat16 preset the attention kernels
 and the MLP reverse kernel per block instead of the megakernels).
@@ -361,7 +363,8 @@ def main():
                              "bert"])
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--precision", default="float32",
-                    choices=["float32", "production", "bfloat16"])
+                    choices=["float32", "production", "bfloat16",
+                             "tensorfloat32"])
     ap.add_argument("--no-block-kernel", action="store_true")
     ap.add_argument("--method", default="transformer_attribution")
     ap.add_argument("--tp", action="store_true")

@@ -28,6 +28,11 @@ EPS = 1e-6
 PRESETS = {
     "production": ("tensorfloat32", "float32", "bfloat16", "bfloat16"),
     "bfloat16": ("bfloat16", "bfloat16", "bfloat16", None),
+    # raw tensorfloat32: every product bf16×3
+    "tensorfloat32": ("tensorfloat32", "tensorfloat32", "tensorfloat32",
+                      None),
+    # the bfloat16 base with a tensorfloat32 attention island
+    "bf16-tf32-attn": ("bfloat16", "tensorfloat32", "bfloat16", None),
 }
 
 

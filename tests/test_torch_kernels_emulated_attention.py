@@ -102,7 +102,7 @@ def test_attn_fwd_kernel_bf16_matches_plain(lib, shape):
     float32 by the rule above."""
     b, n, h, d = shape
     qkv = _randn(40, b, n, 3 * h * d)
-    flag = K._ATTN_BF16["bfloat16"]
+    flag = K._ATTN_MODE["bfloat16"]
     got = K._launch_attn_fwd(lib, qkv, h, d, d ** -0.5, None, flag)
     want = K.attn_fwd_core_plain(qkv, h, d, d ** -0.5, "bfloat16")
     torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
@@ -113,16 +113,18 @@ def test_attn_fwd_kernel_bf16_matches_plain(lib, shape):
 
 @pytest.mark.parametrize("shape", B4_TILE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("mode", sorted(K._ATTN_BF16))
+@pytest.mark.parametrize("mode", sorted(K._ATTN_MODE))
 def test_attn_fwd_kernel_tiles_match_plain(lib, shape, dtype, mode):
-    """float64 at rtol 1e-9; float32 by the rule above, in bf16 mode
+    """float64 at rtol 1e-9; float32 by the rule above, in the bf16 modes
     against the plain float32 version within one re-rounding: an ulp
     between two float32 probabilities can round them to bf16 values 2⁻⁸
     apart, which moves an output by up to 2⁻⁸·max|v|, and at this size
-    whether the kernel or the plain version meets such a tie is a draw."""
+    whether the kernel or the plain version meets such a tie is a draw; in
+    bf16×3 the hi and lo parts of a probability sum to it within 2⁻¹⁷ of
+    it, so such a flip moves an output by at most 2⁻¹⁶·max|v|."""
     b, n, h, d = shape
     qkv = _randn(44, b, n, 3 * h * d)
-    flag = K._ATTN_BF16[mode]
+    flag = K._ATTN_MODE[mode]
     got = K._launch_attn_fwd(lib, qkv.to(dtype), h, d, d ** -0.5, None, flag)
     want = K.attn_fwd_core_plain(qkv, h, d, d ** -0.5, mode)
     if dtype == torch.float64:
@@ -133,8 +135,9 @@ def test_attn_fwd_kernel_tiles_match_plain(lib, shape, dtype, mode):
             _f32_rule(got, plain32, want, "out")
         else:
             v_max = qkv[..., 2 * h * d:].abs().max().item()
+            reround = 2 ** -8 if mode == "bfloat16" else 2 ** -16
             torch.testing.assert_close(got, plain32, rtol=0,
-                                       atol=2 ** -8 * v_max)
+                                       atol=reround * v_max)
 
 
 @pytest.mark.parametrize("shape", B5_SHAPES)

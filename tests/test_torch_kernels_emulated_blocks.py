@@ -48,7 +48,7 @@ def test_block_fwd_kernel_matches_plain(lib, shape, preset):
     mxu, attn, _, mlp = PRESETS[preset]
     p64, p32, x = _block_case(20, b, n, h, hd, mxu)
     flags = K._block_modes("block_fwd_core", p32, mxu=mxu, mlp=mlp or mxu,
-                           attn_bf16=attn)
+                           attn_mode=attn)
     got = K._launch_block_fwd(lib, x.float(), p32, h, hd, EPS, flags, None)
     want64 = bm.block_fwd_core_plain(x, p64, h, hd, EPS, mxu, attn, mlp,
                                      save_attn=True, save_mlp=True)
@@ -93,7 +93,7 @@ def test_attn_rev_probs_are_b2_anchors(lib, preset):
     for b, n, h, hd in [(1, 2 * 64 + 5, 2, 64), (1, 256 + 5, 1, 8)]:
         _, p32, x = _block_case(23, b, n, h, hd, mxu)
         flags = K._block_modes("block_fwd_core", p32, mxu=mxu,
-                               mlp=mlp or mxu, attn_bf16=attn)
+                               mlp=mlp or mxu, attn_mode=attn)
         fwd = K._launch_block_fwd(lib, x.float(), p32, h, hd, EPS, flags,
                                   None)
         qkv = fwd[3] + p32.bqkv
@@ -106,7 +106,7 @@ def test_attn_rev_probs_are_b2_anchors(lib, preset):
         S1 = torch.empty(b, h, n, hd)
         code = lib.te_attn_rev_f32(
             *[t.data_ptr() for t in (qkv, g_o, cam_o, *outs, *maps, S1)],
-            b, n, h, hd, hd ** -0.5, K._ATTN_BF16[attn], K._ATTN_BF16[rule],
+            b, n, h, hd, hd ** -0.5, K._ATTN_MODE[attn], K._ATTN_MODE[rule],
             None)
         assert code == 0
         assert torch.equal(maps[0].view(torch.int32),

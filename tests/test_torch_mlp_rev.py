@@ -208,15 +208,17 @@ def test_split_path_takes_b4_b5_b6(attn_precision):
 
 
 @pytest.mark.parametrize("kw,raises", [
+    # the tf32 split arm (B4, B5, the plain MLP arm) and a tensorfloat32
+    # attention island on the bfloat16 one run since the bf16×3 instances
     (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16",
-          attn_precision="float32"), "ROADMAP B"),
+          attn_precision="float32"), None),
     # islands above the base are the non-kernel branch's, not the split
     # path's
     (dict(matmul_precision="bfloat16", relprop_precision="tensorfloat32"),
      None),
     (dict(matmul_precision="bfloat16", mlp_precision="float32"), None),
     (dict(matmul_precision="bfloat16", attn_precision="tensorfloat32"),
-     "ROADMAP B"),
+     None),
     (dict(matmul_precision="bfloat16", attn_precision="float32"), None),
     (dict(matmul_precision="bfloat16", relprop_precision="bfloat16",
           mlp_precision="bfloat16"), None),
@@ -231,17 +233,21 @@ def test_split_path_gates(kw, raises):
 
 
 def test_split_model_entry_points_raise_at_tensorfloat32():
+    """The model entry points of the tf32 split arm, which raised until B4
+    and B5 had bf16×3 instances, run: forward_collect and reverse_pass
+    compose to explain_batch's heatmap, and take B4 and B5 a block and no
+    B6 (the plain MLP arm)."""
     cfg = ViTConfig(**SMALL)
     model = VisionTransformer(cfg, dtype=torch.float64)
     model.load_state_dict(_weights(SMALL))
-    imgs = torch.zeros(1, 3, 32, 32, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        tvit.forward_collect(model, imgs, matmul_precision="tensorfloat32",
-                             block_kernel=False)
-    _, res = tvit.forward_collect(model, imgs,
-                                  matmul_precision="tensorfloat32")
+    imgs = torch.from_numpy(np.random.RandomState(6).randn(1, 3, 32, 32))
+    kw = dict(matmul_precision="tensorfloat32", block_kernel=False)
+    calls, ops = _counting_ops()
+    _, res = tvit.forward_collect(model, imgs, ops, **kw)
     onehot = torch.nn.functional.one_hot(torch.tensor([1]), 10).double()
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        tvit.reverse_pass(model, res, onehot,
-                          matmul_precision="tensorfloat32",
-                          block_kernel=False)
+    _, gc, _ = tvit.reverse_pass(model, res, onehot, ops=ops, **kw)
+    heat = ops.rollout_from_grad_cam(gc, 0, rows=1)[:, 0, 1:]
+    assert calls == {"attn_fwd_core": cfg.depth, "attn_rev_core": cfg.depth,
+                     "rollout_from_grad_cam": 1}
+    torch.testing.assert_close(heat, explain_batch(
+        model, imgs, torch.tensor([1]), **kw), rtol=0, atol=0)

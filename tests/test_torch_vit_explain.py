@@ -109,17 +109,17 @@ def test_unported_options_raise():
     img = np.zeros((1, 3, 32, 32))
     with pytest.raises(ValueError):
         ex.explain(img, method="nonsense")
-    # what no ported kernel runs: the tf32 split arm, raw tensorfloat32 on
-    # the kernel branch and a tensorfloat32 island on the float32 base's
-    # kernels (the non-kernel branch runs at every base:
-    # tests/test_torch_vit_precisions.py)
+    # what raised until the kernels had bf16×3 instances (ROADMAP A3b)
+    # runs: the tf32 split arm, raw tensorfloat32 on the kernel branch and
+    # a tensorfloat32 island on the float32 base's kernels (held to JAX in
+    # tests/test_torch_vit_tf32.py and test_torch_vit_presets.py)
     for kw in (dict(matmul_precision="tensorfloat32",
                     relprop_precision="bfloat16", attn_precision="float32",
                     block_kernel=False),
                dict(matmul_precision="tensorfloat32"),
                dict(attn_precision="tensorfloat32")):
-        with pytest.raises(NotImplementedError, match="ROADMAP B"):
-            Explainer(sd, cfg, device="cpu", **kw).explain(img)
+        heat = Explainer(sd, cfg, device="cpu", **kw).explain(img + 0.5)
+        assert heat.shape == (1, 4) and torch.isfinite(heat).all()
     # the diagnostics are defined for the fused method only, as in JAX
     with pytest.raises(ValueError, match="transformer_attribution"):
         make_explain_fn(cfg, "cpu", method="rollout", with_diagnostics=True)

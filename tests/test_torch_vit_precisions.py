@@ -32,9 +32,10 @@ against the JAX package: the mode of every product, and the structure.
 * **Bitwise**: the default float32 path is bitwise the parent commit's
   (``tests/golden/torch_float32_paths.npz``,
   ``experiments/torch_float32_golden.py``).
-* **What still raises** names ROADMAP B item 1 (no kernel mode) or A8
-  (the tensor-parallel islands), and the harnesses run one batch at
-  ``production`` with a non-fused method.
+* **What raised** for want of a kernel mode (ROADMAP B item 1) runs since
+  the bf16×3 instances; the tensor-parallel islands still raise naming
+  A8, and the harnesses run one batch at ``production`` with a non-fused
+  method.
 """
 
 import os
@@ -238,14 +239,15 @@ def test_vit_float32_path_is_bitwise_the_parents():
     dict(matmul_precision="float32", relprop_precision="tensorfloat32"),
 ])
 def test_modes_without_a_kernel_raise(kw):
-    """The fused method's kernel modes no ported kernel has raise, naming
-    ROADMAP B item 1; its other methods run in them."""
+    """The fused method's tensorfloat32 kernel modes, which raised until
+    their kernels had bf16×3 instances (ROADMAP A3b), run on the kernel
+    branch (held to JAX: tests/test_torch_vit_tf32.py,
+    test_torch_vit_presets.py); its other methods run in them too."""
     _, _, sd = _weights(TINY)
-    img = np.zeros((1, 3, 32, 32), np.float32)
+    img = np.random.RandomState(5).randn(1, 3, 32, 32).astype(np.float32)
     ex = Explainer(sd, ViTConfig(**TINY), "cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP B, (raw tensorfloat32|the tf32 split)"):
-        ex.explain(img)
+    heat = ex.explain(img)
+    assert heat.shape == (1, 4) and torch.isfinite(heat).all()
     assert ex.explain(img, method="rollout").shape == (1, 4)
 
 

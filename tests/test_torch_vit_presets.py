@@ -30,7 +30,17 @@ from transformer_explainability_torch.params.convert import (
 
 SMALL = dict(img_size=32, patch_size=16, embed_dim=24, depth=3, num_heads=4,
              num_classes=10)
-PRESETS = ["production", "bfloat16"]
+TF32 = "tensorfloat32"
+# the presets, raw tensorfloat32 (precision_kwargs) and the bfloat16 base
+# with a tensorfloat32 attention island: each takes the block megakernels
+PRESETS = ["production", "bfloat16", "tensorfloat32", "bf16-tf32-attn"]
+ISLANDS = {"bf16-tf32-attn": dict(matmul_precision="bfloat16",
+                                  attn_precision="tensorfloat32")}
+
+
+def _kwargs(preset):
+    return dict(ISLANDS[preset]) if preset in ISLANDS else precision_kwargs(
+        preset)
 
 
 @pytest.fixture
@@ -53,14 +63,16 @@ def _weights(fields, key=0):
 
 
 def _jax_heat(jcfg, params, img, index, preset):
+    kw = (ISLANDS[preset] if preset in ISLANDS
+          else jax_precision_kwargs(preset))
     fn = jax.jit(lambda p, x, i: explain_single(
-        p, x, i, jcfg, use_attn_kernel=True, **JAX_PRESETS[preset]))
+        p, x, i, jcfg, use_attn_kernel=True, **kw))
     return np.asarray(fn(params, jnp.asarray(img), jnp.int32(index)))
 
 
 def test_presets_match_the_jax_package():
     assert PRECISION_PRESETS == JAX_PRESETS
-    for p in PRESETS + ["float32", "tensorfloat32"]:
+    for p in list(JAX_PRESETS) + ["tensorfloat32"]:
         assert precision_kwargs(p) == jax_precision_kwargs(p)
     with pytest.raises(ValueError):
         precision_kwargs("fp8")
@@ -72,8 +84,7 @@ def test_small_config_preset_matches_jax_f64(x64, preset):
     rng = np.random.RandomState(0)
     imgs = rng.randn(3, 3, 32, 32)
     idx = np.array([3, -1, 7])
-    ex = Explainer(sd, ViTConfig(**SMALL), device="cpu",
-                   **precision_kwargs(preset))
+    ex = Explainer(sd, ViTConfig(**SMALL), device="cpu", **_kwargs(preset))
     got = ex.explain(imgs, idx).numpy()
     assert got.shape == (3, 4) and got.dtype == np.float64
     for i in range(3):
@@ -88,8 +99,7 @@ def test_full_width_two_blocks_preset_matches_jax_f64(x64, preset):
     fields = dict(depth=2)
     jcfg, params, sd = _weights(fields)
     img = np.random.RandomState(2).randn(1, 3, 224, 224)
-    ex = Explainer(sd, ViTConfig(**fields), device="cpu",
-                   **precision_kwargs(preset))
+    ex = Explainer(sd, ViTConfig(**fields), device="cpu", **_kwargs(preset))
     got = ex.explain(img, [17]).numpy()
     want = _jax_heat(jcfg, params, img[0], 17, preset)
     assert got.shape == (1, 196)
@@ -145,29 +155,85 @@ def test_production_takes_the_block_kernels_and_prepares_once():
 
 
 @pytest.mark.parametrize("kw,raises", [
-    (dict(matmul_precision="tensorfloat32"), NotImplementedError),
+    # raw tensorfloat32 and a tensorfloat32 attention island on the
+    # bfloat16 base: the megakernels' bf16×3 instances (they raised until
+    # ROADMAP A3b)
+    (dict(matmul_precision="tensorfloat32"), None),
     # islands above the base: the non-kernel branch, no kernel mode asked
     (dict(matmul_precision="bfloat16", relprop_precision="float32"), None),
     (dict(matmul_precision="bfloat16", mlp_precision="tensorfloat32"),
      None),
     (dict(matmul_precision="bfloat16", attn_precision="tensorfloat32"),
-     NotImplementedError),
+     None),
     # the float32 base's kernel branch runs its MLP at the base
     (dict(matmul_precision="float32", mlp_precision="bfloat16"), None),
     (dict(matmul_precision="float16"), ValueError),
     (dict(matmul_precision="bfloat16", attn_precision="half"), ValueError),
     (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16"),
-     NotImplementedError),                  # attention follows the base
+     None),                                 # attention follows the base
     (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16",
           attn_precision="float32"), None),
     (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16",
           attn_precision="bfloat16", mlp_precision="tensorfloat32"), None),
     (dict(matmul_precision="bfloat16", attn_precision="float32"), None),
+    # the BERT layer kernels and the tensor-parallel program have no bf16×3
+    # attention or rule instance yet
+    (dict(matmul_precision="tensorfloat32", family="bert"),
+     NotImplementedError),
+    (dict(matmul_precision="bfloat16", attn_precision="tensorfloat32",
+          family="bert"), NotImplementedError),
+    (dict(matmul_precision="tensorfloat32", relprop_precision="bfloat16",
+          attn_precision="float32", family="bert"), None),
+    (dict(matmul_precision="tensorfloat32", family="tp"),
+     NotImplementedError),
 ])
 def test_precision_gates(kw, raises):
+    """Each configuration's gate; a ViT configuration that passes runs on
+    the kernel branch (one sample on the CPU, finite)."""
     if raises is None:
         check_precision(**kw)
+        if kw.get("family", "vit") == "vit":
+            _, _, sd = _weights(SMALL)
+            heat = Explainer(sd, ViTConfig(**SMALL), device="cpu",
+                             **kw).explain(np.ones((1, 3, 32, 32)))
+            assert heat.shape == (1, 4) and torch.isfinite(heat).all()
     else:
-        with pytest.raises(raises, match="ROADMAP" if raises is
-                           NotImplementedError else None):
+        family = kw.get("family", "").upper()
+        with pytest.raises(raises, match=(
+                rf"ROADMAP B, raw tensorfloat32 \({family}\)"
+                if raises is NotImplementedError else None)):
             check_precision(**kw)
+
+
+def test_bert_and_tp_refuse_raw_tensorfloat32():
+    """BERT at raw tensorfloat32 (its layer kernels) and the tensor-parallel
+    program at raw tensorfloat32 raise at their entry points, naming their
+    ROADMAP B items; the BERT wrappers refuse a bf16×3 attention or rule
+    flag before any C entry sees it."""
+    from transformer_explainability_torch.explain import BertExplainer
+    from transformer_explainability_torch.models import bert as tbert
+    from transformer_explainability_torch.parallel.tensor import (
+        make_tp_explain_fn)
+    bcfg = tbert.BertConfig(vocab_size=50, hidden_size=16, num_layers=2,
+                            num_heads=2, intermediate_size=32,
+                            max_position_embeddings=16, num_labels=2)
+    bp = tbert.init_params(bcfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    bex = BertExplainer(bp, bcfg, device="cpu",
+                        **precision_kwargs("tensorfloat32"))
+    ids = np.array([[1, 5, 6, 7, 2, 0]])
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP B, raw tensorfloat32 \(BERT\)"):
+        bex.explain(ids, np.ones_like(ids))
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP B, raw tensorfloat32 \(TP\)"):
+        make_tp_explain_fn(ViTConfig(**SMALL), group=None, device="cpu",
+                           **precision_kwargs("tensorfloat32"))
+    p = [None] * 8 + [(torch.zeros(8, 8, dtype=torch.bfloat16),) * 2] * 4
+    for name, modes in (("bert_layer_fwd_core", dict(attn_mode=TF32)),
+                        ("bert_out_rev_core", dict(rule=TF32)),
+                        ("bert_attn_rev_core", dict(attn_mode="bfloat16",
+                                                    rule_mode=TF32))):
+        with pytest.raises(NotImplementedError,
+                           match=r"raw tensorfloat32 \(BERT\)"):
+            K._bert_modes(name, p, **modes)

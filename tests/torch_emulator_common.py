@@ -58,26 +58,30 @@ SHAPES = [(2, 29, 3, 8), (1, 70, 2, 64)]     # (B, n, h, hd), ragged n
 B5_SHAPES = SHAPES + [(1, 2 * 64 + 5, 2, 64), (1, 256 + 5, 1, 8)]
 
 
-def _check_attn_rev(lib, shape, attn, rule, seeds):
-    """float64 at rtol 1e-9, float32 by the rule below, from one set of
-    inputs."""
+def _check_attn_rev(lib, shape, attn, rule, seeds, drawn=False):
+    """float64 at rtol 1e-9, float32 by the rule below (``drawn``: by
+    :func:`_f32_drawn`), from one set of inputs."""
     b, n, h, d = shape
     # q, k, v offset from 0 so that the z-rule denominators (q·k, attn·v)
     # stay away from 0, where float64 summation order alone moves results
     # by more than 1e-9 (the comparison would measure conditioning)
     qkv = _randn(seeds[0], b, n, 3 * h * d) + 1.0
     g_o, cam_o = _randn(seeds[1], b, n, h * d), _randn(seeds[2], b, n, h * d)
-    flags = (K._ATTN_BF16[attn], K._ATTN_BF16[rule])
+    flags = (K._ATTN_MODE[attn], K._ATTN_MODE[rule])
     got = K._launch_attn_rev(lib, qkv, g_o, cam_o, h, d, d ** -0.5, None,
                              *flags)
     want = K.attn_rev_core_plain(qkv, g_o, cam_o, h, d, d ** -0.5, attn, rule)
     args32 = tuple(t.float() for t in (qkv, g_o, cam_o))
     got32 = K._launch_attn_rev(lib, *args32, h, d, d ** -0.5, None, *flags)
     want32 = K.attn_rev_core_plain(*args32, h, d, d ** -0.5, attn, rule)
-    for g, g32, w, w32, name in zip(got, got32, want, want32,
-                                    ["g_qkv", "cam_qkv", "gc"]):
+    names = ["g_qkv", "cam_qkv", "gc"]
+    for g, g32, w, w32, name in zip(got, got32, want, want32, names):
         torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12, msg=name)
-        _f32_rule(g32, w32, w, name)
+        if not drawn:
+            _f32_rule(g32, w32, w, name)
+    if drawn:
+        _f32_drawn(got32, lambda *a: K.attn_rev_core_plain(
+            *a, h, d, d ** -0.5, attn, rule), args32, want, names)
 
 
 def _check_rollout(lib, cams, start_layer, row_normalize, rows, grads=None):
@@ -103,6 +107,17 @@ EPS = 1e-6
 # (mxu, attn_mxu, rule_mxu, mlp_mxu) as the presets resolve them
 PRESETS = {"production": ("tensorfloat32", "float32", "bfloat16", "bfloat16"),
            "bfloat16": ("bfloat16", "bfloat16", "bfloat16", None)}
+# the block kernels' bf16×3 attention and rule modes: raw tensorfloat32,
+# the bfloat16 base with a tensorfloat32 attention island, and the
+# tensorfloat32 base's islands that pair a bf16×3 product with another mode
+TF32_PRESETS = {
+    "tensorfloat32": ("tensorfloat32", "tensorfloat32", "tensorfloat32",
+                      None),
+    "bf16-tf32-attn": ("bfloat16", "tensorfloat32", "bfloat16", None),
+    "tf32-f32-attn": ("tensorfloat32", "float32", "tensorfloat32", None),
+    "tf32-bf16-attn": ("tensorfloat32", "bfloat16", "tensorfloat32", None),
+    "tf32-bf16-rules": ("tensorfloat32", "tensorfloat32", "bfloat16", None),
+}
 BLOCK_SHAPES = [(2, 13, 2, 16), (1, 37, 3, 8)]     # (B, n, h, hd), ragged n
 
 
@@ -136,6 +151,39 @@ def _f32_rule(k32, p32, p64, name):
     assert ek <= lim, f"{name}: kernel error {ek:.3e} above {lim:.3e}"
 
 
+# The float32 rule against the plain float32 version's draws: where a
+# float32 output is a draw of bf16 re-roundings (an operand one float32 ulp
+# from a bf16 tie rounds either way, C4) or of an ill-conditioned divide,
+# the plain version on the inputs as they are may be a lucky draw. The
+# limit is then taken over it and over DRAWS runs of it on the inputs with
+# every element moved one float32 ulp at random (seeded): the kernel is
+# held as one more float32 draw of the same function.
+DRAWS = 4
+
+
+def _ulp_moved(t, gen):
+    s = torch.randint(-1, 2, t.shape, generator=gen)
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    down = torch.nextafter(t, torch.full_like(t, float("-inf")))
+    return torch.where(s > 0, up, torch.where(s < 0, down, t))
+
+
+def _f32_drawn(k32, plain, args32, p64, names, seed=7):
+    """``k32``, ``p64``: the kernel's float32 and the plain float64 outputs;
+    ``plain(*args)`` the plain version on float32 ``args32`` (tensors,
+    each moved in the draws)."""
+    gen = torch.Generator().manual_seed(seed)
+    draws = [plain(*args32)] + [
+        plain(*(_ulp_moved(t, gen) for t in args32)) for _ in range(DRAWS)]
+    for i, name in enumerate(names):
+        assert torch.isfinite(k32[i]).all(), name
+        ek = (k32[i].double() - p64[i]).abs().max().item()
+        ep = max((d[i].double() - p64[i]).abs().max().item() for d in draws)
+        lim = F32_FACTOR * ep + F32_FLOOR * p64[i].abs().max().item()
+        assert ek <= lim, (f"{name}: kernel error {ek:.3e} above {lim:.3e} "
+                           f"(plain float32 draws' largest {ep:.3e})")
+
+
 # B3's attention reverse across its tiles: n = 2·64 + 5 spans five 32-row
 # query tiles of the row pass, three streamed 64-key tiles and three 64-key
 # column tiles, the last of each ragged, its (n, n) rows copied in 4-byte
@@ -145,7 +193,7 @@ BLOCK_TILE_SHAPES = [(1, 2 * 64 + 5, 1, 64), (2, 64 + 8, 2, 8)]
 
 def _check_block_rev(lib, shape, preset):
     b, n, h, hd = shape
-    mxu, attn, rule, mlp = PRESETS[preset]
+    mxu, attn, rule, mlp = {**PRESETS, **TF32_PRESETS}[preset]
     p64, p32, x = _block_case(21, b, n, h, hd, mxu)
     fwd = bm.block_fwd_core_plain(x, p64, h, hd, EPS, mxu, attn, mlp,
                                   save_attn=True, save_mlp=True)
@@ -156,14 +204,20 @@ def _check_block_rev(lib, shape, preset):
     saved64 = fwd[3:]
     saved32 = tuple(t.float() for t in saved64)
     flags = K._block_modes("block_rev_core", p32, mxu=mxu, mlp=mlp or mxu,
-                           rule=rule, attn_bf16=attn, rule_bf16=rule)
+                           rule=rule, attn_mode=attn, rule_mode=rule)
     got = K._launch_block_rev(lib, *args32, saved32, p32, h, hd, EPS, flags,
                               None)
     want64 = bm.block_rev_core_plain(*args64, p64, h, hd, EPS, mxu, attn,
                                      rule, mlp, saved=saved64)
+    names = ["g_in", "R_in", "gc"]
+    if preset in TF32_PRESETS:
+        _f32_drawn(got, lambda *a: bm.block_rev_core_plain(
+            *a[:5], p32, h, hd, EPS, mxu, attn, rule, mlp, saved=a[5:]),
+            args32 + saved32, want64, names)
+        return
     want32 = bm.block_rev_core_plain(*args32, p32, h, hd, EPS, mxu, attn,
                                      rule, mlp, saved=saved32)
-    for k, p, q, name in zip(got, want32, want64, ["g_in", "R_in", "gc"]):
+    for k, p, q, name in zip(got, want32, want64, names):
         _f32_rule(k, p, q, name)
 
 
@@ -223,7 +277,7 @@ def _check_bert_fwd(lib, shape, preset, lengths=None):
     if lengths is not None:
         mask = _masks(S, lengths)
     flags = K._block_modes("bert_layer_fwd_core", p32, mxu=mxu,
-                           mlp=mlp or mxu, attn_bf16=attn)
+                           mlp=mlp or mxu, attn_mode=attn)
     got = K._launch_bert_fwd(lib, x.float(), mask.float(), p32, h, hd,
                              BERT_EPS, flags, None)
     args = (h, hd, BERT_EPS, mxu, attn, mlp)
@@ -250,7 +304,7 @@ def _check_bert_attn_rev(lib, shape, preset, lengths=None):
     a64, s64 = (x, g_attln, R_att, mask), fwd[2:]
     a32, s32 = tuple(t.float() for t in a64), tuple(t.float() for t in s64)
     flags = K._block_modes("bert_attn_rev_core", p32, mxu=mxu, rule=rule,
-                           attn_bf16=attn, rule_bf16=rule)
+                           attn_mode=attn, rule_mode=rule)
     got = K._launch_bert_attn_rev(lib, *a32, s32, p32, h, hd, BERT_EPS,
                                   flags, None)
     args = (h, hd, BERT_EPS, mxu, attn, rule)
@@ -407,3 +461,64 @@ def _check_core_bf16_instance(lib, rng, instance, mode, tile, M, N, Kd):
         assert g.shape == (M, N) and g.dtype == torch.float32
         err = ((g.double() - q).abs() / mag).max().item()
         assert err <= Kd * 2.0 ** -24, err
+
+
+# ---------------------------------------------------------------------------
+# The modes that predate bf16×3, bitwise: B4 (float32, bf16) and B5 (its
+# four pairs) in float64 and float32, B2 / B3 and B9 in the presets' modes
+# (float32), on fixed small inputs. ``tests/golden/torch_emulated_modes.npz``
+# holds a checkout's (experiments/torch_emulated_golden.py writes it from
+# the sources that predate the bf16×3 instances), so a change to the shared
+# tile or passes that moves a bit of these outputs shows
+# ---------------------------------------------------------------------------
+
+def mode_outputs(lib):
+    """{name: float array} of the kernels' outputs in the modes above."""
+    out = {}
+    b, n, h, d = SHAPES[0]
+    qkv = _randn(60, b, n, 3 * h * d) + 1.0
+    g_o, cam_o = _randn(61, b, n, h * d), _randn(62, b, n, h * d)
+    pairs = [("float32", "float32"), *ATTN_MODES.values(),
+             B5_MODES["bf16-attn-f32-rule"]]
+    for dt in (torch.float64, torch.float32):
+        args = tuple(t.to(dt) for t in (qkv, g_o, cam_o))
+        for m in ("float32", "bfloat16"):
+            out[f"B4 {m} {dt}"] = K._launch_attn_fwd(
+                lib, args[0], h, d, d ** -0.5, None, K._ATTN_MODE[m])
+        for a, r in pairs:
+            for k, t in enumerate(K._launch_attn_rev(
+                    lib, *args, h, d, d ** -0.5, None, K._ATTN_MODE[a],
+                    K._ATTN_MODE[r])):
+                out[f"B5 {a} {r} {dt} {k}"] = t
+    b, n, h, hd = BLOCK_SHAPES[1]
+    for preset, (mxu, attn, rule, mlp) in PRESETS.items():
+        _, p32, x = _block_case(63, b, n, h, hd, mxu)
+        fwd = K._launch_block_fwd(lib, x.float(), p32, h, hd, EPS,
+                                  K._block_modes("block_fwd_core", p32,
+                                                 mxu=mxu, mlp=mlp or mxu,
+                                                 attn_mode=attn), None)
+        rng = np.random.RandomState(64)
+        g_out, R = (torch.from_numpy(rng.randn(*x.shape)).float()
+                    for _ in range(2))
+        rev = K._launch_block_rev(
+            lib, x.float(), fwd[1], fwd[2], g_out, R, fwd[3:], p32, h, hd,
+            EPS, K._block_modes("block_rev_core", p32, mxu=mxu,
+                                mlp=mlp or mxu, rule=rule, attn_mode=attn,
+                                rule_mode=rule), None)
+        for k, t in enumerate(fwd + rev):
+            out[f"B2/B3 {preset} {k}"] = t
+        shape = BERT_SHAPES[2]
+        bb, S, hh, dd, inter = shape
+        p64, p32, xb, mask = _bert_case(65, *shape, mxu)
+        fwd = bmath.bert_layer_fwd_core_plain(xb, mask, p64, hh, dd,
+                                              BERT_EPS, mxu, attn, mlp,
+                                              save_attn=True)
+        g_attln, R_att = (torch.from_numpy(rng.randn(*xb.shape)).float()
+                          for _ in range(2))
+        for k, t in enumerate(K._launch_bert_attn_rev(
+                lib, xb.float(), g_attln, R_att, mask.float(),
+                tuple(s.float() for s in fwd[2:]), p32, hh, dd, BERT_EPS,
+                K._block_modes("bert_attn_rev_core", p32, mxu=mxu, rule=rule,
+                               attn_mode=attn, rule_mode=rule), None)):
+            out[f"B9 {preset} {k}"] = t
+    return {k: v.numpy() for k, v in out.items()}

@@ -24,8 +24,8 @@
 //   by side, so no latency-bound pass over shared memory is left;
 // - P·V is 8 × 8 register tiles too in float32 mode, four groups of the
 //   threads each taking one range of keys, the groups' sums meeting in
-//   shared memory and joining in a fixed order; in bf16 mode 4 × 4 tiles
-//   on every thread, each output one chain over the keys;
+//   shared memory and joining in a fixed order; in the bf16 modes 4 × 4
+//   tiles on every thread, each output one chain over the keys;
 // - Q and K (then V) are copied with 16-byte cp.async; P and V then take
 //   the place of Q and K, so two blocks fit an SM (105 KB at ViT-B); warps
 //   whose rows lie past n (the last tile at n = 197 holds 5) skip the
@@ -33,25 +33,31 @@
 // Every sum runs in a fixed order, so the kernel is bitwise repeatable.
 // The probabilities are formed in a softmax row pass's order (max, exp,
 // lane l summing keys l + 32c, the butterfly, then e / Σ). In float32 mode
-// P·V sums its key ranges apart; in bf16 mode each output is one chain over
-// j = 0 … n−1 in order. The tile's code lives in attn_fwd.cuh: B2's
+// P·V sums its key ranges apart; in the bf16 modes each output is one chain
+// over j = 0 … n−1 in order. The tile's code lives in attn_fwd.cuh: B2's
 // attention core (block_fwd.cu) is an instance of this kernel that also
 // stores the pre-scale scores and the probabilities, and B5's row pass
 // (attn_rev.cu) recomputes the probabilities by the same function, so they
 // are bitwise B4's.
 //
-// Modes (the JAX kernel's mxu): float32 products (exact FP32), or bf16
-// (RA): q, k, v and the probability row rounded to bf16 as the products
-// take them (rounded in shared memory once), float32 sums — the same SIMT
+// Modes (the JAX kernel's mxu): float32 products (exact FP32), bf16 (q, k,
+// v and the probability row rounded to bf16 as the products take them,
+// rounded in shared memory once, float32 sums) or bf16×3 (each product
+// three passes lo·hi, hi·lo, hi·hi over the unrounded operands, split as
+// they are loaded, into one float32 chain; attn_fwd.cuh) — the same SIMT
 // loops, so no tensor-core accumulation order enters.
 #include "attn_fwd.cuh"
 
-// Plain C entry points. attn_bf16: 1 = bf16 product operands, 0 = exact.
+// Plain C entry points. attn_mode: 0 = float32, 1 = bf16, 2 = bf16×3.
 #define TE_ATTN_FWD_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* qkv, void* out, int B, int n, int H,       \
-                      int hd, double scale, int attn_bf16, void* stream) {   \
-    const auto launch = attn_bf16 ? te::attn_fwd_launch<T, true>             \
-                                  : te::attn_fwd_launch<T, false>;           \
+                      int hd, double scale, int attn_mode, void* stream) {   \
+    if (attn_mode < te::kModeF32 || attn_mode > te::kModeBf16x3)                     \
+      return (int)cudaErrorInvalidValue;                                     \
+    const auto launch = attn_mode == te::kModeBf16x3                             \
+                            ? te::attn_fwd_launch<T, te::kModeBf16x3>            \
+                        : attn_mode ? te::attn_fwd_launch<T, te::kModeBf16>      \
+                                    : te::attn_fwd_launch<T, te::kModeF32>;      \
     return launch(static_cast<const T*>(qkv), static_cast<T*>(out), nullptr, \
                   nullptr, B, n, H, hd, scale,                               \
                   static_cast<cudaStream_t>(stream));                        \

@@ -15,7 +15,7 @@
 //   softmax pass runs over them while V is copied;
 // - P·V is 8 × 8 register tiles in float32 mode, four groups of the
 //   threads each taking one range of keys, the groups' sums meeting in
-//   shared memory and joining in a fixed order; in bf16 mode and in the
+//   shared memory and joining in a fixed order; in the bf16 modes and the
 //   anchor instances (B2, B5) 4 × 4 tiles, each output one chain over
 //   j = 0 … n−1;
 // - Q and K (then V) are copied with 16-byte cp.async; P and V then take
@@ -24,9 +24,14 @@
 // The probabilities are formed in a softmax row pass's order (max, exp,
 // lane l summing keys l + 32c, the butterfly, then e / Σ).
 //
-// Modes (the JAX kernel's mxu): float32 products, or bf16 (RA): q, k, v and
-// the probability row rounded to bf16 as the products take them (rounded
-// in shared memory once), float32 sums.
+// Modes (the JAX kernel's mxu, common.cuh): float32 products; bf16: q, k,
+// v and the probability row rounded to bf16 as the products take them
+// (rounded in shared memory once), float32 sums; bf16×3: the operands
+// stay unrounded in shared memory and each product runs three passes over
+// them (lo·hi, hi·lo, hi·hi), splitting each value as it is loaded, into
+// the one accumulator of its output, on the CUDA cores as the other two
+// modes (the same loops and tiles, so each output stays one chain; three
+// mma.sync passes would change the tiles and the order of every sum).
 #pragma once
 
 #include "common.cuh"
@@ -117,7 +122,7 @@ __device__ __forceinline__ void lds_n(const T* p, T (&v)[DS]) {
 // each 32·KC-key tile, an 8 × KC register tile (16 floats read per 64 FMAs
 // at KC = 8). P·V: four groups of the threads each take a range of keys,
 // or one chain over the keys per output (below).
-template <typename T, bool RA, int KC, bool ANCH, class Epi>
+template <typename T, int A, int KC, bool ANCH, class Epi>
 __device__ __forceinline__ void attn_fwd_tile(
     T* smem, T* part, const FwdLayout& lay, const T* __restrict__ qkv,
     T* __restrict__ dots, T* __restrict__ probs, int n, int H, int hd,
@@ -138,6 +143,8 @@ __device__ __forceinline__ void attn_fwd_tile(
   const int D = H * hd, ld = 3 * D;
   const T* base = qkv + (size_t)b * n * ld + h * hd;
   const bool vec = tile_vec_ok(base, ld, hd);
+  // the products' view of their operands: bf16 values lie rounded already
+  constexpr int VA = A == kModeBf16x3 ? kModeBf16x3 : kModeF32;
 
   // zeros where the copies do not write: Q rows past n, K/V rows n … n4,
   // the columns hd … HD4
@@ -148,9 +155,9 @@ __device__ __forceinline__ void attn_fwd_tile(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (RA) {
+  if (A == kModeBf16) {
     for (int idx = t; idx < (QT + n4) * ldk; idx += NT)
-      Qs[idx] = rnd<RA>(Qs[idx]);
+      Qs[idx] = rnd<true>(Qs[idx]);
     __syncthreads();
   }
 
@@ -168,17 +175,28 @@ __device__ __forceinline__ void attn_fwd_tile(
         for (int i = 0; i < 8; ++i) acc[i][c] = T(0);
       }
       // d four at a time in float32 (16-byte reads); two in double, whose
-      // K values would not fit the registers four at a time
-      constexpr int DS = sizeof(T) == sizeof(float) ? 4 : 2;
+      // K values would not fit the registers four at a time, one in double
+      // bf16×3 (its split operands spilled at two; each sum's order is d's)
+      constexpr int DS = sizeof(T) == sizeof(float) ? 4
+                         : A == kModeBf16x3          ? 1
+                                                     : 2;
+#pragma unroll 1
+      for (int ps = 0; ps < kPasses<A>; ++ps)
 #pragma unroll 1   // fewer live registers: ran faster on the card
       for (int d = 0; d < HD4; d += DS) {
         T k[KC][DS];
 #pragma unroll
-        for (int c = 0; c < KC; ++c) lds_n(kp[c] + d, k[c]);
+        for (int c = 0; c < KC; ++c) {
+          lds_n(kp[c] + d, k[c]);
+#pragma unroll
+          for (int dd = 0; dd < DS; ++dd) k[c][dd] = opnd<VA, 1>(k[c][dd], ps);
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           T q[DS];
           lds_n(qp + i * ldk + d, q);
+#pragma unroll
+          for (int dd = 0; dd < DS; ++dd) q[dd] = opnd<VA, 0>(q[dd], ps);
 #pragma unroll
           for (int dd = 0; dd < DS; ++dd)
 #pragma unroll
@@ -267,7 +285,7 @@ __device__ __forceinline__ void attn_fwd_tile(
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int c = 0; c < KC; ++c) acc[i][c] = rnd<RA>(acc[i][c]);
+        for (int c = 0; c < KC; ++c) acc[i][c] = rnd<A == kModeBf16>(acc[i][c]);
     }
     __syncthreads();   // Q and K are consumed: P and V take their place
     if (live) {
@@ -304,14 +322,14 @@ __device__ __forceinline__ void attn_fwd_tile(
       const T p = pr[j] / sum;
       if constexpr (ANCH)
         probs[(((size_t)b * H + h) * n + row0 + r) * n + j] = p;
-      pr[j] = rnd<RA>(p);
+      pr[j] = rnd<A == kModeBf16>(p);
     }
     for (int j = n + lane; j < n4; j += kWarp) pr[j] = T(0);
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (RA) {
-    for (int idx = t; idx < n4 * ldk; idx += NT) Vs[idx] = rnd<RA>(Vs[idx]);
+  if (A == kModeBf16) {
+    for (int idx = t; idx < n4 * ldk; idx += NT) Vs[idx] = rnd<true>(Vs[idx]);
     __syncthreads();
   }
 
@@ -319,15 +337,16 @@ __device__ __forceinline__ void attn_fwd_tile(
   // the threads take one range of keys each; thread u of a group owns rows
   // 8(u/8) … + 7 and columns 4(u%8) + 32e … + 3 (e < 2), an 8 × 8 register
   // tile (16 floats read per 64 FMAs); the groups' sums meet in shared
-  // memory and join in group order. In bf16 mode and in the instances that
-  // store the anchors (B2, B5) each output is one chain over j = 0 … n−1,
+  // memory and join in group order. In the bf16 modes and in the instances
+  // that store the anchors (B2, B5) each output is one chain over j = 0 …
+  // n−1 (in bf16×3 three such passes, one after the other),
   // as the plain version and the per-row kernels these replaced sum it
   // (the ViT split path rounds this output to bf16, and an ulp of it moved
   // that path's fidelity measurably; B2's out_m feeds the production path,
   // which is ill-conditioned on some inputs; in B5 the chain also ran
   // faster on the card): thread t owns rows 4(t/16) … + 3 and columns
   // 4(t%16) … + 3, a 4 × 4 tile (32 floats read per 64 FMAs).
-  if constexpr (RA || ANCH) {
+  if constexpr (A != kModeF32 || ANCH) {
     const int r0 = 4 * (t / 16), c0 = 4 * (t % 16);
     if (r0 >= nr) return;
     T o[4][4];
@@ -335,14 +354,22 @@ __device__ __forceinline__ void attn_fwd_tile(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) o[i][dd] = T(0);
+#pragma unroll 1
+    for (int ps = 0; ps < kPasses<A>; ++ps)
     for (int j = 0; j < n4; j += 4) {
       T p[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) lds4(Ps + (r0 + i) * ldp + j, p[i]);
+      for (int i = 0; i < 4; ++i) {
+        lds4(Ps + (r0 + i) * ldp + j, p[i]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) p[i][jj] = opnd<VA, 0>(p[i][jj], ps);
+      }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         T v[4];
         lds4(Vs + (size_t)(j + jj) * ldk + c0, v);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) v[dd] = opnd<VA, 1>(v[dd], ps);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -430,7 +457,7 @@ __device__ __forceinline__ void attn_fwd_tile(
 // chain per output in both modes: B2's outputs are then bitwise those of
 // the per-row core it replaced. (Its registers exceed 128 a thread: one
 // block an SM, no spill.)
-template <typename T, bool RA, int KC, bool ANCH>
+template <typename T, int A, int KC, bool ANCH>
 __global__ void __launch_bounds__(4 * kFwdMaxRows, ANCH ? 1 : 2)
 attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                 T* __restrict__ dots, T* __restrict__ probs, int n, int H,
@@ -439,14 +466,14 @@ attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   const int h = blockIdx.y, b = blockIdx.z, row0 = blockIdx.x * QT;
   T* orow = out + ((size_t)b * n + row0) * D + h * hd;
   T* smem = reinterpret_cast<T*>(te_smem);
-  attn_fwd_tile<T, RA, KC, ANCH>(
+  attn_fwd_tile<T, A, KC, ANCH>(
       smem, smem, FwdLayout(n), qkv, dots, probs, n, H, hd, scale,
       [&](int r, int c, T s) { orow[(size_t)r * D + c] = s; });
 }
 
 // Rows a block: 64 (n rounded up to 8 if less), fewer where the shared
 // memory asks (on the card, 40- and 48-row tiles ran slower at ViT-B).
-template <typename T, bool RA, bool ANCH = false>
+template <typename T, int A, bool ANCH = false>
 int attn_fwd_launch(const T* qkv, T* out, T* dots, T* probs, int B, int n,
                     int H, int hd, double scale, cudaStream_t stream) {
   if (hd < 1 || hd > kFwdMaxHeadDim || n < 1) return (int)cudaErrorInvalidValue;
@@ -457,8 +484,8 @@ int attn_fwd_launch(const T* qkv, T* out, T* dots, T* probs, int B, int n,
   const size_t smem = lay.smem<T>(rows);
   if (smem > limit) return (int)cudaErrorInvalidValue;
   // 7 key groups a lane where 224 keys hold the row (ViT-B's 197), else 8
-  auto kern = n <= 7 * kWarp ? attn_fwd_kernel<T, RA, 7, ANCH>
-                             : attn_fwd_kernel<T, RA, 8, ANCH>;
+  auto kern = n <= 7 * kWarp ? attn_fwd_kernel<T, A, 7, ANCH>
+                             : attn_fwd_kernel<T, A, 8, ANCH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -329,8 +329,9 @@ int bert_heads_rev(const float* qkv, const float* mask, const float* ctx,
       qkv, mask, ctx, g_ctx, R1f, g_qkv, cam_qkv, P, G, S2, GCP, S1, sums, n,
       H, hd, scale);
   TE_TRY((int)cudaGetLastError());
-  return attn_rev_cols<RA>(qkv, g_ctx, P, G, S2, S1, GCP, g_qkv, cam_qkv,
-                           gc, B, n, H, hd, stream);
+  return attn_rev_cols<RA ? kModeBf16 : kModeF32>(
+      qkv, g_ctx, P, G, S2, S1, GCP, g_qkv, cam_qkv, gc, B, n, H, hd,
+      stream);
 }
 
 int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
@@ -339,9 +340,10 @@ int bert_attn_rev(const float* x_in, const float* g_attln, const float* R_att,
                   char* work, size_t* work_bytes, int B, int n, int H, int hd,
                   float eps, int mxu, int attn_bf16, int rule_bf16, int rule,
                   cudaStream_t stream) {
-  // the rule products run on the tensor cores in bf16 only (the wrapper's
-  // mode tables admit no other rule mode for this kernel)
-  if (hd > kMaxHeadDim || !rule_bf16 ||
+  // bf16 rule products (on the tensor cores) and float32 or bf16 gradient
+  // products only: no bf16×3 instance (ROADMAP B, raw tensorfloat32 (BERT))
+  if (hd > kMaxHeadDim || rule_bf16 != 1 ||
+      (attn_bf16 != 0 && attn_bf16 != 1) ||
       rev_rows_smem(n) > (size_t)max_smem_optin())
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + kRowQ - 1) / kRowQ;

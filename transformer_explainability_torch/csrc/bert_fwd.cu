@@ -253,6 +253,8 @@ extern "C" int te_bert_fwd_f32(
     void* att_ln, void* qkv_pre, void* ctx, void* dense_nb, void* work,
     void* work_bytes, int B, int n, int H, int hd, int I, double eps, int mxu,
     int attn_bf16, int mlp, void* stream) {
+  // no bf16×3 attention instance (ROADMAP B, raw tensorfloat32 (BERT))
+  if (attn_bf16 != 0 && attn_bf16 != 1) return (int)cudaErrorInvalidValue;
   using F = const float*;
   using W = const uint16_t*;
   te::BlockWeights w{

@@ -22,7 +22,8 @@
 // (gemm.cuh) run on the tensor cores. The attention core is B4's kernel
 // (attn_fwd.cuh: 64-row query tiles, 8 × 8 register tiles for the scores
 // and P·V, the softmax in registers up to 256 keys; FP32 off the tensor
-// cores, the operands rounded to bf16 when attn_mxu is bfloat16) in an
+// cores, the operands rounded to bf16 when attn_mxu is bfloat16, three
+// passes over their bf16×3 parts when it is tensorfloat32) in an
 // instance that also stores, from its register tiles, the pre-scale dots
 // and the probabilities before any rounding, and sums P·V in one chain per
 // output: the operation order of the per-row core it replaced, so dots,
@@ -36,8 +37,10 @@ int block_fwd(const float* x, const BlockWeights& w, float* x_out,
               float* x_mid, float* out_m, float* qkv_pre, float* proj_pre,
               float* dots, float* probs, float* fc1_pre, float* fc2_pre,
               char* work, size_t* work_bytes, int B, int n, int H, int hd,
-              int M, float eps, int mxu, int attn_bf16, int mlp,
+              int M, float eps, int mxu, int attn_mode, int mlp,
               cudaStream_t stream) {
+  if (attn_mode < kModeF32 || attn_mode > kModeBf16x3)
+    return (int)cudaErrorInvalidValue;
   const int D = H * hd, rows = B * n;
   Carve ws{work};
   float* xn = ws.take<float>((size_t)rows * D);
@@ -53,19 +56,19 @@ int block_fwd(const float* x, const BlockWeights& w, float* x_out,
   TE_TRY(gemm<true, false, false>(
       mxu, GemmArgs{xn, w.wqkv_hi, w.wqkv_lo, D, D, rows, 3 * D, D},
       EpiQkv{qkv_pre, qkv, w.bqkv, 3 * D}, stream));
-  TE_TRY(attn_bf16 ? attn_fwd_launch<float, true, true>(
-                         qkv, out_m, dots, probs, B, n, H, hd, scale, stream)
-                   : attn_fwd_launch<float, false, true>(
-                         qkv, out_m, dots, probs, B, n, H, hd, scale,
-                         stream));
+  const auto attn = attn_mode == kModeBf16x3
+                        ? attn_fwd_launch<float, kModeBf16x3, true>
+                    : attn_mode ? attn_fwd_launch<float, kModeBf16, true>
+                                : attn_fwd_launch<float, kModeF32, true>;
+  TE_TRY(attn(qkv, out_m, dots, probs, B, n, H, hd, scale, stream));
   TE_TRY(gemm<true, false, false>(
       mxu, GemmArgs{out_m, w.wproj_hi, w.wproj_lo, D, D, rows, D, D},
       EpiResidual{proj_pre, x_mid, x, w.bproj, D}, stream));
   TE_TRY(ln_fwd(x_mid, w.ln2s, w.ln2b, xn, rows, D, eps, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{xn, w.w1_hi, w.w1_lo, D, D, rows, M, D},
       EpiGelu{fc1_pre, hg, w.b1, M}, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{hg, w.w2_hi, w.w2_lo, M, M, rows, D, M},
       EpiResidual{fc2_pre, x_out, x_mid, w.b2, D}, stream));
   return 0;
@@ -78,7 +81,7 @@ int block_fwd(const float* x, const BlockWeights& w, float* x_out,
 // null for one-pass modes); the outputs x_out, x_mid, out_m, qkv_pre,
 // proj_pre, dots, probs, fc1_pre, fc2_pre; the workspace. With a null
 // workspace it only writes the workspace size to *work_bytes. Modes: mxu and
-// mlp 0 = bf16, 1 = bf16×3; attn_bf16 1 = bf16 operands, 0 = float32.
+// mlp 0 = bf16, 1 = bf16×3; attn_mode 0 = float32, 1 = bf16, 2 = bf16×3.
 extern "C" int te_block_fwd_f32(
     const void* x, const void* ln1s, const void* ln1b, const void* ln2s,
     const void* ln2b, const void* bqkv, const void* bproj, const void* b1,
@@ -87,7 +90,7 @@ extern "C" int te_block_fwd_f32(
     const void* w1_lo, const void* w2_hi, const void* w2_lo, void* x_out,
     void* x_mid, void* out_m, void* qkv_pre, void* proj_pre, void* dots,
     void* probs, void* fc1_pre, void* fc2_pre, void* work, void* work_bytes,
-    int B, int n, int H, int hd, int M, double eps, int mxu, int attn_bf16,
+    int B, int n, int H, int hd, int M, double eps, int mxu, int attn_mode,
     int mlp, void* stream) {
   using F = const float*;
   using W = const uint16_t*;
@@ -105,5 +108,5 @@ extern "C" int te_block_fwd_f32(
       static_cast<float*>(dots), static_cast<float*>(probs),
       static_cast<float*>(fc1_pre), static_cast<float*>(fc2_pre),
       static_cast<char*>(work), static_cast<size_t*>(work_bytes), B, n, H, hd,
-      M, (float)eps, mxu, attn_bf16, mlp, static_cast<cudaStream_t>(stream));
+      M, (float)eps, mxu, attn_mode, mlp, static_cast<cudaStream_t>(stream));
 }

@@ -44,9 +44,10 @@ namespace te {
 
 // ---------------------------------------------------------------------------
 // Attention reverse from the saved anchors (_attn_rev_math with saved_attn
-// and out_m). RA: gradient products on bf16 operands (else float32); the
-// rule products run in bf16 (the only rule mode the wrapper admits). q, k,
-// v = qkv_pre + bqkv, formed once into qkv with the forward's own add.
+// and out_m), in the modes (common.cuh) A of the gradient products (float32,
+// bf16 or bf16×3) and R of the rule products (bf16 or bf16×3, on the tensor
+// cores; a reduced base's rule mode is never float32). q, k, v = qkv_pre +
+// bqkv, formed once into qkv with the forward's own add.
 // ---------------------------------------------------------------------------
 
 // Shared memory of the row pass, in floats: the (32, n) rows Rr (dots, then
@@ -63,7 +64,10 @@ struct BlkRowLayout {
 };
 
 // Row pass: one block of 256 threads per (tile of kRowQ = 32 query rows,
-// head, sample), B9's row pass without its recompute (rules.cuh pieces).
+// head, sample), B9's row pass without its recompute (rules.cuh pieces);
+// in bf16×3 each product three passes (the rule products on the tensor
+// cores over hi and lo fragments, the gradient products' operands split
+// as they are loaded).
 // The rows' dots and probs arrive by cp.async; V, then K, stream through
 // two shared-memory stages of kKeyT keys, the next tile in flight while the
 // block works on this one. V sweep: g_attn = g_o·Vᵀ (float32 micro-tile, 1
@@ -72,7 +76,7 @@ struct BlkRowLayout {
 // the softmax backward G = p ⊙ (g_attn − inner)·scale. K sweep: g_q = G·K
 // (float32) and cq = S2·K (bf16, tensor cores). Emits g_q and cam_q = q ⊙
 // cq / 2, and writes G, S2, GCP and S1 for the column pass.
-template <bool RA>
+template <int A, int R>
 __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
     const float* __restrict__ qkv, const float* __restrict__ probs,
     const float* __restrict__ dots, const float* __restrict__ out_m,
@@ -107,8 +111,12 @@ __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
     const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
     if (c >= hd) KVs[r * kLdk + c] = 0.f;
   }
-  rows_stage_go_s1<RA>(Gs, S1s, S1g, g_o, cam_o, out_m, b, h, H, n, row0, nr,
-                       hd);
+  // the stages are rounded in place where every product takes K and V as
+  // bf16; else the gradient products view them as A (opnd)
+  constexpr bool ROUND = A == kModeBf16 && R == kModeBf16;
+  constexpr int VA = ROUND ? kModeF32 : A;
+  rows_stage_go_s1<A == kModeBf16>(Gs, S1s, S1g, g_o, cam_o, out_m, b, h, H, n,
+                               row0, nr, hd);
   load_tile_async(Rr, lds, dots + tile_o, n, nr, n, vec_rows);
   load_tile_async(Rg, lds, probs + tile_o, n, nr, n, vec_rows);
   cp_async_commit();
@@ -121,7 +129,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
                    n - j0 < kKeyT ? n - j0 : kKeyT, hd, vec);
   };
 
-  uint32_t a1[4][4];                      // S1 as A fragments (V sweep)
+  uint32_t a1[4][4], a1lo[4][4];          // S1 as A fragments (V sweep)
   float gq[2][4], cq[2][4];               // g_q (SIMT) and cq (mma) rows
 #pragma unroll
   for (int e = 0; e < 2; ++e)
@@ -139,16 +147,20 @@ __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
     }
     __syncthreads();
     float* st = KVs + (s & 1) * kKeyT * kLdk;
-    if (RA) {   // the gradient products take K and V as bf16
+    if (ROUND) {   // every product takes K and V as bf16
       for (int idx = t; idx < kKeyT * kLdk; idx += kRowThreads)
         st[idx] = round_bf16(st[idx]);
       __syncthreads();
     }
     const int j0 = (s % T) * kKeyT;
     if (s < T) {
-      if (s == 0) rows_s1_frags(S1s, mw, g, t4, a1);
+      if (s == 0) {
+        rows_s1_frags(S1s, mw, g, t4, a1);
+        if constexpr (R == kModeBf16x3) rows_s1_frags(S1s, mw, g, t4, a1lo, 1);
+      }
       float ga[8];
-      rows_av_products(a1, st, Gs, Ts, mw, nw, g, t4, ty, tx, ga);
+      rows_av_products<VA, R>(a1, st, Gs, Ts, mw, nw, g, t4, ty, tx, ga,
+                              a1lo);
       __syncthreads();   // Ts complete
       // the AV z-rule, the QKᵀ z-rule's S and (g_attn ⊙ cam1)⁺, per (i, j)
 #pragma unroll
@@ -170,11 +182,12 @@ __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
         }
       }
     } else {
-      rows_qk_products(Rr, Rg, lds, j0, st, mw, nw, g, t4, ty, tx, gq, cq);
+      rows_qk_products<VA, R>(Rr, Rg, lds, j0, st, mw, nw, g, t4, ty, tx, gq,
+                              cq);
     }
     __syncthreads();   // the stage and Ts are consumed
     if (s == T - 1) {
-      rows_softmax_bwd<RA>(inner, probs + tile_o, G + tile_o, S2g + tile_o,
+      rows_softmax_bwd<A == kModeBf16>(inner, probs + tile_o, G + tile_o, S2g + tile_o,
                            Rr, Rg, lds, n, nr, ty, tx, scale);
       __syncthreads();
     }
@@ -183,7 +196,7 @@ __global__ void __launch_bounds__(kRowThreads, 1) blk_attn_rev_rows_kernel(
                g, t4, ty, tx);
 }
 
-template <bool RA>
+template <int A, int R>
 int blk_attn_rev(const float* qkv, const float* probs, const float* dots,
                  const float* out_m, const float* g_o, const float* cam_o,
                  float* g_qkv, float* cam_qkv, float* gc, float* G, float* S2,
@@ -191,7 +204,7 @@ int blk_attn_rev(const float* qkv, const float* probs, const float* dots,
                  float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * BlkRowLayout(n).floats();
   if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
-  auto kern = blk_attn_rev_rows_kernel<RA>;
+  auto kern = blk_attn_rev_rows_kernel<A, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -200,8 +213,15 @@ int blk_attn_rev(const float* qkv, const float* probs, const float* dots,
       qkv, probs, dots, out_m, g_o, cam_o, g_qkv, cam_qkv, G, S2, GCP, S1, n,
       H, hd, scale);
   TE_TRY((int)cudaGetLastError());
-  return attn_rev_cols<RA>(qkv, g_o, probs, G, S2, S1, GCP, g_qkv, cam_qkv,
-                           gc, B, n, H, hd, stream);
+  return attn_rev_cols<A, float, R>(qkv, g_o, probs, G, S2, S1, GCP, g_qkv,
+                                    cam_qkv, gc, B, n, H, hd, stream);
+}
+
+// the instance of the attention mode pair (a, r): a 0 = float32, 1 = bf16,
+// 2 = bf16×3; r 1 = bf16, 2 = bf16×3
+template <int A>
+decltype(&blk_attn_rev<A, kModeBf16>) blk_attn_rev_rule(int r) {
+  return r == kModeBf16x3 ? blk_attn_rev<A, kModeBf16x3> : blk_attn_rev<A, kModeBf16>;
 }
 
 struct Saved {
@@ -212,11 +232,11 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
               const float* g_out, const float* R, const Saved& sv,
               const BlockWeights& w, float* g_in, float* R_in, float* gc,
               char* work, size_t* work_bytes, int B, int n, int H, int hd,
-              int M, float eps, int mxu, int attn_bf16, int rule_bf16,
+              int M, float eps, int mxu, int attn_mode, int rule_mode,
               int rule, int mlp, cudaStream_t stream) {
-  // the rule products run on the tensor cores in bf16 only (the wrapper's
-  // mode tables admit no other rule mode for this kernel)
-  if (hd > kMaxHeadDim || !rule_bf16) return (int)cudaErrorInvalidValue;
+  if (hd > kMaxHeadDim || attn_mode < kModeF32 || attn_mode > kModeBf16x3 ||
+      rule_mode < kModeBf16 || rule_mode > kModeBf16x3)
+    return (int)cudaErrorInvalidValue;
   const int D = H * hd, rows = B * n;
   const size_t rD = (size_t)rows * D;
   const size_t hnn = (size_t)B * H * n * n;
@@ -271,7 +291,9 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
 
   // attention core
   TE_TRY(bias_add(sv.qkv_pre, w.bqkv, nullptr, qkv, 3 * rD, 3 * D, stream));
-  const auto attn = attn_bf16 ? blk_attn_rev<true> : blk_attn_rev<false>;
+  const auto attn = attn_mode == kModeBf16x3 ? blk_attn_rev_rule<kModeBf16x3>(rule_mode)
+                    : attn_mode ? blk_attn_rev_rule<kModeBf16>(rule_mode)
+                                : blk_attn_rev_rule<kModeF32>(rule_mode);
   TE_TRY(attn(qkv, sv.probs, sv.dots, out_m, g_om, cam_o, g_qkv, cam_qkv, gc,
               G, S2, GCP, S1, B, n, H, hd, scale, stream));
 
@@ -299,8 +321,8 @@ int block_rev(const float* x_in, const float* x_mid, const float* out_m,
 // (precision.PreparedWeight.abs); the outputs g_in,
 // R_in, gc; the workspace (null: only write its size to *work_bytes).
 // Modes: mxu, rule (the rule GEMMs) and mlp 0 = bf16, 1 = bf16×3;
-// attn_bf16 and rule_bf16 (the attention's gradient and rule products)
-// 1 = bf16 operands, 0 = float32.
+// attn_mode and rule_mode (the attention's gradient and rule products)
+// 0 = float32 (the gradient products only), 1 = bf16, 2 = bf16×3.
 extern "C" int te_block_rev_f32(
     const void* x_in, const void* x_mid, const void* out_m, const void* g_out,
     const void* R, const void* qkv_pre, const void* proj_pre,
@@ -313,7 +335,7 @@ extern "C" int te_block_rev_f32(
     const void* wqkv_ahi, const void* wqkv_alo, const void* wproj_ahi,
     const void* wproj_alo, const void* w1_ahi, const void* w1_alo,
     const void* w2_ahi, const void* w2_alo, void* g_in, void* R_in, void* gc, void* work, void* work_bytes, int B, int n, int H,
-    int hd, int M, double eps, int mxu, int attn_bf16, int rule_bf16,
+    int hd, int M, double eps, int mxu, int attn_mode, int rule_mode,
     int rule, int mlp, void* stream) {
   using F = const float*;
   using W = const uint16_t*;
@@ -335,5 +357,5 @@ extern "C" int te_block_rev_f32(
       static_cast<float*>(g_in), static_cast<float*>(R_in),
       static_cast<float*>(gc), static_cast<char*>(work),
       static_cast<size_t*>(work_bytes), B, n, H, hd, M, (float)eps, mxu,
-      attn_bf16, rule_bf16, rule, mlp, static_cast<cudaStream_t>(stream));
+      attn_mode, rule_mode, rule, mlp, static_cast<cudaStream_t>(stream));
 }

@@ -90,6 +90,39 @@ __device__ __forceinline__ T rnd(T x) {
   return R ? T(round_bf16(float(x))) : x;
 }
 
+// The product modes of the attention kernels (the JAX kernels' attn_mxu and
+// rule_mxu): exact float32, one bf16 pass, or bf16×3 (ops/precision.py:
+// kdot): each operand split as hi = bf16(x), lo = bf16(x − hi), and the
+// product hi·hi + hi·lo + lo·hi, three bf16 passes summed in one float32
+// (double) chain. Not the card's TF32 tensor-core format, which keeps 10
+// mantissa bits to bf16×3's 16. The passes run lo·hi, hi·lo, then hi·hi:
+// the small cross terms gather first, so the chain rounds at their scale
+// until the hi·hi terms come, and a bf16×3 sum is as accurate as a float32
+// chain (as kdot's hi·hi + (hi·lo + lo·hi) sums are); hi·hi first would
+// round every cross term at the sum's full scale (2-4 times the plain
+// version's error on ViT-B's 64-term dots).
+constexpr int kModeF32 = 0, kModeBf16 = 1, kModeBf16x3 = 2;
+
+// the passes of a product in mode M
+template <int M>
+constexpr int kPasses = M == kModeBf16x3 ? 3 : 1;
+
+// Operand x of pass p of a product, viewed as V, on side S (0: the left
+// operand, 1: the right): kModeF32 as it lies (exact, or rounded in shared
+// memory already); kModeBf16 rounded as it is loaded; kModeBf16x3 its lo
+// part in pass 0 (lo·hi) on the left side and in pass 1 (hi·lo) on the
+// right, else its hi part (pass 2: hi·hi). A double splits through float,
+// as kdot splits its float64 operands.
+template <int V, int S, typename T>
+__device__ __forceinline__ T opnd(T x, int p) {
+  if constexpr (V == kModeBf16x3) {
+    const float xf = float(x), hi = round_bf16(xf);
+    return T(p == S ? round_bf16(xf - hi) : hi);
+  } else {
+    return rnd<V == kModeBf16>(x);
+  }
+}
+
 // Arithmetic the compiler may not contract into an FMA: the anchors that a
 // forward and a reverse kernel both form (LayerNorm outputs, GELU) must come
 // out bitwise equal in both.
@@ -105,6 +138,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 #else
   return (uint32_t)f2bf(lo) | (uint32_t)f2bf(hi) << 16;
 #endif
+}
+
+// two floats as one fragment register of part q of their bf16×3 split:
+// 0 the hi parts (pack_bf16x2 itself), 1 the lo parts bf16(x − bf16(x))
+__device__ __forceinline__ uint32_t pack_part(float lo, float hi, int q) {
+  return q ? pack_bf16x2(lo - round_bf16(lo), hi - round_bf16(hi))
+           : pack_bf16x2(lo, hi);
 }
 
 // D += A·B on the tensor cores: one m16n8k16 tile, bf16 operands packed two

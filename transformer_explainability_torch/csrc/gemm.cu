@@ -14,11 +14,16 @@ namespace te {
 template <bool WT, bool ABS, bool DUAL>
 int gemm_store(int mode, const GemmArgs& g, float* C, float* C_abs,
                int tile, cudaStream_t stream) {
+  // mode kBf16x3Rn: a bf16×3 product as the MLP products run it
+  auto run = [&](const auto& epi) {
+    return mode == kBf16x3Rn
+               ? gemm_mlp<WT, ABS, DUAL>(kBf16x3, g, epi, stream, tile)
+               : gemm<WT, ABS, DUAL>(mode, g, epi, stream, tile);
+  };
   if constexpr (DUAL)
-    return gemm<WT, ABS, DUAL>(mode, g, EpiStore2{C, C_abs, g.N}, stream,
-                               tile);
+    return run(EpiStore2{C, C_abs, g.N});
   else
-    return gemm<WT, ABS, DUAL>(mode, g, EpiStore{C, g.N}, stream, tile);
+    return run(EpiStore{C, g.N});
 }
 
 // the three values of SpecThree's pass, stored apart
@@ -51,7 +56,8 @@ int fused_store(const E& epi, int M, int N, int K, const void* a0,
 // Plain C entry point (float32 A and C). Pointers: A (M, K) with row pitch
 // lda, float32, or bf16 with a16 (mode 0 and (wt, absolute) = (0, 0) only);
 // the planes (hi, lo) of the weight operand (lo null in mode 0: bf16; mode
-// 1: bf16×3), W (N, K) with wt, (K, N) without, row pitch ldw; with dual
+// 1: bf16×3; mode 2: bf16×3 summed a k-step at a time, the MLP products'
+// mode, gemm.cuh), W (N, K) with wt, (K, N) without, row pitch ldw; with dual
 // the planes of |W| (ahi, alo); C (M, N) and, with dual, C_abs (M, N). With
 // absolute the kernel takes |A| and the caller passes |W|'s planes as (hi,
 // lo). tile: -1 the tile the layer kernels would take for this shape, 0 the

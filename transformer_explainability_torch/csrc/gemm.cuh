@@ -10,6 +10,16 @@
 //   kBf16x3: hi(A)·hi + (hi(A)·lo + lo(A)·hi)    (three passes into two
 //            accumulator sets, set 0 + set 1 in the epilogue: associated as
 //            JAX associates)
+//   kBf16x3Rn: the same three passes into one set over each 64-deep k-step
+//            (the cross terms first), which is then added to the second set
+//            with round-to-nearest and cleared: the MLP products' mode
+//            (gemm_mlp: B2's, B3's and B6's MLP products in bf16×3). wgmma's float32 accumulation truncates (−1.1e-5
+//            relative at K = 3072 on one chain over k), and on the MLP
+//            products, whose sums feed the α-β rules' divides, that made
+//            B6's and B3's Rm err up to 30× the plain version's limit at
+//            ViT-L widths (fault C5); cut at every k-step and summed on the
+//            CUDA cores the chain errs as a float32 sum. It takes the two
+//            sets kBf16x3 takes, so the tiles and registers do not change.
 // where A = hi(A) + lo(A) is split with round-to-nearest-even and the
 // weight W = hi + lo arrives split once per model (ops/precision.py).
 //
@@ -85,7 +95,7 @@
 
 namespace te {
 
-enum GemmMode { kBf16 = 0, kBf16x3 = 1 };
+enum GemmMode { kBf16 = 0, kBf16x3 = 1, kBf16x3Rn = 2 };
 
 constexpr int kGemmBK = 64;           // k per stage
 constexpr int kGemmSMs = 132;         // H100 SXM: for the tile choice
@@ -199,10 +209,14 @@ __device__ __forceinline__ void frag_bf16(const unsigned char* As, int r0,
 //   kBf16x3: set 0 += hi(A)·hi; set 1 += hi(A)·lo + lo(A)·hi (DUAL: sets
 //            2, 3 the same on |W|'s planes); values set 0 + set 1 (and
 //            set 2 + set 3), associated as JAX associates
+//   kBf16x3Rn: set 0 += lo(A)·hi + hi(A)·lo over a k-step's slices, then
+//            += hi(A)·hi over them; then set 1 += set 0 (round to nearest)
+//            and set 0 = 0 (promote; DUAL: sets 2, 3 the same); values
+//            set 1 (and set 3)
 // A16: A as bf16 rows (kBf16 only).
 template <int MODE, bool WT, bool ABS, bool DUAL, bool A16>
 struct SpecStd {
-  static constexpr bool X3 = MODE == kBf16x3;
+  static constexpr bool X3 = MODE != kBf16, RN = MODE == kBf16x3Rn;
   static_assert(!(A16 && X3), "bf16 A rows take one-pass products");
   static constexpr int NA = 1, NS = (X3 ? 2 : 1) * (DUAL ? 2 : 1), NP = NS;
   static constexpr int NV = DUAL ? 2 : 1;
@@ -223,6 +237,16 @@ struct SpecStd {
       else
         frag_f32<BM, ABS, X3>(A0, r0, s, q, fr[s][0], fr[s][X3 ? 1 : 0]);
       wgmma_fence();
+      if constexpr (RN) {   // the cross terms; hi·hi after every slice's
+        mma_slice<BN, WT>(acc[0], fr[s][1], pl, s);
+        mma_slice<BN, WT>(acc[0], fr[s][0], pl + P, s);
+        if constexpr (DUAL) {
+          mma_slice<BN, WT>(acc[2], fr[s][1], pl + 2 * P, s);
+          mma_slice<BN, WT>(acc[2], fr[s][0], pl + 3 * P, s);
+        }
+        wgmma_commit();
+        continue;
+      }
       mma_slice<BN, WT>(acc[0], fr[s][0], pl, s);
       if constexpr (X3) {
         mma_slice<BN, WT>(acc[1], fr[s][0], pl + P, s);
@@ -238,14 +262,38 @@ struct SpecStd {
       }
       wgmma_commit();
     }
+    if constexpr (RN) {
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        mma_slice<BN, WT>(acc[0], fr[s][0], pl, s);
+        if constexpr (DUAL) mma_slice<BN, WT>(acc[2], fr[s][0], pl + 2 * P, s);
+      }
+      wgmma_commit();
+    }
     wgmma_wait<0>();
+  }
+
+  // after each k-step (kBf16x3Rn): its sums join the running sums
+  template <int BN>
+  static __device__ __forceinline__ void promote(float (&acc)[NS][BN / 2]) {
+    if constexpr (RN) {
+#pragma unroll
+      for (int a = 0; a < NS; a += 2)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          acc[a + 1][i] += acc[a][i];
+          acc[a][i] = 0.f;
+        }
+    }
   }
 
   template <int BN>
   static __device__ __forceinline__ float value(const float (&acc)[NS][BN / 2],
                                                 int v, int e) {
     const int a = v == 0 ? 0 : (X3 ? 2 : 1);
-    if constexpr (X3) return acc[a][e] + acc[a + 1][e];
+    if constexpr (RN) return acc[a + 1][e];
+    else if constexpr (X3) return acc[a][e] + acc[a + 1][e];
     else return acc[a][e];
   }
 };
@@ -275,6 +323,9 @@ struct SpecTwoA {
     }
     wgmma_wait<0>();
   }
+
+  template <int BN>
+  static __device__ __forceinline__ void promote(float (&)[NS][BN / 2]) {}
 
   template <int BN>
   static __device__ __forceinline__ float value(const float (&acc)[NS][BN / 2],
@@ -311,6 +362,9 @@ struct SpecDualAbsA {
   }
 
   template <int BN>
+  static __device__ __forceinline__ void promote(float (&)[NS][BN / 2]) {}
+
+  template <int BN>
   static __device__ __forceinline__ float value(const float (&acc)[NS][BN / 2],
                                                 int v, int e) {
     return acc[v][e];
@@ -344,6 +398,9 @@ struct SpecThree {
     }
     wgmma_wait<0>();
   }
+
+  template <int BN>
+  static __device__ __forceinline__ void promote(float (&)[NS][BN / 2]) {}
 
   template <int BN>
   static __device__ __forceinline__ float value(const float (&acc)[NS][BN / 2],
@@ -594,6 +651,7 @@ __device__ __forceinline__ void gemm_consume(const I& it, int tile,
                                 smem_u32(st + T::PL), r0, q);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[stage]);
+    S::template promote<BN>(acc);
     if (++stage == R::STAGES) {
       stage = 0;
       phase ^= 1u;
@@ -812,7 +870,7 @@ template <int MODE, bool WT, bool ABS, bool DUAL, bool A16, int WG, int BN,
           class Epi>
 int gemm_launch(const GemmArgs& g, const Epi& epi, cudaStream_t stream) {
   using T = GemmTile<SpecStd<MODE, WT, ABS, DUAL, A16>, WG, BN>;
-  constexpr bool X3 = MODE == kBf16x3;
+  constexpr bool X3 = MODE != kBf16;
   GemmItem<T, Epi> it;
   const uint16_t* w[4] = {g.Whi, nullptr, nullptr, nullptr};
   if constexpr (X3) w[1] = g.Wlo;
@@ -831,7 +889,7 @@ int gemm_launch(const GemmArgs& g, const Epi& epi, cudaStream_t stream) {
 template <int MODE, bool WT, bool ABS, bool DUAL, bool A16, class Epi>
 int gemm_tiled(const GemmArgs& g, const Epi& epi, cudaStream_t stream,
                int tile) {
-  constexpr int NS = (MODE == kBf16x3 ? 2 : 1) * (DUAL ? 2 : 1);
+  constexpr int NS = (MODE != kBf16 ? 2 : 1) * (DUAL ? 2 : 1);
   constexpr int BIG = NS == 1 ? 192 : NS == 2 ? 128 : 64;
   constexpr int SMALL = NS == 4 ? 64 : 128;
   const bool small = tile < 0 ? gemm_small_tile(g.M, g.N, NS) : tile == 1;
@@ -870,6 +928,19 @@ int gemm(int mode, const GemmArgs& g, const Epi& epi, cudaStream_t stream,
   if (mode == kBf16x3 && g.Wlo != nullptr && (!DUAL || g.Walo != nullptr))
     return gemm_tiled<kBf16x3, WT, ABS, DUAL, false>(g, epi, stream, tile);
   return (int)cudaErrorInvalidValue;
+}
+
+// An MLP product in the MLP mode: a one-pass product as gemm() runs it, a
+// bf16×3 one as kBf16x3Rn (C5, above)
+template <bool WT, bool ABS, bool DUAL, class Epi>
+int gemm_mlp(int mode, const GemmArgs& g, const Epi& epi,
+             cudaStream_t stream, int tile = -1) {
+  if (mode != kBf16x3) return gemm<WT, ABS, DUAL>(mode, g, epi, stream, tile);
+  if (g.M <= 0 || g.N <= 0 || g.K <= 0) return (int)cudaSuccess;
+  if (!gemm_args_ok(g, false, DUAL) || g.Wlo == nullptr ||
+      (DUAL && g.Walo == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return gemm_tiled<kBf16x3Rn, WT, ABS, DUAL, false>(g, epi, stream, tile);
 }
 
 // The same product with A as bf16 rows (g.A16, pitch lda), one pass: what

@@ -46,10 +46,10 @@ int mlp_rev(const float* x_mid, const float* g_out, const float* R,
   }
   const int r = (int)rows;
   TE_TRY(ln_fwd(x_mid, w.ln2s, w.ln2b, xn2, r, D, eps, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{xn2, w.w1_hi, w.w1_lo, D, D, r, M, D},
       EpiGelu{fc1_pre, mw.hg, w.b1, M}, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{mw.hg, w.w2_hi, w.w2_lo, M, M, r, D, M},
       EpiStore{fc2_pre, D}, stream));
   return mlp_rev_half(x_mid, xn2, g_out, R, fc1_pre, fc2_pre, w, mw, g_mid,

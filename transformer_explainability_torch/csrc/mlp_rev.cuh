@@ -10,6 +10,8 @@
 //     R2 = (hg ⊙ Sr·W2 + |hg| ⊙ Sr·|W2|) / 2 (rule mode, one dual GEMM);
 //   the fc1 α-β rule the same way on xn2 and W1, its dual GEMM's epilogue
 //     merging with Ca in the clone: Rm = x_mid ⊙ safe_divide(Ca + R2b, x_mid).
+// The MLP products go through gemm_mlp (gemm.cuh): in bf16×3 their chains
+// are summed a k-step at a time (fault C5), as B2's and B6's fc1 / fc2.
 #pragma once
 
 #include "rules.cuh"
@@ -45,10 +47,10 @@ inline int mlp_rev_half(const float* x_mid, const float* xn2,
                         float* g_mid, float* Rm, int B, int n, int D, int M,
                         float eps, int mlp, int rule, cudaStream_t stream) {
   const int rows = B * n;
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{g_out, w.w2_hi, w.w2_lo, D, M, rows, M, D},
       EpiGeluGrad{s.t_M, s.hg, fc1_pre, w.b1, M}, stream));
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{s.t_M, w.w1_hi, w.w1_lo, M, D, rows, D, M},
       EpiStore{s.t_D, D}, stream));
   TE_TRY(ln_bwd(s.t_D, x_mid, w.ln2s, g_out, g_mid, rows, D, eps, stream));

@@ -235,7 +235,12 @@ inline int bias_add(const float* pre, const float* bias, const float* res,
 // (0.36 ms at S=512, 0.13 ms at ViT-B/16's n = 197, B=8, on an H100 at 700
 // W). The bf16 rule products run on the tensor cores (mma.sync m16n8k16,
 // float32 accumulators), their operands rounded once, as they are packed
-// into fragments.
+// into fragments. Modes (common.cuh): in bf16×3 (B3 and B5 only; B9 takes
+// float32 and bf16 gradient products and bf16 rules) the row pass's rule
+// products are three mma.sync passes over the hi and lo fragments
+// (pack_part) and its gradient products three SIMT passes; the column
+// pass's products of either kind run as SIMT register tiles, three passes
+// each, the operands split as they are loaded.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxHeadDim = 64;
@@ -286,36 +291,47 @@ __device__ __forceinline__ void rows_stage_go_s1(
   }
 }
 
-// The rows' S1 as the A fragments of t = S1·Vᵀ (warp rows mw … mw + 15)
+// The rows' S1 as the A fragments of t = S1·Vᵀ (warp rows mw … mw + 15):
+// part q of their bf16×3 split (pack_part; 0, the default: bf16 S1)
 __device__ __forceinline__ void rows_s1_frags(const float* S1s, int mw, int g,
-                                              int t4, uint32_t (&a1)[4][4]) {
+                                              int t4, uint32_t (&a1)[4][4],
+                                              int q = 0) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const float* r0 = S1s + (mw + g) * kLdk + 16 * kk + 2 * t4;
     const float* r1 = r0 + 8 * kLdk;
-    a1[kk][0] = pack_bf16x2(r0[0], r0[1]);
-    a1[kk][1] = pack_bf16x2(r1[0], r1[1]);
-    a1[kk][2] = pack_bf16x2(r0[8], r0[9]);
-    a1[kk][3] = pack_bf16x2(r1[8], r1[9]);
+    a1[kk][0] = pack_part(r0[0], r0[1], q);
+    a1[kk][1] = pack_part(r1[0], r1[1], q);
+    a1[kk][2] = pack_part(r0[8], r0[9], q);
+    a1[kk][3] = pack_part(r1[8], r1[9], q);
   }
 }
 
-// The V sweep's products on one tile st of kKeyT keys: t = S1·Vᵀ (bf16,
-// tensor cores: warp (mw, nw) owns rows mw … + 15 and keys nw … + 15) into
-// Ts, and the float32 micro-tile g_probs = g_o·Vᵀ of thread (ty, tx): row
-// ty, keys tx + 8c. The caller synchronises before it reads Ts.
+// The V sweep's products on one tile st of kKeyT keys: t = S1·Vᵀ (tensor
+// cores, in rule mode R: bf16, or bf16×3 over a1 and the lo fragments
+// a1lo; warp (mw, nw) owns rows mw … + 15 and keys nw … + 15) into Ts, and
+// the micro-tile g_probs = g_o·Vᵀ of thread (ty, tx): row ty, keys tx + 8c,
+// its operands viewed as VA (opnd; bf16×3: three passes). The caller
+// synchronises before it reads Ts.
+template <int VA = kModeF32, int R = kModeBf16>
 __device__ __forceinline__ void rows_av_products(
     const uint32_t (&a1)[4][4], const float* st, const float* Gs, float* Ts,
-    int mw, int nw, int g, int t4, int ty, int tx, float (&ga)[8]) {
+    int mw, int nw, int g, int t4, int ty, int tx, float (&ga)[8],
+    const uint32_t (*a1lo)[4] = nullptr) {
 #pragma unroll
   for (int nb = 0; nb < 2; ++nb) {
     float dacc[4] = {0.f, 0.f, 0.f, 0.f};
     const float* vr = st + (nw + 8 * nb + g) * kLdk + 2 * t4;
 #pragma unroll
+    for (int ps = 0; ps < kPasses<R>; ++ps)
+#pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t bf[2] = {pack_bf16x2(vr[16 * kk], vr[16 * kk + 1]),
-                              pack_bf16x2(vr[16 * kk + 8], vr[16 * kk + 9])};
-      mma_bf16_16816(dacc, a1[kk], bf);
+      // the lo parts: A's in pass 0, B's in pass 1 (bf16×3 only)
+      const bool x3 = R == kModeBf16x3;
+      const int qb = x3 && ps == 1;
+      const uint32_t bf[2] = {pack_part(vr[16 * kk], vr[16 * kk + 1], qb),
+                              pack_part(vr[16 * kk + 8], vr[16 * kk + 9], qb)};
+      mma_bf16_16816(dacc, x3 && ps == 0 ? a1lo[kk] : a1[kk], bf);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -324,12 +340,20 @@ __device__ __forceinline__ void rows_av_products(
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c) ga[c] = 0.f;
+#pragma unroll 1
+  for (int ps = 0; ps < kPasses<VA>; ++ps)
 #pragma unroll
   for (int d = 0; d < kMaxHeadDim; d += 4) {
     float go[4], v[8][4];
     lds4(Gs + ty * kLdk + d, go);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) lds4(st + (tx + kRowTx * c) * kLdk + d, v[c]);
+    for (int dd = 0; dd < 4; ++dd) go[dd] = opnd<VA, 0>(go[dd], ps);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      lds4(st + (tx + kRowTx * c) * kLdk + d, v[c]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) v[c][dd] = opnd<VA, 1>(v[c][dd], ps);
+    }
 #pragma unroll
     for (int dd = 0; dd < 4; ++dd)
 #pragma unroll
@@ -361,16 +385,22 @@ __device__ __forceinline__ void rows_softmax_bwd(
 }
 
 // The K sweep's products on one tile st of keys j0 … j0 + kKeyT − 1: g_q +=
-// g_raw·K (float32 micro-tile of thread (ty, tx): row ty, columns 4tx +
-// 32e … + 3) and cq += S2·K (bf16, tensor cores: warp (mw, nw) owns rows
-// mw … + 15 and columns nw … + 15), from the rows' g_raw in Rg and S2 in Rr.
+// g_raw·K (micro-tile of thread (ty, tx): row ty, columns 4tx + 32e … + 3,
+// its operands viewed as VA) and cq += S2·K (tensor cores in rule mode R:
+// warp (mw, nw) owns rows mw … + 15 and columns nw … + 15), from the rows'
+// g_raw in Rg and S2 in Rr.
+template <int VA = kModeF32, int R = kModeBf16>
 __device__ __forceinline__ void rows_qk_products(
     const float* Rr, const float* Rg, int lds, int j0, const float* st,
     int mw, int nw, int g, int t4, int ty, int tx, float (&gq)[2][4],
     float (&cq)[2][4]) {
+#pragma unroll 1
+  for (int ps = 0; ps < kPasses<VA>; ++ps)
   for (int jj = 0; jj < kKeyT; jj += 4) {
     float gr[4];
     lds4(Rg + ty * lds + j0 + jj, gr);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) gr[u] = opnd<VA, 0>(gr[u], ps);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -379,23 +409,27 @@ __device__ __forceinline__ void rows_qk_products(
         lds4(st + (jj + u) * kLdk + 4 * tx + 32 * e, k);
 #pragma unroll
         for (int dd = 0; dd < 4; ++dd)
-          gq[e][dd] = fmaf(gr[u], k[dd], gq[e][dd]);
+          gq[e][dd] = fmaf(gr[u], opnd<VA, 1>(k[dd], ps), gq[e][dd]);
       }
   }
 #pragma unroll
+  for (int ps = 0; ps < kPasses<R>; ++ps)
+#pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
+    const bool x3 = R == kModeBf16x3;
+    const int qa = x3 && ps == 0, qb = x3 && ps == 1;
     const float* r0 = Rr + (mw + g) * lds + j0 + 16 * kk + 2 * t4;
     const float* r1 = r0 + 8 * lds;
-    const uint32_t af[4] = {pack_bf16x2(r0[0], r0[1]),
-                            pack_bf16x2(r1[0], r1[1]),
-                            pack_bf16x2(r0[8], r0[9]),
-                            pack_bf16x2(r1[8], r1[9])};
+    const uint32_t af[4] = {pack_part(r0[0], r0[1], qa),
+                            pack_part(r1[0], r1[1], qa),
+                            pack_part(r0[8], r0[9], qa),
+                            pack_part(r1[8], r1[9], qa)};
     const float* kr = st + (16 * kk + 2 * t4) * kLdk + g;
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
       const float* kc = kr + nw + 8 * nb;
-      const uint32_t bf[2] = {pack_bf16x2(kc[0], kc[kLdk]),
-                              pack_bf16x2(kc[8 * kLdk], kc[9 * kLdk])};
+      const uint32_t bf[2] = {pack_part(kc[0], kc[kLdk], qb),
+                              pack_part(kc[8 * kLdk], kc[9 * kLdk], qb)};
       mma_bf16_16816(cq[nb], af, bf);
     }
   }
@@ -439,20 +473,25 @@ __device__ __forceinline__ void rows_store_q(
 // block works on this one). A stage holds the rows' P (probs), G (g_raw)
 // and S2 at the block's keys, and their g_o, q and S1. It computes
 //   g_v = Pᵀ g_o and g_k = Gᵀ q (the gradient products: float32 register
-//     micro-tiles, or on bf16 operands (RA), rounded in the stage): warps
+//     micro-tiles, on bf16 operands rounded in the stage, or in bf16×3
+//     three passes over the split operands): warps
 //     0–3 g_v, 4–7 g_k; a thread owns keys 4jx … + 3 and columns 4dx … + 3,
 //     32 + 4dx … + 3 (three 16-byte reads per 32 FMAs); each output one
 //     FMA chain over i ascending;
 //   cam_v = v ⊙ (Pᵀ S1) / 2 and cam_k = k ⊙ (S2ᵀ q) / 2 (the rule
-//     products). bf16 rules (RR) in float32: on the tensor cores, warp w
+//     products). bf16 rules in float32: on the tensor cores, warp w
 //     takes product w / 4, keys 16(w % 4) … + 15 and all 64 columns, 2
-//     k-steps a stage. float32 rules (exact FP32, B5 only), and every rule
-//     product in double (the checks' instances): register micro-tiles
+//     k-steps a stage. float32 rules (exact FP32, B5 only), bf16×3 rules
+//     (B3 and B5), and every rule product in double (the checks'
+//     instances): register micro-tiles
 //     beside the gradient product that shares their operand (warps 0–3 Pᵀ
 //     S1 beside Pᵀ g_o, 4–7 S2ᵀ q beside Gᵀ q, the same tile shape; six
 //     16-byte reads per 64 FMAs). Where the two products of a warp take
 //     their shared operand in different precisions (B5's mixed modes), each
-//     rounds it as it is loaded; else the stage is rounded once.
+//     rounds it as it is loaded; else a bf16 stage is rounded once. A
+//     bf16×3 product runs three passes (lo·hi, hi·lo, hi·hi) over each
+//     stage into the same accumulators, splitting its operands as they
+//     are loaded.
 // Sums run in a fixed order (no atomics): bitwise repeatable.
 // ---------------------------------------------------------------------------
 
@@ -476,7 +515,7 @@ __device__ __forceinline__ void col_load(T* dst, int lds, const T* src,
     load_tile(dst, lds, src, ld, rows, cols, vec);
 }
 
-template <typename T, bool RA, bool RR>
+template <typename T, int A, int R>
 __global__ void __launch_bounds__(kColThreads, sizeof(T) == sizeof(float) ? 2 : 1)
 blk_attn_rev_cols_kernel(
     const T* __restrict__ qkv, const T* __restrict__ g_o,
@@ -484,10 +523,14 @@ blk_attn_rev_cols_kernel(
     const T* __restrict__ S2, const T* __restrict__ S1g,
     T* __restrict__ g_qkv, T* __restrict__ cam_qkv, int n, int H, int hd) {
   // the rule products on the tensor cores (bf16 rules in float32)
-  constexpr bool MMA = RR && sizeof(T) == sizeof(float);
+  constexpr bool MMA = R == kModeBf16 && sizeof(T) == sizeof(float);
   // the two products of a warp take their shared operand in different
-  // precisions: rounded as loaded, not in the stage
-  constexpr bool MIX = RA != RR && !MMA;
+  // precisions: rounded or split as loaded, not in the stage
+  constexpr bool MIX = A != R && !MMA;
+  // the views (opnd) of the gradient and the rule products' operands
+  constexpr int VA = A == kModeBf16x3 || (MIX && A == kModeBf16) ? A : kModeF32;
+  constexpr int VR = R == kModeBf16x3 || (MIX && R == kModeBf16) ? R : kModeF32;
+  constexpr int NPA = kPasses<A>, NPR = MMA ? 1 : kPasses<R>;
   T* smem = reinterpret_cast<T*>(te_smem);   // [2][kColStage]
   const int t = threadIdx.x, warp = t / kWarp, lane = t % kWarp;
   const int g = lane >> 2, t4 = lane & 3;
@@ -551,7 +594,7 @@ blk_attn_rev_cols_kernel(
     }
     __syncthreads();
     T* st = smem + (s & 1) * kColStage;
-    if (RA && !MIX) {   // the gradient products take P, G, g_o and q as bf16
+    if (A == kModeBf16 && !MIX) {   // the products take P, G, g_o and q as bf16
       for (int idx = t; idx < kColStage; idx += kColThreads)
         st[idx] = rnd<true>(st[idx]);
       __syncthreads();
@@ -567,37 +610,48 @@ blk_attn_rev_cols_kernel(
       lds4(xf + i * kLdc, x);
       lds4(yf + i * kLdk, y0);
       lds4(yf + i * kLdk + 32, y1);
-      if constexpr (MMA) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[a][e] = fma(x[a], y0[e], acc[a][e]);
-            acc[a][4 + e] = fma(x[a], y1[e], acc[a][4 + e]);
-          }
-      } else {
-        T u[4], z0[4], z1[4];
+      T u[4], z0[4], z1[4];
+      if constexpr (!MMA) {
         lds4(xr + i * kLdc, u);
         lds4(yr + i * kLdk, z0);
         lds4(yr + i * kLdk + 32, z1);
+      }
+#pragma unroll 1
+      for (int ps = 0; ps < (NPA > NPR ? NPA : NPR); ++ps) {
+        if (ps < NPA) {
+          T xa[4], ya0[4], ya1[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          x[a] = rnd<MIX && RA>(x[a]);
-          u[a] = rnd<MIX && RR>(u[a]);
-          y0[a] = rnd<MIX && RA>(y0[a]);
-          y1[a] = rnd<MIX && RA>(y1[a]);
-          z0[a] = rnd<MIX && RR>(z0[a]);
-          z1[a] = rnd<MIX && RR>(z1[a]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[a][e] = fma(x[a], y0[e], acc[a][e]);
-            acc[a][4 + e] = fma(x[a], y1[e], acc[a][4 + e]);
-            acc2[a][e] = fma(u[a], z0[e], acc2[a][e]);
-            acc2[a][4 + e] = fma(u[a], z1[e], acc2[a][4 + e]);
+          for (int a = 0; a < 4; ++a) {
+            xa[a] = opnd<VA, 0>(x[a], ps);
+            ya0[a] = opnd<VA, 1>(y0[a], ps);
+            ya1[a] = opnd<VA, 1>(y1[a], ps);
           }
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[a][e] = fma(xa[a], ya0[e], acc[a][e]);
+              acc[a][4 + e] = fma(xa[a], ya1[e], acc[a][4 + e]);
+            }
+        }
+        if constexpr (!MMA) {
+          if (ps < NPR) {
+            T ua[4], za0[4], za1[4];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              ua[a] = opnd<VR, 0>(u[a], ps);
+              za0[a] = opnd<VR, 1>(z0[a], ps);
+              za1[a] = opnd<VR, 1>(z1[a], ps);
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                acc2[a][e] = fma(ua[a], za0[e], acc2[a][e]);
+                acc2[a][4 + e] = fma(ua[a], za1[e], acc2[a][4 + e]);
+              }
+          }
+        }
       }
     };
     if constexpr (sizeof(T) == sizeof(float)) {
@@ -677,16 +731,17 @@ __global__ void blk_head_mean_kernel(const T* __restrict__ GCP,
   gc[idx] = s / T(H);
 }
 
-// The column pass, then the head mean gc = Σ_h GCP / h, over the batch.
-// B3 and B9 run the bf16 rules in float32 (the defaults); B5 every mode
-// pair, in float32 and double.
-template <bool RA, typename T = float, bool RR = true>
+// The column pass, then the head mean gc = Σ_h GCP / h, over the batch, in
+// the (attention, rule) modes (A, R). B9 runs bf16 rules in float32 (the
+// defaults), B3 bf16 and bf16×3 rules; B5 every mode pair, in float32 and
+// double.
+template <int A, typename T = float, int R = kModeBf16>
 int attn_rev_cols(const T* qkv, const T* g_o, const T* P, const T* G,
                   const T* S2, const T* S1, const T* GCP, T* g_qkv,
                   T* cam_qkv, T* gc, int B, int n, int H, int hd,
                   cudaStream_t stream) {
   const size_t smem = sizeof(T) * 2 * kColStage;
-  auto kern = blk_attn_rev_cols_kernel<T, RA, RR>;
+  auto kern = blk_attn_rev_cols_kernel<T, A, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

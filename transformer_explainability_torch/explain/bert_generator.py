@@ -24,9 +24,11 @@ kernel, as JAX does in its Pallas chain; ``rollout`` too at the ``float32``
 base (from the per-head probabilities, through its head-mean pass), while
 at a reduced base it is JAX's XLA chain at the base's mode
 (:func:`..ops.relprop.compute_rollout`). The wrappers run their plain
-versions on the CPU and the kernels on a card. The kernel modes no ported
-kernel has (raw ``tensorfloat32`` rules) raise ``NotImplementedError``
-naming ROADMAP B item 1. Any batch size runs as it is.
+versions on the CPU and the kernels on a card. The layer kernels have no
+bf16×3 attention or rule products yet: a ``tensorfloat32`` attention or
+rule mode on them (raw ``tensorfloat32``) raises ``NotImplementedError``
+naming "ROADMAP B, raw tensorfloat32 (BERT)". Any batch size runs as it
+is.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def check_supported(cfg: BertConfig, method: str = "transformer_attribution",
             and use_kernel_path(seq_len or KERNEL_MAX_SEQ, matmul_precision)):
         # the layer kernels' modes; the plain path takes any
         check_precision(matmul_precision, relprop_precision, attn_precision,
-                        mlp_precision)
+                        mlp_precision, family="bert")
 
 
 def eligible(cfg: BertConfig, method: str, alpha: float, variant: str,

@@ -10,12 +10,14 @@ decides the branch of :mod:`..models.vit`:
   * ``transformer_attribution`` (and its alias ``grad``) with variant
     ``ours`` at α=1 and no rule or MLP island above the base take the
     kernel branch: the forward with the attention core in
-    ``attn_fwd_core`` (float32, with the attention island's mode;
-    bfloat16 with ``block_kernel=False``) or whole blocks in
-    ``block_fwd_core``; the reverse with ``attn_rev_core`` (and
-    ``mlp_rev_core`` on the split path) or ``block_rev_core``, each block
-    emitting its head-mean ``(grad ⊙ cam)⁺`` map; the
-    ``rollout_from_grad_cam`` kernel chains the maps;
+    ``attn_fwd_core`` (float32, with the attention island's mode; the
+    bfloat16 and tensorfloat32 bases with ``block_kernel=False``) or whole
+    blocks in ``block_fwd_core``; the reverse with ``attn_rev_core`` (and
+    ``mlp_rev_core`` on the bfloat16 split path, the plain MLP arm on the
+    tensorfloat32 one) or ``block_rev_core``, each block emitting its
+    head-mean ``(grad ⊙ cam)⁺`` map; the ``rollout_from_grad_cam`` kernel
+    chains the maps. Every attention and rule mode JAX's kernels run has a
+    kernel instance, the bf16×3 ``tensorfloat32`` products among them;
   * every other method and option takes the non-kernel branch, at any
     base and with any islands, its products in the modes of JAX's lowered
     program (:mod:`..models.vit`), with the rollout kernel where the method
@@ -33,10 +35,10 @@ The JAX package jit-compiles one program per configuration and pads
 batches to power-of-two buckets; here PyTorch runs eagerly, the batch is
 the leading dimension, and any batch size runs as it is.
 
-The tensorfloat32 modes that no ported kernel has (raw
-``tensorfloat32`` on the kernel branch, the tf32 split arm, a
-tensorfloat32 attention or rule island on the float32 base's kernels)
-raise ``NotImplementedError`` naming ROADMAP B item 1.
+The BERT layer kernels and the tensor-parallel program take no bf16×3
+attention or rule products yet: their entry points raise
+``NotImplementedError`` for them, naming "ROADMAP B, raw tensorfloat32
+(BERT)" and "(TP)" (:func:`check_precision`).
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ _DIAG_TINY = 1e-30            # the growth ratios' floor, in float32
 # Named precision presets (JAX generator.PRECISION_PRESETS). "float32" is
 # exact FP32; "production" and "bfloat16" run the block megakernels with
 # "tensorfloat32" meaning the bf16×3 split and "bfloat16" one bf16 pass, as
-# the JAX package defines them (ops/precision.py).
+# the JAX package defines them (ops/precision.py); so does the raw
+# "tensorfloat32" of precision_kwargs.
 PRECISION_PRESETS = {
     "float32": dict(matmul_precision="float32"),
     "production": dict(matmul_precision="tensorfloat32",
@@ -202,41 +205,38 @@ def check_precision(matmul_precision: str = "float32",
                     mlp_precision: Optional[str] = None,
                     block_kernel: bool = True,
                     mlp_fwd_precision: Optional[str] = None,
-                    mlp_bwd_precision: Optional[str] = None) -> None:
-    """The kernel modes the kernel branch needs (JAX generator.py,
-    vit.py): the float32 base runs ``step_lite`` / ``kstep`` with B4 and
-    B5 in the attention and rule islands' modes (float32 or bfloat16; the
-    MLP islands do not reach it, JAX's plain MLP arm runs at the base);
-    bfloat16 / tensorfloat32 run the block megakernels when the rule
-    products are bfloat16 and the attention's float32 or bfloat16; with
-    ``block_kernel=False`` the bfloat16 base runs the split path (B4, B5,
-    B6) under the same rules. A rule or MLP island above a reduced base is
-    not the kernel branch's (:func:`uses_kernel_branch`) and passes here."""
+                    mlp_bwd_precision: Optional[str] = None,
+                    family: str = "vit") -> None:
+    """The kernel modes a kernel path of ``family`` needs (JAX
+    generator.py, vit.py). ``"vit"``: every configuration JAX's ViT kernel
+    branch runs has its kernels (the float32 base's ``step_lite`` /
+    ``kstep`` with B4 and B5 in the attention and rule islands' modes; the
+    megakernels B2 / B3 at the bfloat16 and tensorfloat32 bases; the split
+    path, ``block_kernel=False``, with B4, B5 and B6 at bfloat16 and B4, B5
+    and the plain MLP arm at tensorfloat32), so only the names are
+    checked. ``"bert"`` (the layer kernels B7-B9 at a reduced base) and
+    ``"tp"`` (the tensor-parallel program's B4 / B5 and B10a / B10b) run no
+    bf16×3 attention or rule products yet: a ``tensorfloat32`` attention or
+    rule mode raises naming its ROADMAP B item. A rule or MLP island above
+    a reduced base is not the kernel branch's (:func:`uses_kernel_branch`)
+    and passes here."""
     mlp_fwd, mlp_bwd = mlp_split(mlp_precision, mlp_fwd_precision,
                                  mlp_bwd_precision)
     _check_names(matmul_precision, relprop_precision, attn_precision,
                  mlp_precision, mlp_fwd, mlp_bwd)
+    if family not in ("vit", "bert", "tp"):
+        raise ValueError(f"unknown model family {family!r}")
+    if family == "vit" or prec.islands_exceed_base(
+            matmul_precision, relprop_precision, mlp_fwd, mlp_bwd):
+        return
     rule = prec.mxu_name(relprop_precision, matmul_precision)
     attn = prec.mxu_name(attn_precision, matmul_precision)
-    if matmul_precision == "float32":
-        if "tensorfloat32" in (rule, attn):
-            raise NotImplementedError(
-                "a tensorfloat32 attention or rule island on the float32 "
-                "base runs B4 and B5 in tensorfloat32 modes, which have no "
-                "kernel instantiation yet (ROADMAP B, raw tensorfloat32)")
-        return
-    if prec.islands_exceed_base(matmul_precision, relprop_precision,
-                                mlp_fwd, mlp_bwd):
-        return
-    if rule != "bfloat16" or attn == "tensorfloat32":
+    if "tensorfloat32" in (rule, attn):
         raise NotImplementedError(
-            "tensorfloat32 rule or attention products have no block-kernel "
-            "instantiation yet (ROADMAP B, raw tensorfloat32)")
-    if not block_kernel and matmul_precision != "bfloat16":
-        raise NotImplementedError(
-            "the split path (block_kernel=False) runs at the bfloat16 base; "
-            "the tensorfloat32 split arm waits for an on-card fidelity "
-            "measurement (ROADMAP B, the tf32 split arm)")
+            f"tensorfloat32 rule or attention products have no "
+            f"{'BERT layer' if family == 'bert' else 'tensor-parallel'} "
+            f"kernel instantiation yet (ROADMAP B, raw tensorfloat32 "
+            f"({family.upper()}))")
 
 
 def _check_fp32_matmul(device: torch.device, dtype: torch.dtype) -> None:
@@ -295,11 +295,11 @@ def explain_batch(model: vit_mod.VisionTransformer, images: Tensor,
     plain versions; the precision arguments are those of
     :data:`PRECISION_PRESETS`, ``mlp_fwd_precision`` / ``mlp_bwd_precision``
     overriding ``mlp_precision`` on one side (:func:`mlp_split`);
-    ``block_kernel=False`` takes the split path at the bfloat16 base (JAX's
-    ``TE_TPU_NO_BLOCK_KERNEL=1``). ``with_diagnostics`` (the fused method
-    only) returns ``(heat, diag (B, 10))``, ``diag`` the float32
-    :data:`DIAG_FIELDS` of each sample; the heatmap is the same bit for
-    bit."""
+    ``block_kernel=False`` takes the split path at the bfloat16 and
+    tensorfloat32 bases (JAX's ``TE_TPU_NO_BLOCK_KERNEL=1``).
+    ``with_diagnostics`` (the fused method only) returns ``(heat, diag (B,
+    10))``, ``diag`` the float32 :data:`DIAG_FIELDS` of each sample; the
+    heatmap is the same bit for bit."""
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision,
                     with_diagnostics, block_kernel, mlp_fwd_precision,
@@ -429,7 +429,8 @@ class Explainer:
     :data:`PRECISION_PRESETS`, e.g.
     ``Explainer(params, cfg, "cuda", **precision_kwargs("production"))``,
     and ``mlp_fwd_precision`` / ``mlp_bwd_precision``;
-    ``block_kernel=False`` takes the split path at the bfloat16 base. Any
+    ``block_kernel=False`` takes the split path at the bfloat16 and
+    tensorfloat32 bases. Any
     :class:`..models.vit.ViTConfig` runs: ViT-B/16, ViT-L/16, DeiT-base and
     DeiT-base distilled."""
 

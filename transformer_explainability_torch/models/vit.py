@@ -24,7 +24,11 @@ branches are JAX's:
       product outside the kernels in bf16 (:func:`..ops.precision.kdot`, JAX's
       ambient ``default_matmul_precision``), the attention kernels in their
       bf16 modes and :func:`..ops.kernels.mlp_rev_core` for the MLP half;
-
+    - ``"tensorfloat32"`` with ``block_kernel=False`` (the tf32 split arm):
+      ``step_lite`` and ``kstep`` with every product outside the kernels in
+      bf16×3, the attention kernels in the attention and rule islands'
+      modes and the plain MLP arm at the base, its rules in the rule mode
+      (JAX's MLP kernel runs the bfloat16 split path only);
     - ``"float32"`` with precision islands (the ``attn_precision`` and
       ``relprop_precision`` of JAX's kernel branch on its float32 base):
       ``step_lite`` and ``kstep`` as at float32, the attention kernels in
@@ -353,25 +357,26 @@ def megakernel_base(matmul_precision: str) -> bool:
 def _lite_mode(matmul_precision: str, block_kernel: bool,
                *islands: Optional[str]) -> Optional[str]:
     """The product mode of the ``step_lite`` / ``kstep`` blocks, or None
-    where the kernel branch runs the megakernels. Raises for the
-    tensorfloat32 base without them (the tf32 split arm, which goes with
-    raw tensorfloat32 in ROADMAP B item 1), and for a weight-consuming
-    island above a reduced base, which JAX's generator sends down the
-    non-kernel branch."""
+    where the kernel branch runs the megakernels: the base itself, float32
+    or, without the megakernels (the split path), bfloat16 or
+    tensorfloat32. Raises for a weight-consuming island above a reduced
+    base, which JAX's generator sends down the non-kernel branch."""
     if not megakernel_base(matmul_precision):
         return "float32"
     if prec.islands_exceed_base(matmul_precision, *islands):
         raise ValueError(
             "an island above a reduced base runs on the non-kernel branch "
             "(use_attn_kernel=False), as JAX's generator sends it")
-    if block_kernel:
-        return None
-    if matmul_precision != "bfloat16":
-        raise NotImplementedError(
-            "the split path (block_kernel=False) runs at the bfloat16 base; "
-            "the tensorfloat32 split arm goes with raw tensorfloat32 "
-            "(ROADMAP B, the tf32 split arm)")
-    return "bfloat16"
+    return None if block_kernel else matmul_precision
+
+
+def _lite_weights(mxu: str) -> str:
+    """The weight preparation of the ``step_lite`` / ``kstep`` blocks in
+    product mode ``mxu``: bf16 for the bfloat16 split path, whose MLP kernel
+    B6 takes prepared weights; else the weights as they are, which the
+    products outside the kernels split as they run (bitwise the prepared
+    pairs; JAX's XLA arm takes the raw weights too)."""
+    return "bfloat16" if mxu == "bfloat16" else "float32"
 
 
 def forward_collect(model: VisionTransformer, img: Tensor,
@@ -385,9 +390,9 @@ def forward_collect(model: VisionTransformer, img: Tensor,
     """Forward pass returning logits ``(B, num_classes)`` and the residuals
     (JAX ``vit.forward_collect``). ``img`` is ``(B, C, H, W)``. With
     ``use_attn_kernel``: the ``step_lite`` block at float32 and, with
-    ``block_kernel=False``, at bfloat16; the rich-anchor megakernel
-    ``step_fused_rich`` at bfloat16 / tensorfloat32. Without: the plain
-    blocks, keeping the post-softmax attention maps."""
+    ``block_kernel=False``, at bfloat16 and tensorfloat32; the rich-anchor
+    megakernel ``step_fused_rich`` at bfloat16 / tensorfloat32. Without:
+    the plain blocks, keeping the post-softmax attention maps."""
     cfg = model.cfg
     cat_x, x0 = embed(model, img)
     if not use_attn_kernel:
@@ -403,7 +408,7 @@ def forward_collect(model: VisionTransformer, img: Tensor,
     x = x0
     x_ins, x_mids, outs = [], [], []
     for i, blk in enumerate(model.blocks):
-        p = model.block_params(i, mxu)
+        p = model.block_params(i, _lite_weights(mxu))
         qkv = (prec.product(_layernorm(x, blk.norm1), transpose(p.wqkv), mxu)
                + p.bqkv)
         out_merged = ops.attn_fwd_core(qkv, cfg.num_heads, cfg.head_dim,
@@ -746,8 +751,9 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
     """The gradient + relevance reverse pass (JAX ``vit.reverse_pass``).
 
     With ``use_attn_kernel`` (``fuse_grad_cam`` and both passes, variant
-    ``ours`` at α=1): ``kstep`` with the plain MLP arm at float32, with
-    ``mlp_rev_core`` at bfloat16 when ``block_kernel`` is off, else
+    ``ours`` at α=1): ``kstep`` with the plain MLP arm at float32 and
+    tensorfloat32, with ``mlp_rev_core`` at bfloat16 when ``block_kernel``
+    is off, else
     ``kstep_block``. Without: the plain ``step`` over the recomputed
     activations, in the modes of the branch's policy (the seeds at the
     base, the attention chain in the attention island's mode, the rules in
@@ -803,24 +809,29 @@ def reverse_pass(model: VisionTransformer, res: Residuals, onehot: Tensor,
                 trunk[li] = _trunk_stats(g, R)
         return _fused_out(R, gcs, trunk)
 
-    # kstep: the MLP half in mlp_rev_core on the split path, else the plain
-    # arm; the add1 and proj rules, the attention core, the qkv tails
+    # kstep: the MLP half in mlp_rev_core on the bfloat16 split path, else
+    # the plain arm; the add1 and proj rules, the attention core, the qkv
+    # tails
     mlp_mxu = prec.mxu_name(mlp_precision, mxu)
     scale = cfg.head_dim ** -0.5
     for li in reversed(range(cfg.depth)):
-        blk, p = model.blocks[li], model.block_params(li, mxu)
+        blk = model.blocks[li]
+        p = model.block_params(li, _lite_weights(mxu))
         x_in, x_mid, out_merged = res.x_ins[li], res.x_mids[li], res.outs[li]
 
         # recompute (the same ops as the forward)
         xn1 = _layernorm(x_in, blk.norm1)
         qkv_pre = prec.product(xn1, transpose(p.wqkv), mxu)
         proj_pre = prec.product(out_merged, transpose(p.wproj), mxu)
-        if mxu == "float32":
-            g_mid, Rm = bm.mlp_rev_math(x_mid, g, R, p, eps=cfg.block_ln_eps,
-                                        mxu=mxu, rule_mxu=rule_mxu)
-        else:
+        if mxu == "bfloat16":
             g_mid, Rm = ops.mlp_rev_core(x_mid, g, R, p, cfg.block_ln_eps,
                                          mlp_mxu, rule_mxu)
+        else:
+            # JAX's XLA MLP arm (its MLP kernel runs the bfloat16 split
+            # path only): the products at the base, the rules in the rule
+            # mode (JAX with_rule_precision)
+            g_mid, Rm = bm.mlp_rev_math(x_mid, g, R, p, eps=cfg.block_ln_eps,
+                                        mxu=mxu, rule_mxu=rule_mxu)
 
         g_om = prec.product(g_mid, p.wproj, mxu)
         Ra1, Ra2 = rp.add_relprop(x_in, proj_pre + p.bproj, Rm, Z=x_mid)

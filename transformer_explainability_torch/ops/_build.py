@@ -79,13 +79,25 @@ def build() -> Path:
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     cmds = compile_commands(tmp, nvcc)
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    # each compiler's output to a file of its own (no pipe to drain), its
+    # time taken as it finishes
+    logs = [open(tmp / f"nvcc.{i}.log", "w+") for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for c, f in zip(cmds, logs)]
+    secs = [None] * len(procs)
+    while any(t is None for t in secs):
+        for i, proc in enumerate(procs):
+            if secs[i] is None and proc.poll() is not None:
+                secs[i] = time.perf_counter() - t0
+        time.sleep(0.1)
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
     log = []
-    for cmd, proc, out in zip(cmds, procs, outs):
-        log.append(f"{' '.join(cmd)}\n{out}")
+    for cmd, proc, out, sec in zip(cmds, procs, outs, secs):
+        log.append(f"{' '.join(cmd)}\nseconds {sec:.1f}\n{out}")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
                                f"{' '.join(cmd)}\n{out}")

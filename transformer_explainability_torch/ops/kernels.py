@@ -27,9 +27,14 @@ core). The rollout serves both models. The tensor-parallel explain program
 (:mod:`..parallel.tensor`) runs ``attn_fwd_core`` / ``attn_rev_core`` on
 each rank's heads, in the product modes of its preset, and the two TP MLP
 phases (plain versions in :mod:`.tp_math`, same GEMM core). The ViT split
-path (``block_kernel=False`` at the ``bfloat16`` base) runs the attention
-kernels in bf16 modes with ``mlp_rev_core`` for the MLP half of the reverse
-(plain version :func:`.block_math.mlp_rev_math`, same GEMM core).
+path (``block_kernel=False``) runs the attention kernels in the islands'
+modes, at the ``bfloat16`` base with ``mlp_rev_core`` for the MLP half of
+the reverse (plain version :func:`.block_math.mlp_rev_math`, same GEMM
+core), at the ``tensorfloat32`` base with that plain version itself. The
+attention kernels and the ViT block kernels take attention and rule
+products in ``"float32"``, ``"bfloat16"`` or ``"tensorfloat32"`` (the
+bf16×3 split of :func:`..ops.precision.kdot`; :data:`_ATTN_MODE`); the
+BERT layer kernels in the first two (:func:`_bert_modes`).
 ``gemm_core`` runs that core alone (``csrc/gemm.cu``, a store epilogue),
 beside its plain version :func:`gemm_core_plain`, for its checks and
 timings; no path calls it.
@@ -170,20 +175,20 @@ def _lib():
 
 
 def _launch_attn_fwd(lib, qkv: Tensor, num_heads: int, head_dim: int,
-                     scale: float, stream, attn_bf16: int = 0) -> Tensor:
+                     scale: float, stream, attn_mode: int = 0) -> Tensor:
     b, n, _ = qkv.shape
     out = torch.empty(b, n, num_heads * head_dim, dtype=qkv.dtype,
                       device=qkv.device)
     fn = getattr(lib, f"te_attn_fwd_{_DTYPES[qkv.dtype]}")
     _raise_on_error("attn_fwd_core", lib, fn(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, head_dim,
-        float(scale), attn_bf16, stream))
+        float(scale), attn_mode, stream))
     return out
 
 
 def _launch_attn_rev(lib, qkv: Tensor, g_o: Tensor, cam_o: Tensor,
                      num_heads: int, head_dim: int, scale: float, stream,
-                     attn_bf16: int = 0, rule_bf16: int = 0):
+                     attn_mode: int = 0, rule_mode: int = 0):
     b, n, d3 = qkv.shape
     kw = dict(dtype=qkv.dtype, device=qkv.device)
     g_qkv = torch.empty(b, n, d3, **kw)
@@ -197,7 +202,7 @@ def _launch_attn_rev(lib, qkv: Tensor, g_o: Tensor, cam_o: Tensor,
         qkv.data_ptr(), g_o.data_ptr(), cam_o.data_ptr(), g_qkv.data_ptr(),
         cam_qkv.data_ptr(), gc.data_ptr(), P.data_ptr(), G.data_ptr(),
         S2.data_ptr(), GCP.data_ptr(), S1.data_ptr(), b, n, num_heads,
-        head_dim, float(scale), attn_bf16, rule_bf16, stream))
+        head_dim, float(scale), attn_mode, rule_mode, stream))
     return g_qkv, cam_qkv, gc
 
 
@@ -221,9 +226,12 @@ def _launch_rollout(lib, cams: Tensor, start_layer: int, row_normalize: bool,
     return out
 
 
-# product modes of the block kernels' C entry points
+# product modes of the kernels' C entry points: the GEMM core's (the block
+# and layer kernels' weight products) and the attention kernels' (B2-B5's
+# attention and attention-rule products; B7 and B9 take the first two)
 _GEMM_MODE = {"bfloat16": 0, "tensorfloat32": 1}
-_ATTN_BF16 = {"float32": 0, "bfloat16": 1}
+_ATTN_MODE = {"float32": 0, "bfloat16": 1, "tensorfloat32": 2}
+_BERT = "ROADMAP B, raw tensorfloat32 (BERT)"
 
 
 def _mode_flag(name: str, key: str, mode: str, table: dict) -> int:
@@ -240,12 +248,14 @@ def _mode_flag(name: str, key: str, mode: str, table: dict) -> int:
 # by position, as the C entry points' BlockWeights does.
 
 def _block_modes(name: str, p, **modes) -> dict:
-    """Map the product modes to the kernels' flags; raise on a mode or a
-    weight preparation the kernel does not take."""
+    """Map the product modes to the kernels' flags (``*_mode``: the
+    attention kernels', else the GEMM core's); raise on a mode or a weight
+    preparation the kernel does not take. A bf16×3 attention product takes
+    no weight; a bf16×3 GEMM product needs the (hi, lo) pairs."""
     out = {}
     for key, mode in modes.items():
-        table = _ATTN_BF16 if key.endswith("_bf16") else _GEMM_MODE
-        out[key] = _mode_flag(name, key.replace("_bf16", ""), mode, table)
+        table = _ATTN_MODE if key.endswith("_mode") else _GEMM_MODE
+        out[key] = _mode_flag(name, key, mode, table)
     if p[0].shape[0] % 8 or p[6].shape[0] % 8:
         raise ValueError(f"{name}: the kernel needs the embedding and MLP "
                          "widths to be multiples of 8")
@@ -254,6 +264,18 @@ def _block_modes(name: str, p, **modes) -> dict:
         raise ValueError(f"{name}: a tensorfloat32 product needs weights "
                          "prepared as (hi, lo) pairs")
     return out
+
+
+def _bert_modes(name: str, p, **modes) -> dict:
+    """:func:`_block_modes` for the BERT layer kernels, which have no
+    bf16×3 attention or rule instance yet: a ``tensorfloat32`` attention or
+    rule mode raises naming its ROADMAP item before any flag is formed."""
+    for key in ("attn_mode", "rule_mode", "rule"):
+        if modes.get(key) == "tensorfloat32":
+            raise NotImplementedError(
+                f"{name}: tensorfloat32 {key.replace('_mode', '')} products "
+                f"have no BERT kernel instantiation yet ({_BERT})")
+    return _block_modes(name, p, **modes)
 
 
 def _check_block_params(name: str, p, like: Tensor, D: int, M: int) -> None:
@@ -311,7 +333,7 @@ def _launch_block_fwd(lib, x: Tensor, p: BlockParams, num_heads: int,
                torch.empty(b, n, M, **kw), torch.empty(b, n, D, **kw)])
     fn = lib.te_block_fwd_f32
     dims = [b, n, num_heads, head_dim, M, float(eps), flags["mxu"],
-            flags["attn_bf16"], flags["mlp"]]
+            flags["attn_mode"], flags["mlp"]]
     work = _workspace(fn, dims, x.device)
     _raise_on_error("block_fwd_core", lib, fn(
         x.data_ptr(), *_vec_ptrs(p), *_weight_ptrs(p),
@@ -330,7 +352,7 @@ def _launch_block_rev(lib, x_in: Tensor, x_mid: Tensor, out_m: Tensor,
     gc = torch.empty(b, n, n, **kw)
     fn = lib.te_block_rev_f32
     dims = [b, n, num_heads, head_dim, M, float(eps), flags["mxu"],
-            flags["attn_bf16"], flags["rule_bf16"], flags["rule"],
+            flags["attn_mode"], flags["rule_mode"], flags["rule"],
             flags["mlp"]]
     work = _workspace(fn, dims, x_in.device)
     _raise_on_error("block_rev_core", lib, fn(
@@ -356,7 +378,7 @@ def _launch_bert_fwd(lib, x: Tensor, mask: Tensor, p: BertLayerParams,
             torch.empty(b, S, D, **kw))
     fn = lib.te_bert_fwd_f32
     dims = [b, S, num_heads, head_dim, p.b_i.shape[0], float(eps),
-            flags["mxu"], flags["attn_bf16"], flags["mlp"]]
+            flags["mxu"], flags["attn_mode"], flags["mlp"]]
     work = _workspace(fn, dims, x.device)
     _raise_on_error("bert_layer_fwd_core", lib, fn(
         x.data_ptr(), mask.data_ptr(), *_vec_ptrs(p), *_weight_ptrs(p),
@@ -388,7 +410,7 @@ def _launch_bert_attn_rev(lib, x_in: Tensor, g_attln: Tensor, R_att: Tensor,
     gc = torch.empty(b, S, S, dtype=x_in.dtype, device=x_in.device)
     fn = lib.te_bert_attn_rev_f32
     dims = [b, S, num_heads, head_dim, float(eps), flags["mxu"],
-            flags["attn_bf16"], flags["rule_bf16"], flags["rule"]]
+            flags["attn_mode"], flags["rule_mode"], flags["rule"]]
     work = _workspace(fn, dims, x_in.device)
     _raise_on_error("bert_attn_rev_core", lib, fn(
         *[t.data_ptr() for t in (x_in, g_attln, R_att, mask, *saved)],
@@ -556,13 +578,14 @@ def attn_fwd_core(qkv: Tensor, num_heads: int, head_dim: int,
                   scale: float, mxu: str = "float32") -> Tensor:
     """Softmax attention from raw ``qkv (B, n, 3D)`` -> merged ``(B, n, D)``
     (JAX ``pallas_kernels.attn_fwd_core``), both products in ``mxu``
-    (``"float32"`` or ``"bfloat16"`` on the card)."""
+    (``"float32"``, ``"bfloat16"`` or ``"tensorfloat32"``, the bf16×3
+    split)."""
     D = num_heads * head_dim
     b, n = qkv.shape[:2] if qkv.ndim == 3 else (-1, -1)
     device = _check("attn_fwd_core", [qkv], [(b, n, 3 * D)])
     if device == "cpu":
         return attn_fwd_core_plain(qkv, num_heads, head_dim, scale, mxu)
-    flag = _mode_flag("attn_fwd_core", "mxu", mxu, _ATTN_BF16)
+    flag = _mode_flag("attn_fwd_core", "mxu", mxu, _ATTN_MODE)
     with torch.cuda.device(qkv.device):
         out = _launch_attn_fwd(_lib(), qkv, num_heads, head_dim, scale,
                                _stream(qkv), flag)
@@ -580,7 +603,8 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
     gc (B, n, n))``: the qkv-layout cotangent and relevance, and the
     head-mean ``(grad ⊙ cam)⁺`` map. The recompute and gradient products
     run in ``attn_mxu``, the z-rule products in ``rule_mxu`` (each
-    ``"float32"`` or ``"bfloat16"`` on the card)."""
+    ``"float32"``, ``"bfloat16"`` or ``"tensorfloat32"``: every pair has
+    an instance)."""
     D = num_heads * head_dim
     b, n = qkv.shape[:2] if qkv.ndim == 3 else (-1, -1)
     device = _check("attn_rev_core", [qkv, g_o, cam_o],
@@ -591,8 +615,8 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
     if device == "cpu":
         return attn_rev_core_plain(qkv, g_o, cam_o, num_heads, head_dim,
                                    scale, attn_mxu, rule_mxu)
-    flags = (_mode_flag("attn_rev_core", "attn", attn_mxu, _ATTN_BF16),
-             _mode_flag("attn_rev_core", "rule", rule_mxu, _ATTN_BF16))
+    flags = (_mode_flag("attn_rev_core", "attn", attn_mxu, _ATTN_MODE),
+             _mode_flag("attn_rev_core", "rule", rule_mxu, _ATTN_MODE))
     with torch.cuda.device(qkv.device):
         outs = _launch_attn_rev(_lib(), qkv, g_o, cam_o, num_heads, head_dim,
                                 scale, _stream(qkv), *flags)
@@ -661,7 +685,7 @@ def block_fwd_core(x: Tensor, p: BlockParams, num_heads: int,
     if x.dtype != torch.float32:
         raise TypeError("block_fwd_core: the kernel takes float32")
     flags = _block_modes("block_fwd_core", p, mxu=mxu, mlp=mlp_mxu or mxu,
-                         attn_bf16=attn_mxu)
+                         attn_mode=attn_mxu)
     with torch.cuda.device(x.device):
         outs = _launch_block_fwd(_lib(), x, p, num_heads, head_dim, eps,
                                  flags, _stream(x))
@@ -679,7 +703,9 @@ def block_rev_core(x_in: Tensor, x_mid: Tensor, out_m: Tensor, g_out: Tensor,
     ``pallas_kernels.block_rev_core``, variant ``ours``, α=1): returns
     ``(g_in, R_in, gc (B, n, n))`` as
     :func:`.block_math.block_rev_core_plain`. The kernel takes the 6-anchor
-    ``saved`` form of :func:`block_fwd_core`."""
+    ``saved`` form of :func:`block_fwd_core`, attention products in
+    ``"float32"``, ``"bfloat16"`` or ``"tensorfloat32"`` and rule products
+    in the latter two (a reduced base's rules are never float32)."""
     D = num_heads * head_dim
     b, n = x_in.shape[:2] if x_in.ndim == 3 else (-1, -1)
     M = p.b1.shape[0]
@@ -706,9 +732,13 @@ def block_rev_core(x_in: Tensor, x_mid: Tensor, out_m: Tensor, g_out: Tensor,
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(f"block_rev_core: head_dim {head_dim} > "
                          f"{MAX_HEAD_DIM} is not supported by the kernel")
+    if rule_mxu == "float32":
+        raise ValueError("block_rev_core: float32 rule products have no "
+                         "block kernel (the weights are prepared as bf16 "
+                         "splits)")
     flags = _block_modes("block_rev_core", p, mxu=mxu, mlp=mlp_mxu or mxu,
-                         rule=rule_mxu, attn_bf16=attn_mxu,
-                         rule_bf16=rule_mxu)
+                         rule=rule_mxu, attn_mode=attn_mxu,
+                         rule_mode=rule_mxu)
     with torch.cuda.device(x_in.device):
         outs = _launch_block_rev(_lib(), x_in, x_mid, out_m, g_out, R, saved,
                                  p, num_heads, head_dim, eps, flags,
@@ -750,8 +780,8 @@ def bert_layer_fwd_core(x: Tensor, mask: Tensor, p: BertLayerParams,
         raise NotImplementedError(
             "bert_layer_fwd_core: the kernel saves the slim anchors; the fat "
             "(probs) and MLP anchor forms are ROADMAP B (B7 anchor forms)")
-    flags = _block_modes("bert_layer_fwd_core", p, mxu=mxu,
-                         mlp=mlp_mxu or mxu, attn_bf16=attn_mxu)
+    flags = _bert_modes("bert_layer_fwd_core", p, mxu=mxu,
+                        mlp=mlp_mxu or mxu, attn_mode=attn_mxu)
     with torch.cuda.device(x.device):
         outs = _launch_bert_fwd(_lib(), x, mask, p, num_heads, head_dim, eps,
                                 flags, _stream(x))
@@ -786,8 +816,8 @@ def bert_out_rev_core(att_ln: Tensor, g_out: Tensor, R: Tensor,
         raise NotImplementedError(
             "bert_out_rev_core: the kernel recomputes the MLP products; the "
             "saved-MLP form is ROADMAP B (B8 anchor form)")
-    flags = _block_modes("bert_out_rev_core", p, mlp=mlp_mxu or mxu,
-                         rule=rule_mxu)
+    flags = _bert_modes("bert_out_rev_core", p, mlp=mlp_mxu or mxu,
+                        rule=rule_mxu)
     with torch.cuda.device(att_ln.device):
         outs = _launch_bert_out_rev(_lib(), att_ln, g_out, R, p, eps, flags,
                                     _stream(att_ln))
@@ -826,8 +856,8 @@ def bert_attn_rev_core(x_in: Tensor, g_attln: Tensor, R_att: Tensor,
         raise NotImplementedError(
             "bert_attn_rev_core: the kernel takes the slim saved anchors; the "
             "recompute and fat-anchor forms are ROADMAP B (B9 anchor forms)")
-    flags = _block_modes("bert_attn_rev_core", p, mxu=mxu, rule=rule_mxu,
-                         attn_bf16=attn_mxu, rule_bf16=rule_mxu)
+    flags = _bert_modes("bert_attn_rev_core", p, mxu=mxu, rule=rule_mxu,
+                        attn_mode=attn_mxu, rule_mode=rule_mxu)
     with torch.cuda.device(x_in.device):
         outs = _launch_bert_attn_rev(_lib(), x_in, g_attln, R_att, mask,
                                      saved, p, num_heads, head_dim, eps,

@@ -45,7 +45,7 @@ import torch.distributed as dist
 
 from transformer_explainability_torch.explain.generator import (
     FUSED_METHODS, _check_fp32_matmul, _one_hot_index, _resolve_device,
-    check_supported)
+    check_precision, check_supported)
 from transformer_explainability_torch.models import vit as vit_mod
 from transformer_explainability_torch.models.vit import ViTConfig
 from transformer_explainability_torch.ops import block_math as bm
@@ -245,7 +245,8 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
     Raises as the JAX gates do: another method, variant or α, or a
     precision combination the kernels do not run, ``NotImplementedError``
     (islands on the float32 base or above the base too: JAX's TP islands
-    are not ported, ROADMAP A8);
+    are not ported, ROADMAP A8; tensorfloat32 attention or rule products,
+    raw ``tensorfloat32`` among them: ROADMAP B, raw tensorfloat32 (TP));
     heads or MLP width not divisible by the group's size, ``ValueError``.
     """
     if method not in FUSED_METHODS:
@@ -271,6 +272,8 @@ def make_tp_explain_fn(cfg: ViTConfig, group=None, device="cuda",
             "parallel paths)")
     check_supported(method, alpha, variant, matmul_precision,
                     relprop_precision, attn_precision, mlp_precision)
+    check_precision(matmul_precision, relprop_precision, attn_precision,
+                    mlp_precision, family="tp")
     k, _ = _group_shape(group)
     _check_divides(cfg, k)
     device = _resolve_device(device)
