@@ -47,6 +47,9 @@ result line):
      ViT-B/16 384 px (B=8, n=577): B1's row form in float64 and float32,
      B4 and B5 in float32 alone (their float64 instances need more shared
      memory than a block has at n = 577), B2 / B3 in both presets' modes;
+     C5 on B6 and C8 on B8's R_att and the tensor-parallel MLP half
+     (B10a -> B10b) with bf16x3 MLP products: 16 input draws each beside
+     the plain float32 version on ulp-moved copies (printed);
   4. slices, each driven with the launch counts set to 0 just before and
      read just after: ``Explainer(params, VIT_BASE_16_224, device="cuda")``
      (exact FP32) and ``Explainer(..., **precision_kwargs("production"))``
@@ -143,6 +146,13 @@ result line):
      full depth, fidelity against the exact float64 path beside exact
      FP32's and expl/s printed (build/reduced_bases.json);
      the seg harness runs rollout at production too;
+     the guarded mode (``guarded_phase``, after the BERT methods): the
+     strict and envelope guards of ``make_guarded_explain_fn``, the
+     exact-CPU verifier, ``GuardedServer`` with its gpu-f32 tier, the
+     deliver-f32 policy under an escalation budget and the uint8 wire
+     format on ViT-B/16, and BERT-base's strict mode, by gates (a)-(g) of
+     PERF.md §2 (heatmaps and scores bitwise their programs', the tier's
+     accounting, the exact-CPU rows against the plain float64 path);
      the training paths (``training_phases``): ``create_model(name,
      seed=0, device="cuda")`` bitwise the CPU draw moved to the card, for
      ViT-B/16 and BERT-base (a seed is one model on every device); the
@@ -863,11 +873,13 @@ def training_phases(dev, tag, have, none):
 
 # the reduced-base phase (A3a): the ViT methods off the kernel branch and
 # BERT's plain layers at the bfloat16 and production presets, and the
-# precision islands. Each pair runs through the user's entry points at full
-# depth (launches, fidelity, rates) and is gated on the first REDUCED_DEPTH
-# blocks (BERT: layers) of the same weights, embeddings and head unchanged:
-# the gate's CPU side at 12 took 450-650 s, most of a script that overran
-# its 1200 s on a slower host. The gate's float32 maps on the card are held
+# precision islands. Each pair runs through the user's entry points on the
+# first REDUCED_DEPTH blocks (BERT: layers) of the seeded weights,
+# embeddings and head unchanged (launches, the gate, fidelity, rates): the
+# gate's CPU side at 12 took 450-650 s, most of a script that overran its
+# 1200 s on a slower host, and the printed fidelity and rates at 12 blocks
+# were 290-493 s of a script near its limit, so they too run at
+# REDUCED_DEPTH. The gate's float32 maps on the card are held
 # by preset_gate (witnessed) on REDUCED_SAMPLES samples against the same
 # port path in float64 on the card: its plain draws are that path in
 # float32 on the card machine's CPU, on the weights as they are and on
@@ -902,13 +914,13 @@ def first_blocks(sd, depth):
 def reduced_base_phase(dev, tag, none, params, batches, bparams,
                        bert_batches, drive, corr, token_corr, ulp_moved):
     """Drive each (method, preset) pair of the reduced bases through the
-    user's entry points on the card (B = 8; BERT-base at S = 512), gate its
-    float32 maps on the first REDUCED_DEPTH blocks against the same path's
-    on the CPU and the same path in float64 on the card against the CPU's,
-    print the full model's maps' fidelity against the exact float64 path
-    beside exact FP32's and their rate; return the launch counts of the
-    card runs. ``ulp_moved(sd, seed)`` moves a float32 state dict on the
-    card one ulp (seeded)."""
+    user's entry points on the card (B = 8; BERT-base at S = 512) on the
+    first REDUCED_DEPTH blocks of the weights, gate its float32 maps
+    against the same path's on the CPU and the same path in float64 on the
+    card against the CPU's, print the maps' fidelity against the exact
+    float64 path beside exact FP32's and their rate, all at that depth;
+    return the launch counts of the card runs. ``ulp_moved(sd, seed)``
+    moves a float32 state dict on the card one ulp (seeded)."""
     import torch
     from transformer_explainability_torch.explain import (BertExplainer,
                                                           Explainer)
@@ -925,7 +937,7 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
     gbcfg = dataclasses.replace(bcfg, num_layers=REDUCED_DEPTH)
     gparams = first_blocks(params, REDUCED_DEPTH)
     gbparams = first_blocks(bparams, REDUCED_DEPTH)
-    L = cfg.depth
+    L = REDUCED_DEPTH
     cpu = torch.device("cpu")
 
     def f64(sd, device):
@@ -967,13 +979,13 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
     launches, rows = [], []
     sd64 = {dev_: f64(gparams, dev_) for dev_ in (cpu, dev)}
     bsd64 = {dev_: f64(gbparams, dev_) for dev_ in (cpu, dev)}
-    vit64 = VisionTransformer(cfg, device=dev, dtype=torch.float64)
-    vit64.load_state_dict({k: v.double() for k, v in params.items()})
+    vit64 = VisionTransformer(gcfg, device=dev, dtype=torch.float64)
+    vit64.load_state_dict({k: v.double() for k, v in gparams.items()})
     vit64.requires_grad_(False)
-    bert64 = bert_mod.BertForSequenceClassification(bcfg, device=dev,
+    bert64 = bert_mod.BertForSequenceClassification(gbcfg, device=dev,
                                                     dtype=torch.float64)
     bert64.load_state_dict({k: v.double() if v.is_floating_point() else v
-                            for k, v in bparams.items()})
+                            for k, v in gbparams.items()})
     bert64.requires_grad_(False)
     truths = {}
     # the gate's weights, per model: the plain draws' on the CPU (as they
@@ -989,19 +1001,17 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
           f"and {REDUCED_DRAWS} sets moved one f32 ulp), the witnesses the "
           f"card's path on {REDUCED_WITNESSES} other moved sets; the float64 "
           f"path on the card against the CPU's on {TWIN_SAMPLES} samples, "
-          f"1 - corr <= {TWIN_GAP:.0e}; at full depth, fidelity against the "
-          f"exact float64 path on the card printed, not gated {tag}")
+          f"1 - corr <= {TWIN_GAP:.0e}; fidelity against the exact float64 "
+          f"path on the card and rates printed, not gated, at the same depth "
+          f"{tag}")
 
     def pair(bert, label, ekw, ckw, per):
         name = "bert" if bert else "vit"
         variant = ekw.get("variant", "ours")
         method = ckw.get("method", "transformer_attribution")
         cls = BertExplainer if bert else Explainer
-        sd32, gsd32 = (bparams, gbparams) if bert else (params, gparams)
-        full_cfg, gate_cfg = (bcfg, gbcfg) if bert else (cfg, gcfg)
-
-        def make(sd, device, **kw):
-            return cls(sd, full_cfg, device, **kw)
+        gsd32 = gbparams if bert else gparams
+        gate_cfg = gbcfg if bert else gcfg
 
         def make_gate(sd, device, **kw):
             return cls(sd, gate_cfg, device, **kw)
@@ -1088,13 +1098,12 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
         worker.start()
         try:
             # the exact float64 path on the card (the truth) and exact
-            # FP32's card path at full depth, once per method, variant,
-            # alpha and batch; the batch is the first with REDUCED_SAMPLES
-            # finite truths
+            # FP32's card path, once per method, variant, alpha and batch;
+            # the batch is the first with REDUCED_SAMPLES finite truths
             for b in range(len(batches)):
                 key = (name, variant, tuple(sorted(ckw.items())), b)
                 if key not in truths:
-                    ex32 = make(sd32, "cuda", variant=variant)
+                    ex32 = make_gate(gsd32, "cuda", variant=variant)
                     if bert:
                         ids_t, m_t, idx_t = (torch.as_tensor(a, device=dev)
                                              for a in bert_batches[b])
@@ -1114,7 +1123,7 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
                 if int(fin.sum()) >= REDUCED_SAMPLES:
                     break
             every = np.flatnonzero(fin.numpy())
-            ex = make(sd32, "cuda", **ekw)
+            ex = gate_ex
             (heat,), counts = drive(lambda: run(ex, b), [()], shape,
                                     {**none, **per}, f"reduced {name} {label}",
                                     finite=method != "attn_gradcam")
@@ -1165,8 +1174,8 @@ def reduced_base_phase(dev, tag, none, params, batches, bparams,
               f"corr {fmt(gap)} (CPU {cpu_s:.1f} s); the float32 maps vs "
               f"that path at depth {REDUCED_DEPTH} on samples {sel.tolist()} "
               f"(batch {gb}): card {fmt(c)}, CPU as they are "
-              f"{fmt(c_plain[0])} (the CPU's draws {draws_s:.1f} s); at full "
-              f"depth, fidelity of the float32 maps vs exact f64 on the card "
+              f"{fmt(c_plain[0])} (the CPU's draws {draws_s:.1f} s); "
+              f"fidelity of the float32 maps vs exact f64 on the card "
               f"median {row['fid_median']:.6f} min {row['fid_min']:.6f}, "
               f"{row['fid_below']} of {row['n']} below {FIDELITY_TAIL} "
               f"(exact FP32: median {row['f32_median']:.6f} min "
@@ -1508,6 +1517,590 @@ def c5_measurement(dev, K, bm, prec, shapes):
     return out
 
 
+# C8: C5's rule on the MLP products that call the GEMM core's one-chain
+# bf16x3 mode: B8's relevance output R_att at BERT-base widths (B7's MLP
+# products are B8's recompute), and the relevance of the tensor-parallel MLP
+# half, B10b from B10a's anchors as the TP program forms it (k = 1), at
+# ViT-B widths; the (bf16x3 MLP, bf16 rule) pair that a tensorfloat32 base
+# with a float32 attention island and a bfloat16 rule island reaches
+C8_PAIR = (TF32, "bfloat16")
+
+
+def c8_measurement(dev, K, bm, bmath, prec, rp, shapes):
+    """C8 by c5_measurement's rule (C5_SEEDS input draws, the plain float32
+    version on DRAWS ulp-moved copies of each): ``shapes`` {"B8": (B, S, h,
+    hd, I), "B10": (B, n, D, M)}. The inputs are made as c5_measurement
+    makes B6's: the activation the add and clone rules divide by (B8's
+    att_ln, B10's x_mid) around 4 (spread 0.5), so that the measurement
+    sees the products' summation and not the conditioning of a divide by
+    a sum near 0 (with att_ln an LN output, as phase 3 makes it, the plain
+    float32 version itself erred by 9-100 % of |p64| in R_att). Prints a line
+    per draw and a summary per kernel, and fails where the kernel misses on
+    a draw where no plain draw of the same input misses (the C8 repair's
+    claim); returns {kernel: (kernel misses, plain-draw misses, plain
+    draws, each draw's error over its limit, the seeds of the kernel's
+    misses that no plain draw shares)}."""
+    import torch
+    mlp, rule = C8_PAIR
+    eps = 1e-6
+    out = {}
+
+    def measure(name, label, run, args64, seed):
+        """``run(plain, *args)`` -> the relevance, by the kernel (plain
+        False) or the plain version; args64 the float64 inputs, the ones
+        moved the activations'."""
+        args32 = tuple(a.float() for a in args64)
+        k = run(False, *args32).double()
+        p64 = run(True, *args64)
+        rel = lambda t: (t.double() - p64).norm().item() / p64.norm().item()
+        npl = rel(run(True, *args32))
+        lim = F32_FACTOR * npl + F32_FLOOR
+        nk = rel(k)
+        mg = torch.Generator(device=dev).manual_seed(3100 + seed)
+        nd = [rel(run(True, *(ulp_moved_tensor(t, mg) for t in args32)))
+              for _ in range(DRAWS)]
+        print(f"c8 {name} {label} seed {seed}: |k32-p64|/|p64| {nk:.3e}, "
+              f"limit {lim:.3e} (plain f32 {npl:.3e}); plain f32 on "
+              f"ulp-moved inputs {fmt(nd)}")
+        return nk > lim, sum(v > lim for v in nd), nk / lim, seed
+
+    # B8: R_att of the output sub-block's reverse
+    b, S, hh, dd, inter = shapes["B8"]
+    D = hh * dd
+    k_miss = p_miss = 0
+    ratios, alone = [], []
+    for seed in range(C5_SEEDS):
+        gen = torch.Generator(device=dev).manual_seed(2100 + seed)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev,
+                               dtype=torch.float64)
+
+        ws = [prec.prepare_weight(randn(o, i) / i ** 0.5, mlp)
+              for o, i in ((3 * D, D), (D, D), (inter, D), (D, inter))]
+        vecs = [1.0 + 0.1 * randn(D), 0.1 * randn(D), 1.0 + 0.1 * randn(D),
+                0.1 * randn(D), 0.1 * randn(3 * D), 0.1 * randn(D),
+                0.1 * randn(inter), 0.1 * randn(D)]
+        p64 = bmath.BertLayerParams(*vecs, *ws)
+        p32 = bmath.BertLayerParams(*[v.float() for v in vecs], *ws)
+        att_ln = 4.0 + 0.5 * randn(b, S, D)
+
+        def run(plain, a, g, R):
+            f = bmath.bert_out_rev_core_plain if plain else \
+                K.bert_out_rev_core
+            return f(a, g, R, p64 if a.dtype == torch.float64 else p32, eps,
+                     mlp, rule, mlp)[1]
+
+        km, pm, r, sd = measure("B8 R_att", (b, S, D, inter), run,
+                            (att_ln, randn(b, S, D), randn(b, S, D)), seed)
+        k_miss += km
+        p_miss += pm
+        ratios.append(r)
+        if km and not pm:
+            alone.append(sd)
+        del ws, p64, p32, att_ln
+    out["bert_out_rev_core"] = (k_miss, p_miss, C5_SEEDS * DRAWS, ratios,
+                                alone)
+    torch.cuda.empty_cache()
+
+    # B10a -> B10b: the MLP half's relevance at the block input
+    b, n, D, M = shapes["B10"]
+    k_miss = p_miss = 0
+    ratios, alone = [], []
+    for seed in range(C5_SEEDS):
+        gen = torch.Generator(device=dev).manual_seed(2200 + seed)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev,
+                               dtype=torch.float64)
+
+        w1 = prec.prepare_weight(randn(M, D) / D ** 0.5, mlp)
+        w2 = prec.prepare_weight(randn(D, M) / M ** 0.5, mlp)
+        vecs = (1.0 + 0.1 * randn(D), 0.1 * randn(D), 0.1 * randn(M),
+                0.1 * randn(D))
+
+        def run(plain, x_mid, g_out, R):
+            ln2s, ln2b, b1, b2 = (v.to(x_mid.dtype) for v in vecs)
+            ph1 = K.mlp_rev_tp_phase1_plain if plain else K.mlp_rev_tp_phase1
+            ph2 = K.mlp_rev_tp_phase2_plain if plain else K.mlp_rev_tp_phase2
+            fc1, fc2, axw2, _ = ph1(x_mid, g_out, ln2s, ln2b, b1, w1, w2, eps,
+                                    mlp, rule)
+            R1, R2 = rp.add_relprop(x_mid, fc2 + b2, R)
+            Sr = rp.safe_divide(R2, 0.5 * (fc2 + axw2))
+            num_w, num_a = ph2(x_mid, Sr, fc1, ln2s, ln2b, b1, w1, w2, eps,
+                               rule)
+            xn2 = bm.ln_fwd(x_mid, ln2s, ln2b, eps)[0]
+            R2b = 0.5 * (xn2 * num_w + xn2.abs() * num_a)
+            return rp.clone_relprop(x_mid, [R1, R2b])
+
+        km, pm, r, sd = measure("B10a/B10b Rm", (b, n, D, M), run,
+                            (4.0 + 0.5 * randn(b, n, D), randn(b, n, D),
+                             randn(b, n, D)), seed)
+        k_miss += km
+        p_miss += pm
+        ratios.append(r)
+        if km and not pm:
+            alone.append(sd)
+        del w1, w2
+    out["mlp_rev_tp_phase2"] = (k_miss, p_miss, C5_SEEDS * DRAWS, ratios,
+                                alone)
+    torch.cuda.empty_cache()
+    for name, (km, pm, nd, r, alone) in out.items():
+        print(f"c8 {name} {'/'.join(C8_PAIR)}: kernel misses the 2-norm rule "
+              f"on {km} of {C5_SEEDS} draws (its error over the limit: max "
+              f"{max(r):.3f}, median {float(np.median(r)):.3f}); the plain "
+              f"float32 version on ulp-moved inputs misses it on {pm} of "
+              f"{nd}; kernel misses on draws where no plain draw misses: "
+              f"{alone}")
+    for name, (*_, alone) in out.items():
+        require(not alone, f"c8 {name}: the kernel misses the 2-norm rule "
+                f"on draws {alone}, where no ulp-moved plain float32 draw "
+                f"of the same input misses")
+    return out
+
+
+# the guarded phase (ROADMAP A6; PERF.md §2): ViT-B/16 on the 32 images of
+# GUARD_DATA in GUARD_BATCHES batches of 8, BERT-base on phase 4's first
+# batch; every ticket done within GUARD_TIMEOUT seconds; the strict
+# deliver-f32 server's escalation budget
+GUARD_DATA = "experiments/data/guarded_defer_load_in.npz"
+GUARD_BATCHES = 4
+GUARD_TIMEOUT = 120.0
+GUARD_BUDGET = 4
+
+
+def guarded_phase(dev, tag, none, params, bparams, bert_batch, corr,
+                  token_corr, ulp_moved):
+    """The guarded mode and its serving queue on the card, gates (a)-(g) of
+    PERF.md §2: ``params`` / ``bparams`` the seeded ViT-B/16 and BERT-base
+    state dicts on the card, ``bert_batch`` (ids, valid, indices) of 8
+    sequences at S=512; ``corr`` / ``token_corr`` main's per-sample corr,
+    ``ulp_moved(sd, seed)`` main's. The exact CPU program is held on the
+    rows it re-ran by ``cpu_rows_gate``: run on the float64 card model, it
+    must match the card's plain float64 path (1 - corr <= TWIN_GAP); its
+    float32 rows' corr is printed beside the card's plain float32 draws
+    (the weights as they are and PLAIN_DRAWS - 1 sets moved one float32
+    ulp). Each path is driven with the launch counts set to 0 just before it and read just after (a server's worker
+    thread launches the gpu-f32 tier's kernels beside the caller's).
+    Returns the counts of every path."""
+    import torch
+    from transformer_explainability_torch.explain import bert_generator as bg
+    from transformer_explainability_torch.explain.generator import (
+        ENVELOPE_BOUNDS, STRICT_AGREEMENT, _batch_corr, _envelope_flags,
+        _to_host, calibrate_envelope, explain_batch, make_cpu_exact_fn,
+        make_explain_fn, make_guarded_explain_fn, precision_kwargs)
+    from transformer_explainability_torch.explain.serving import (
+        TIER_AGREEMENT, GuardedServer)
+    from transformer_explainability_torch.models import bert as bert_mod
+    from transformer_explainability_torch.models.vit import (
+        VIT_BASE_16_224, VisionTransformer)
+    from transformer_explainability_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    cfg, bcfg = VIT_BASE_16_224, bert_mod.BERT_BASE_UNCASED
+    L, BL = cfg.depth, bcfg.num_layers
+    prod = precision_kwargs("production")
+    data = np.load(os.path.join(ROOT, GUARD_DATA))
+    imgs_all = data["images"]
+    idx_all = data["indices"].astype(np.int64)
+    batches = [(imgs_all[8 * k:8 * k + 8], idx_all[8 * k:8 * k + 8])
+               for k in range(GUARD_BATCHES)]
+
+    def on_card(sd, make, dtype=torch.float32):
+        m = make(dtype)
+        m.load_state_dict({k: v.to(dtype) if v.is_floating_point() else v
+                           for k, v in sd.items()})
+        m.requires_grad_(False)
+        return m
+
+    vit = lambda dt: VisionTransformer(cfg, device=dev, dtype=dt)
+    model, model64 = on_card(params, vit), on_card(params, vit, torch.float64)
+    # the plain draws' weights: main's moved sets
+    moved = [on_card(ulp_moved(params, 101 + j), vit)
+             for j in range(PLAIN_DRAWS - 1)]
+    cpu64 = make_cpu_exact_fn(cfg)       # the exact CPU tier on model64
+    prod_fn = make_explain_fn(cfg, dev, **prod)
+    f32_fn = make_explain_fn(cfg, dev)
+    diag_fn = make_explain_fn(cfg, dev, with_diagnostics=True, **prod)
+    launches, refs = [], {}
+    mega = {"block_fwd_core": L, "block_rev_core": L}
+    split = {"attn_fwd_core": L, "attn_rev_core": L}
+
+    def same(a, b):
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        return a.shape == b.shape and np.array_equal(a.view(np.uint8),
+                                                     b.view(np.uint8))
+
+    def per(n, **counts):
+        """The launch counts of ``n`` units of ``counts``."""
+        out = dict(none)
+        for k_, v in counts.items():
+            out[k_] = v * n
+        return out
+
+    def counted(label, fn, want=None):
+        """``fn()`` with the counts set to 0 before and read after; they
+        must equal ``want`` (where the path's are fixed)."""
+        K.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        print(f"guarded {label} launches: {c}")
+        require(want is None or c == want,
+                f"guarded {label}: launch counts {c}, expected {want}")
+        launches.append(c)
+        return res
+
+    def ref(b):
+        """Batch ``b``'s plain float64 map on the card, then its plain
+        float32 maps: the weights as they are and each moved set."""
+        if b not in refs:
+            imgs, idx = batches[b]
+            idx_t = torch.as_tensor(idx, device=dev)
+            refs[b] = tuple(explain_batch(
+                m, torch.as_tensor(imgs, device=dev, dtype=m.cls_token.dtype),
+                idx_t, ops=K.PLAIN_OPS) for m in (model64, model, *moved))
+        return refs[b]
+
+    def cpu_rows_gate(label, rows, refs_of=None, twin=None, sim=None):
+        """``rows``: [(batch, row, heatmap from the exact CPU program)].
+        Gated: the exact CPU program run on the float64 card model
+        (``twin(batch, row)``; make_cpu_exact_fn copies the model in its
+        dtype) against the card's plain float64 path, 1 - corr <= TWIN_GAP
+        on every row: the CPU tier's code (its weight copy, preprocess,
+        start layer, path) computes the function. Printed only: each
+        float32 row's corr against the card's plain float64 path beside the
+        card's plain float32 draws (the weights as they are and the moved
+        sets) and whether the rule first written for these rows,
+        sample_gate against the plain float32 path as it is, holds (it did
+        not on every row: PERF.md §6, PR 21)."""
+        if not rows:
+            print(f"guarded {label}: no row went to the CPU")
+            return
+        refs_of = refs_of or (lambda b, r: [t[r] for t in ref(b)])
+        twin = twin or (lambda b, r: cpu64(model64, batches[b][0][r],
+                                           batches[b][1][r]))
+        sim = sim or (lambda x, y, b, r: corr(x[None], y[None])[0])
+        c, c32, p_low, gap = [], [], [], []
+        for b, r, h in rows:
+            r64, r32, *moved32 = refs_of(b, r)
+            c.append(sim(torch.as_tensor(h, device=dev), r64, b, r))
+            c32.append(sim(r32, r64, b, r))
+            p_low.append(min(sim(x, r64, b, r) for x in (r32, *moved32)))
+            gap.append(1.0 - sim(torch.as_tensor(twin(b, r), device=dev),
+                                 r64, b, r))
+        c, c32, gap = np.asarray(c), np.asarray(c32), np.asarray(gap)
+        first = c >= np.where(c32 >= MIN_CORR, MIN_CORR, c32 - PROD_MIN_SLACK)
+        where = [(b, r) for b, r, _ in rows]
+        print(f"guarded {label} CPU rows {where}, printed: float32 corr vs "
+              f"plain f64 on the card {fmt(c)}; the card's plain f32 path "
+              f"{fmt(c32)}, its draws' lowest {fmt(p_low)}; the rule first "
+              f"written for these rows (sample_gate against the plain f32 "
+              f"path) {'holds' if first.all() else 'FAILS'} "
+              f"({first.astype(int).tolist()})")
+        print(f"guarded {label} CPU rows {where}, gated: the exact CPU "
+              f"program on the float64 model vs the card's plain f64 path, "
+              f"1 - corr {fmt(gap)} (limit {TWIN_GAP})")
+        require(bool((gap <= TWIN_GAP).all()), f"guarded {label}: the exact "
+                f"CPU program in float64 on rows {where} is 1 - corr "
+                f"{fmt(gap)} from the card's plain float64 path, limit "
+                f"{TWIN_GAP}")
+
+    # (a) strict, defer: the production program's heatmaps, the corr of the
+    # production and float32 programs' maps as the score
+    g = make_guarded_explain_fn(cfg, dev, fallback="defer", return_info=True)
+    outs = counted("(a) strict defer", lambda: [g(model, *b) for b in batches],
+                   per(GUARD_BATCHES, **mega, **split,
+                       rollout_from_grad_cam=2))
+    scores = []
+    for k, ((heat, info), b) in enumerate(zip(outs, batches)):
+        want = _to_host(prod_fn(model, *b))
+        score = _batch_corr(want, _to_host(f32_fn(model, *b)))
+        require(same(heat, want), f"guarded (a) batch {k}: heatmaps are not "
+                f"bitwise the production program's")
+        require(same(info["score"], score), f"guarded (a) batch {k}: score "
+                f"is not bitwise the corr of the production and float32 maps")
+        require(np.array_equal(info["flagged"], score < STRICT_AGREEMENT),
+                f"guarded (a) batch {k}: flags are not score < "
+                f"{STRICT_AGREEMENT}")
+        scores.append(score)
+    scores = np.concatenate(scores)
+    low = scores < STRICT_AGREEMENT
+    print(f"guarded (a) strict defer on {len(scores)} images: flag rate "
+          f"{low.mean():.4f} ({int(low.sum())} below {STRICT_AGREEMENT}), "
+          f"score min {scores.min():.6f} median {np.median(scores):.6f}; "
+          f"per image {fmt(scores)}")
+
+    # (b) strict, sync, every row flagged, n_valid=2: two CPU re-runs, the
+    # pad rows the production program's
+    g = make_guarded_explain_fn(cfg, dev, agreement=2.0, return_info=True)
+    t0 = time.perf_counter()
+    heat, info = counted("(b) strict sync",
+                         lambda: g(model, *batches[0], n_valid=2),
+                         per(1, **mega, **split, rollout_from_grad_cam=2))
+    dt = time.perf_counter() - t0
+    calls = g.cpu_exact.copy.calls
+    print(f"guarded (b) strict sync agreement 2.0 n_valid 2: flagged "
+          f"{info['flagged'].astype(int).tolist()}, {calls} CPU calls, "
+          f"{dt:.2f} s for the batch {tag}")
+    require(calls == 2 and info["flagged"].tolist() == [True] * 2 + [False]
+            * 6, f"guarded (b): {calls} CPU calls, flags {info['flagged']}")
+    require(same(heat[2:], _to_host(prod_fn(model, *batches[0]))[2:]),
+            "guarded (b): pad rows are not the production program's")
+    cpu_rows_gate("(b)", [(0, r, heat[r]) for r in range(2)])
+
+    # (c) envelope: JAX's bounds on the 32 images; bounds calibrated on the
+    # port's own diagnostics of images 0-15, counted on images 16-31
+    g = make_guarded_explain_fn(cfg, dev, mode="envelope", fallback="defer",
+                                return_info=True)
+    outs = counted("(c) envelope", lambda: [g(model, *b) for b in batches],
+                   per(GUARD_BATCHES, **mega, rollout_from_grad_cam=1))
+    diags = []
+    for k, ((heat, info), b) in enumerate(zip(outs, batches)):
+        h_d, d_d = diag_fn(model, *b)
+        d = _to_host(d_d).astype(np.float64)
+        require(same(heat, _to_host(h_d)) and same(info["score"], d[:, 6])
+                and np.array_equal(info["flagged"],
+                                   _envelope_flags(d, ENVELOPE_BOUNDS)),
+                f"guarded (c) batch {k}: heatmaps, score or flags are not the "
+                f"diagnostics program's")
+        diags.append(d)
+    diags = np.concatenate(diags)
+    jax_flags = _envelope_flags(diags, ENVELOPE_BOUNDS)
+    half = len(diags) // 2
+    bounds = calibrate_envelope(diags[:half], 1.3)
+    cal_flags = _envelope_flags(diags[half:], bounds)
+    out_of = {f: int(((diags[:, j] < lo) | (diags[:, j] > hi)).sum())
+              for j, (f, (lo, hi)) in enumerate(ENVELOPE_BOUNDS.items())}
+    print(f"guarded (c) envelope, not gated: JAX's ENVELOPE_BOUNDS (TPU, "
+          f"JAX's seed-0 weights) flag {int(jax_flags.sum())} of "
+          f"{len(diags)} images (per field out of bounds: {out_of}); bounds "
+          f"calibrated on images 0-{half - 1} (margin 1.3) flag "
+          f"{int(cal_flags.sum())} of images {half}-{len(diags) - 1}")
+
+    # (d) the gpu-f32 tier: every row flagged, serve_stream(depth=4) over
+    # two batches; the tier's calls recorded by a wrapper of this script
+    flag_all = {f: (np.inf, -np.inf) for f in ENVELOPE_BOUNDS}
+    srv = GuardedServer(cfg, dev, mode="envelope", envelope_bounds=flag_all,
+                        tier="gpu-f32")
+    tier_program, recorded = srv._tier_fn, []
+
+    def recording(m, im, ix):
+        out = tier_program(m, im, ix)
+        recorded.append((np.array(im), np.array(ix), _to_host(out)))
+        return out
+
+    srv._tier_fn = recording
+
+    def serve_d():
+        tickets = list(srv.serve_stream(model, iter(batches[:2]), depth=4))
+        ok = [t.wait(GUARD_TIMEOUT) for t in tickets]
+        return tickets, ok
+
+    t0 = time.perf_counter()
+    tickets, ok = counted("(d) tier", serve_d)
+    dt = time.perf_counter() - t0
+    srv.drain(GUARD_TIMEOUT)           # raises rather than hang the script
+    s = srv.stats()
+    srv.close()
+    n_mb = len(recorded)
+    want = per(2, **mega)
+    want.update({k_: n_mb * v for k_, v in split.items()},
+                rollout_from_grad_cam=2 + n_mb)
+    require(launches[-1] == want, f"guarded (d): launches {launches[-1]} "
+            f"for {n_mb} micro-batches, expected {want}")
+    print(f"guarded (d) envelope gpu-f32 tier, every row flagged, "
+          f"serve_stream depth 4 over 2 batches: tickets done {ok}, "
+          f"{dt:.2f} s; {n_mb} micro-batches; stats {json.dumps(s)} {tag}")
+    require(all(ok), f"guarded (d): tickets not done in {GUARD_TIMEOUT} s")
+    require(s["n_errors"] == 0 and s["n_flagged"] == 16
+            and s["n_tier_cleared"] + s["n_escalated"]
+            == s["n_flagged"] - s["n_shed"],
+            f"guarded (d): stats {s}")
+    esc, cleared = [], 0
+    for k, ((imgs, idx), t) in enumerate(zip(batches[:2], tickets)):
+        fast = _to_host(diag_fn(model, imgs, idx)[0])
+        for r in range(8):
+            hit = [(im_, out) for im_, ix_, out in recorded
+                   for p in range(len(ix_))
+                   if ix_[p] == idx[r] and same(im_[p], imgs[r])]
+            require(hit, f"guarded (d): row {(k, r)} in no micro-batch")
+            im_, out = hit[0]
+            p = next(p for p in range(len(im_)) if same(im_[p], imgs[r]))
+            c = _batch_corr(fast[r][None], out[p][None])[0]
+            if c >= TIER_AGREEMENT:
+                cleared += 1
+                require(same(t.heatmaps[r], out[p]), f"guarded (d): cleared "
+                        f"row {(k, r)} is not the FP32 micro-batch's output")
+            else:
+                esc.append((k, r, t.heatmaps[r]))
+    require(cleared == s["n_tier_cleared"] and len(esc) == s["n_escalated"],
+            f"guarded (d): {cleared} cleared and {len(esc)} escalated rows "
+            f"against the stats' {s['n_tier_cleared']} and "
+            f"{s['n_escalated']}")
+    im_, ix_, out = recorded[0]
+    again = _to_host(tier_program(model, im_, ix_))
+    print(f"guarded (d) {cleared} rows cleared bitwise their micro-batch's "
+          f"FP32 output, {len(esc)} escalated; the first micro-batch run "
+          f"again: {'bitwise equal' if same(again, out) else 'DIFFERS'}")
+    require(same(again, out), "guarded (d): a micro-batch run again differs")
+    cpu_rows_gate("(d) escalated", esc)
+
+    # (e) strict deliver-f32 with an escalation budget, serve_stream over
+    # the four batches; beside it the bare production program's rate
+    srv = GuardedServer(cfg, dev, mode="strict", strict_policy="deliver-f32",
+                        escalation_budget=GUARD_BUDGET)
+    waiting = []
+
+    def serve_e():
+        tickets = []
+        for t in srv.serve_stream(model, iter(batches), depth=4):
+            waiting.append(srv._q.qsize())
+            tickets.append(t)
+        return tickets, time.perf_counter()
+
+    t0 = time.perf_counter()
+    tickets, t1 = counted("(e) strict deliver-f32", serve_e,
+                          per(GUARD_BATCHES, **mega, **split,
+                              rollout_from_grad_cam=2))
+    ok = [t.wait(GUARD_TIMEOUT) for t in tickets]
+    srv.drain(GUARD_TIMEOUT)
+    s = srv.stats()
+    srv.close()
+    stream_rate = 8 * GUARD_BATCHES / (t1 - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        prod_fn(model, *b)
+    torch.cuda.synchronize()
+    bare_rate = 8 * GUARD_BATCHES / (time.perf_counter() - t0)
+    delivered = sum(int((t.delivered_f32 & ~t.flagged).sum())
+                    for t in tickets)
+    below = sum(int(t.delivered_f32.sum()) for t in tickets)
+    shed = sum(int(t.shed.sum()) for t in tickets if t.shed is not None)
+    print(f"guarded (e) strict deliver-f32, budget {GUARD_BUDGET}, "
+          f"serve_stream depth 4 over {GUARD_BATCHES} batches: "
+          f"{stream_rate:.1f} expl/s (the bare production program "
+          f"{bare_rate:.1f} expl/s in the same window); flag rate "
+          f"{below / (8 * GUARD_BATCHES):.4f}, f32-delivered "
+          f"{s['n_f32_delivered']}, escalated {s['n_flagged']}, shed "
+          f"{s['n_shed']}; queue wait p50 {s.get('queue_wait_p50_s', 0):.3f}"
+          f" s p95 {s.get('queue_wait_p95_s', 0):.3f} s, verifier busy "
+          f"{s['verifier_busy_frac']:.3f}; rows waiting after each batch "
+          f"{waiting}; tickets done {ok} {tag}")
+    require(all(ok), f"guarded (e): tickets not done in {GUARD_TIMEOUT} s")
+    require(max(waiting) <= GUARD_BUDGET, f"guarded (e): {max(waiting)} rows "
+            f"waited for the CPU, budget {GUARD_BUDGET}")
+    require(s["n_errors"] == 0 and shed == s["n_shed"]
+            and delivered == s["n_f32_delivered"], f"guarded (e): stats {s}")
+    corrected = []
+    for k, (b, t) in enumerate(zip(batches, tickets)):
+        co = _to_host(f32_fn(model, *b))
+        rows = np.flatnonzero(t.delivered_f32 & ~t.flagged)
+        require(same(t.heatmaps[rows], co[rows]), f"guarded (e) batch {k}: "
+                f"f32-delivered rows are not the co-run's")
+        corrected += [(k, r, t.heatmaps[r]) for r in sorted(t.corrections)]
+    cpu_rows_gate("(e) corrected", corrected)
+
+    # (f) the uint8 wire format, strict, every row flagged, n_valid=2
+    imgs, idx = batches[0]
+    u8 = np.clip(np.rint((imgs * 0.5 + 0.5) * 255.0), 0, 255).astype(
+        np.uint8).transpose(0, 2, 3, 1)
+    srv = GuardedServer(cfg, dev, mode="strict", agreement=2.0,
+                        input_format="uint8")
+
+    def serve_f():
+        t = srv.submit(model, u8, idx, n_valid=2)
+        return t, t.wait(GUARD_TIMEOUT)
+
+    t, done = counted("(f) uint8", serve_f,
+                      per(1, **mega, **split, rollout_from_grad_cam=2))
+    srv.drain(GUARD_TIMEOUT)
+    srv.close()
+    exact = make_cpu_exact_fn(cfg, preprocess="uint8")
+    eq = [same(t.heatmaps[r], exact(model, u8[r], idx[r])) for r in range(2)]
+    print(f"guarded (f) uint8 strict agreement 2.0 n_valid 2: corrected rows "
+          f"{sorted(t.corrections)}, equal to make_cpu_exact_fn(preprocess="
+          f"'uint8') on the same frames: {eq}")
+    require(done and sorted(t.corrections) == [0, 1] and all(eq),
+            "guarded (f): uint8 rows are not the uint8 CPU verifier's")
+
+    # (g) BERT-base, strict: defer bitwise production; sync with every row
+    # flagged and n_valid=1, its CPU row against the card's plain f64 path
+    bert = lambda dt: bert_mod.BertForSequenceClassification(bcfg, device=dev,
+                                                             dtype=dt)
+    bmodel = on_card(bparams, bert)
+    ids, valid, bidx = bert_batch
+    gb = bg.make_guarded_bert_explain_fn(bcfg, dev, fallback="defer",
+                                         return_info=True)
+    bb = {"bert_layer_fwd_core": BL, "bert_out_rev_core": BL,
+          "bert_attn_rev_core": BL}
+    heat, info = counted("(g) bert defer",
+                         lambda: gb(bmodel, ids, valid, bidx),
+                         per(1, **bb, rollout_from_grad_cam=2))
+    bprod = _to_host(bg.make_explain_fn(bcfg, dev, **prod)(bmodel, ids, valid,
+                                                          bidx))
+    require(same(heat, bprod), "guarded (g): BERT defer rows are not the "
+            "production program's")
+    gs = bg.make_guarded_bert_explain_fn(bcfg, dev, agreement=2.0,
+                                         return_info=True)
+    heat, info2 = counted("(g) bert sync",
+                          lambda: gs(bmodel, ids, valid, bidx, n_valid=1),
+                          per(1, **bb, rollout_from_grad_cam=2))
+    require(gs.cpu_exact.copy.calls == 1 and same(heat[1:], bprod[1:])
+            and info2["flagged"].tolist() == [True] + [False] * 7,
+            "guarded (g): BERT sync re-ran another row than row 0")
+    bmodel64 = on_card(bparams, bert, torch.float64)
+    bmoved = [on_card(ulp_moved(bparams, 201 + j), bert)
+              for j in range(PLAIN_DRAWS - 1)]
+    bcpu64 = bg.make_cpu_exact_bert_fn(bcfg)
+    ids_t, v_t, i_t = (torch.as_tensor(a, device=dev)
+                       for a in (ids[:1], valid[:1], bidx[:1]))
+    brefs = [bg.explain_batch(m, ids_t, v_t, i_t, ops=K.BERT_PLAIN_OPS)[0]
+             for m in (bmodel64, bmodel, *bmoved)]
+    print(f"guarded (g) bert strict defer: scores {fmt(info['score'])}")
+    cpu_rows_gate(
+        "(g) bert", [(0, 0, heat[0])], refs_of=lambda b, r: brefs,
+        twin=lambda b, r: bcpu64(bmodel64, ids[r], valid[r], bidx[r]),
+        sim=lambda x, y, b, r: token_corr(x[None], y[None], v_t.bool())[0])
+    del bmodel, bmodel64, bmoved, bcpu64
+
+    # the host's contention: the production program's rate with the CPU
+    # verifier idle and with it busy in a thread beside it (printed)
+    def rate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for b in batches:
+                prod_fn(model, *b)
+        torch.cuda.synchronize()
+        return 16 * GUARD_BATCHES / (time.perf_counter() - t0)
+
+    idle = rate()
+    busy_calls, stop = [], threading.Event()
+    cpu_exact = make_cpu_exact_fn(cfg)
+
+    def busy():
+        while not stop.is_set():
+            cpu_exact(model, imgs[0], idx[0])
+            busy_calls.append(1)
+
+    worker = threading.Thread(target=busy)
+    cpu_exact.copy(model)                     # the copy, before the window
+    worker.start()
+    time.sleep(0.2)
+    busy_rate = rate()
+    stop.set()
+    worker.join()
+    print(f"guarded production rate with the CPU verifier idle "
+          f"{idle:.1f} expl/s, busy beside it {busy_rate:.1f} expl/s "
+          f"({len(busy_calls)} CPU verifications, torch CPU threads "
+          f"{torch.get_num_threads()}) {tag}")
+    print(f"guarded phase: {time.perf_counter() - t_phase:.1f} s")
+    del model, model64, refs, moved, cpu64
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the new end-to-end paths of A3b (phase 4): ViT-B/16 on the three
 # batches, each by preset_gate against the same path's plain float64
 # version on the card, PLAIN_DRAWS plain float32 draws on the card, the
@@ -1630,6 +2223,16 @@ def tf32_times(tag, K, bm, inputs):
 
 def main() -> int:
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def phase_mark(name):
+        """Print the seconds since the last mark (a phase's) and since the
+        start."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - marks[-1]:.1f} s (elapsed "
+              f"{now - t_start:.0f} s)")
+        marks.append(now)
+
     # transformers, where phase 1 finds it, reads local files only
     os.environ["HF_HUB_OFFLINE"] = "1"
     os.environ["TRANSFORMERS_OFFLINE"] = "1"
@@ -1766,7 +2369,7 @@ def main() -> int:
                 f"chain spill: "
                 f"{redesign_spills}")
 
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("1-2, the device and the build")
     # 3. kernels against their plain versions --------------------------------
     cfg = VIT_BASE_16_224
     B, n, h, hd, L = 8, cfg.num_tokens, cfg.num_heads, cfg.head_dim, cfg.depth
@@ -2499,8 +3102,12 @@ def main() -> int:
         "ViT-L": (B, n, VIT_LARGE_16_224.embed_dim,
                   VIT_LARGE_16_224.mlp_dim)})
     print(f"C5 measurement: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c8_measurement(dev, K, bm, bmath, prec, rp, {
+        "B8": bert_shapes["main"], "B10": tp_shapes["main"]})
+    print(f"C8 measurement: {time.perf_counter() - t0:.1f} s")
 
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("3, kernels against their plain versions")
     # 4. the slice ----------------------------------------------------------
     data = np.load(os.path.join(ROOT, "experiments/data/fidelity_truth.npz"))
     imgs_all, idx_all = data["imgs"], data["idx"].astype(np.int64)
@@ -3035,14 +3642,18 @@ def main() -> int:
                     token_corr(plain32[ok], ref[ok], v_ok))
     del bmodel64, bex_lrp, bexplainers, ref, plain32
     torch.cuda.empty_cache()
+    phase_mark("4, the slices, methods and configurations")
 
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    # the guarded mode and its serving queue (A6), gates (a)-(g)
+    guarded_launches = guarded_phase(dev, tag, none, params, bparams,
+                                     bert_batches[0], corr, token_corr,
+                                     ulp_moved)
+    phase_mark("4, the guarded mode")
     reduced_launches = reduced_base_phase(dev, tag, none, params, batches,
                                           bparams, bert_batches, drive, corr,
                                           token_corr, ulp_moved)
     torch.cuda.empty_cache()
-
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("4, the reduced bases")
     # the tensor-parallel ViT program at k = 1 over a single-rank NCCL group
     # (its all-reduces run, trivially), explaining the same batches with
     # the same weights, sharded once per preset
@@ -3452,10 +4063,9 @@ def main() -> int:
     del params64
     torch.cuda.empty_cache()
 
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("4, tensor parallel, checkpoints, 384 px and the harnesses")
     train_launches = training_phases(dev, tag, have, none)
-
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("4, the training paths")
     # 5. times ---------------------------------------------------------------
     times = {}
     for name, (make, kern, plain) in cases.items():
@@ -3520,7 +4130,11 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    def device_ms(fn, iters=50):
+    def device_ms(fn, iters=50, yardstick=None):
+        """(device ms a call, kernel names, {name: ms}) of ``fn``'s kernels
+        by the profiler; fails where it sees none, except for a printed
+        ``yardstick`` (its label), which then prints that it was not timed
+        and gives None."""
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -3531,14 +4145,22 @@ def main() -> int:
         for e in evs:
             per[e.key] = per.get(e.key, 0.0) + (e.self_device_time_total
                                                 / iters / 1e3)
+        if not per and yardstick:
+            print(f"  {yardstick}: the profiler saw no kernel of the call, "
+                  f"so it is not timed (a yardstick, printed only)")
+            return None
+        require(per, "device_ms: the profiler saw no kernel of the call")
         return sum(per.values()), sorted(per), per
 
     b4_dev = device_ms(lambda: K.attn_fwd_core(qkv_main, h, hd, hd ** -0.5))
-    sdpa_dev = device_ms(sdpa)
-    print(f"scaled_dot_product_attention f32 ran: "
-          f"{'; '.join(sdpa_dev[1]) or 'no kernel seen by the profiler'}")
+    sdpa_dev = device_ms(sdpa, yardstick="scaled_dot_product_attention f32")
+    sdpa_txt = "not timed"
+    if sdpa_dev:
+        print(f"scaled_dot_product_attention f32 ran: "
+              f"{'; '.join(sdpa_dev[1])}")
+        sdpa_txt = f"{sdpa_dev[0]:.4f} ms"
     print(f"device time per call (profiler): B4 float32 {b4_dev[0]:.4f} ms, "
-          f"scaled_dot_product_attention {sdpa_dev[0]:.4f} ms {tag}")
+          f"scaled_dot_product_attention {sdpa_txt} {tag}")
     # B1 at ViT-B/16 B=8, start_layer 0: the row form (rows=1, the call of
     # every path), the full form, and the per-head input (B, L, h, n, n)
     # without grads (the rollout and rollout_attn methods) and with them:
@@ -3677,14 +4299,18 @@ def main() -> int:
                                     (to16(xn2.abs()), aW1.t()), (to16(S1), W1),
                                     (to16(S1), aW1)]}
     for name, pairs in b10_mm.items():
-        parts = [device_ms(lambda: torch.matmul(x_, y_), 20)[0]
+        parts = [device_ms(lambda: torch.matmul(x_, y_), 20,
+                           yardstick=f"torch.matmul bf16 for {name}")
                  for x_, y_ in pairs]
         k_dev = device_ms(lambda: getattr(K, name)(*tp_args[name]), 20)
+        mm_txt = ("not timed" if None in parts else
+                  f"{sum(p[0] for p in parts):.4f} ms ("
+                  f"{', '.join(f'{p[0]:.4f}' for p in parts)})")
         print(f"time {name} {tp_shapes['main']} production modes: kernel "
               f"{times[name][0]:.4f} ms (events), {k_dev[0]:.4f} ms of "
               f"launches (profiler); torch.matmul bf16 on its five "
-              f"products' bf16 operands, one call each: {sum(parts):.4f} ms "
-              f"({', '.join(f'{t:.4f}' for t in parts)}) (profiler) {tag}")
+              f"products' bf16 operands, one call each: {mm_txt} (profiler) "
+              f"{tag}")
     del x_mid, g_out, xn2, fc1, h1, hg, g_h1, Sr, fc1_b, hg2, R2, S1, b10_mm
     del block_inputs, bi, tp_inputs, ti, tp_args, qkv_main, q_, k_, v_
     tf32_t = tf32_times(tag, K, bm, tf32_inputs)
@@ -3703,12 +4329,14 @@ def main() -> int:
         a16 = (a.abs() if ab else a).to(torch.bfloat16)
         b16 = (w.abs if ab else w)[0]
         b16 = b16.t() if wt else b16
-        t_mm = device_ms(lambda: torch.matmul(a16, b16), 20)[0]
+        mm = device_ms(lambda: torch.matmul(a16, b16), 20,
+                       yardstick=f"torch.matmul bf16 for core {label}")
+        mm_txt = (f"{mm[0]:.4f} ms a pass, "
+                  f"{2.0 * rows * N_ * K_ / mm[0] / 1e9:.1f} TFLOP/s"
+                  if mm else "not timed")
         print(f"time core {label} ({rows}, {N_}, {K_}) {mode}: kernel "
               f"{t_k:.4f} ms, {flop / t_k / 1e9:.1f} TFLOP/s of bf16 passes; "
-              f"torch.matmul bf16 {t_mm:.4f} ms a pass, "
-              f"{2.0 * rows * N_ * K_ / t_mm / 1e9:.1f} TFLOP/s (profiler) "
-              f"{tag}")
+              f"torch.matmul bf16 {mm_txt} (profiler) {tag}")
     # the tensor-parallel MLP kernels' instances of the core at B10's shapes
     # (phase 3's): device time and rate of their bf16 products, beside one
     # torch.matmul a product on bf16 operands of the same shapes
@@ -3720,13 +4348,15 @@ def main() -> int:
         t_k = device_ms(call, 20)[0]
         x16 = a0.to(torch.bfloat16)
         y16 = w0[0].t() if w0[0].shape[1] == K_ else w0[0]
-        t_mm = device_ms(lambda: torch.matmul(x16, y16), 20)[0]
+        mm = device_ms(lambda: torch.matmul(x16, y16), 20,
+                       yardstick=f"torch.matmul bf16 for core B10 {kind}")
         flop = 2.0 * M_ * N_ * K_ * nprod
+        mm_txt = (f"{mm[0]:.4f} ms a product, "
+                  f"{2.0 * M_ * N_ * K_ / mm[0] / 1e9:.1f} TFLOP/s"
+                  if mm else "not timed")
         print(f"time core B10 {kind} ({M_}, {N_}, {K_}) x{nprod} bfloat16: "
               f"kernel {t_k:.4f} ms, {flop / t_k / 1e9:.1f} TFLOP/s; "
-              f"torch.matmul bf16 {t_mm:.4f} ms a product, "
-              f"{2.0 * M_ * N_ * K_ / t_mm / 1e9:.1f} TFLOP/s (profiler) "
-              f"{tag}")
+              f"torch.matmul bf16 {mm_txt} (profiler) {tag}")
     del core_inputs, fused_inputs, a16, b16, x16, y16
 
     imgs_t = torch.as_tensor(batches[0][0], device=dev)
@@ -3924,12 +4554,15 @@ def main() -> int:
     sdpa_m = lambda: torch.nn.functional.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask4, scale=hdb ** -0.5)
     sdpa_m_ms = time_ms(sdpa_m, 50)
-    sdpa_m_dev = device_ms(sdpa_m)
+    sdpa_m_dev = device_ms(sdpa_m, yardstick="scaled_dot_product_attention "
+                           "with the additive mask")
+    sdpa_m_txt = (f"{sdpa_m_dev[0]:.4f} ms (profiler), ran: "
+                  f"{'; '.join(sdpa_m_dev[1])}" if sdpa_m_dev
+                  else "not timed by the profiler")
     print(f"time B7 attention core (8, {qb.shape[2]}, {hb}, {hdb}) f32: launch "
           f"{core_ms:.4f} ms (profiler); scaled_dot_product_attention with "
-          f"the additive mask {sdpa_m_ms:.4f} ms (events), "
-          f"{sdpa_m_dev[0]:.4f} ms (profiler), ran: "
-          f"{'; '.join(sdpa_m_dev[1]) or 'no kernel seen'} {tag}")
+          f"the additive mask {sdpa_m_ms:.4f} ms (events), {sdpa_m_txt} "
+          f"{tag}")
     print("B7 launches (profiler, ms per call): " + "; ".join(
         f"{name[:60]} {ms:.4f}" for name, ms in sorted(
             b7_launches.items(), key=lambda kv: -kv[1])) + f" {tag}")
@@ -4176,7 +4809,7 @@ def main() -> int:
               f"{pms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
               f"{ms / bd[0]:.1f}x the bound {tag}")
     del t, c32, bk, block577, args
-    print(f"elapsed {time.perf_counter() - t_start:.0f} s")
+    phase_mark("5, times")
     tf32_names = {"attn_fwd_core": "attn_fwd.cuh",
                   "attn_rev_core": "attn_rev.cu",
                   "block_fwd_core": "block_fwd.cu",
@@ -4196,7 +4829,7 @@ def main() -> int:
               blaunches, blaunches_prod, *bert_method_launches,
               *tp_launches, *ckpt_launches, *launches384,
               *harness_launches, *train_launches, *reduced_launches,
-              *tf32_launches.values())
+              *tf32_launches.values(), *guarded_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"transformer_explainability_torch/csrc/{sources[name]}",

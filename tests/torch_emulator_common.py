@@ -10,9 +10,12 @@ parallel run: ``test_torch_kernels_emulated_attention.py`` (B1, B4, B5),
 """
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,18 +30,49 @@ from transformer_explainability_torch.ops import precision as P
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emulator")
 
 
+EMU_BUILD = os.path.join(os.path.dirname(os.path.dirname(EMU)), "build",
+                         "emulated")
+
+
+def emulated_library(gxx: str) -> str:
+    """The library of ``csrc/*.cu`` built by g++ against the emulator, once
+    for every process and file that asks: cached under
+    ``build/emulated/<hash>``, the hash over the command and every source,
+    header and emulator file, built under a file lock and renamed into
+    place."""
+    flags = ["-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC",
+             "-pthread", "-I", EMU]
+    files = (sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob(
+        "*.cuh")) + sorted(Path(EMU).iterdir()))
+    h = hashlib.sha256(" ".join([gxx, *flags]).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    d = os.path.join(EMU_BUILD, h.hexdigest()[:16])
+    out = os.path.join(d, "libte_emulated.so")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = os.path.join(d, f"libte_emulated.{os.getpid()}.so")
+            cmd = [gxx, *flags, "-o", tmp, os.path.join(EMU,
+                                                         "shared_memory.cpp"),
+                   "-x", "c++", *map(str, _build.sources())]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            assert res.returncode == 0, res.stderr
+            os.replace(tmp, out)
+    return out
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
+    """The emulated library, a module's own copy of the cached build (a
+    module loads it afresh, as if it had built it)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available to build the CUDA emulator")
     out = tmp_path_factory.mktemp("emu") / "libte_emulated.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared",
-           "-fPIC", "-pthread",
-           "-I", EMU, "-o", str(out), os.path.join(EMU, "shared_memory.cpp"),
-           "-x", "c++", *map(str, _build.sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
+    shutil.copyfile(emulated_library(gxx), out)
     return _build.declare(ctypes.CDLL(str(out)))
 
 

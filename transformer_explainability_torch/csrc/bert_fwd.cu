@@ -225,10 +225,11 @@ int bert_fwd(const float* x, const float* mask, const BlockWeights& w,
       mxu, GemmArgs{ctx, w.wproj_hi, w.wproj_lo, D, D, rows, D, D},
       EpiResidual{dense_nb, sum, x, w.bproj, D}, stream));
   TE_TRY(ln_fwd(sum, w.ln1s, w.ln1b, att_ln, rows, D, eps, stream));
-  TE_TRY(gemm<true, false, false>(
+  // the MLP products through gemm_mlp (fault C8), as B8 recomputes them
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{att_ln, w.w1_hi, w.w1_lo, D, D, rows, I, D},
       EpiGelu{inter_pre, inter_g, w.b1, I}, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{inter_g, w.w2_hi, w.w2_lo, I, I, rows, D, I},
       EpiResidual{dense2_nb, sum, att_ln, w.b2, D}, stream));
   TE_TRY(ln_fwd(sum, w.ln2s, w.ln2b, out, rows, D, eps, stream));

@@ -52,20 +52,21 @@ int bert_out_rev(const float* att_ln, const float* g_out, const float* R,
     return 0;
   }
 
-  // recompute, with the forward's epilogues
-  TE_TRY(gemm<true, false, false>(
+  // recompute, with the forward's epilogues; the MLP products through
+  // gemm_mlp, as B7 runs them (bf16×3 summed a k-step at a time, fault C8)
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{att_ln, w.w1_hi, w.w1_lo, D, D, rows, I, D},
       EpiGelu{inter_pre, inter_g, w.b1, I}, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{inter_g, w.w2_hi, w.w2_lo, I, I, rows, D, I},
       EpiResidual{dense2_nb, z, att_ln, w.b2, D}, stream));
 
   // gradient
   TE_TRY(ln_bwd(g_out, z, w.ln2s, nullptr, g_sum2, rows, D, eps, stream));
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{g_sum2, w.w2_hi, w.w2_lo, D, I, rows, I, D},
       EpiGeluGrad{t_I, inter_g, inter_pre, w.b1, I}, stream));
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{t_I, w.w1_hi, w.w1_lo, I, D, rows, D, I},
       EpiAdd{g_attln, g_sum2, D}, stream));
 

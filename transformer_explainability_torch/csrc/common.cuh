@@ -381,6 +381,35 @@ using TmaMap = CUtensorMap;
 using TmaMap = te_emu_tma_map;
 #endif
 
+#ifdef __CUDACC__
+struct TmaEncoder {
+  PFN_cuTensorMapEncodeTiled_v12000 fn;
+  int err;
+};
+
+// The lookup, made once: a function-local static is initialised once even
+// when two host threads launch at the same time (a server's two programs)
+inline const TmaEncoder& tma_encoder() {
+  static const TmaEncoder enc = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return TmaEncoder{nullptr, (int)e};
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return TmaEncoder{nullptr, (int)cudaErrorNotSupported};
+    return TmaEncoder{
+        reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn), 0};
+  }();
+  return enc;
+}
+#endif
+
 // A tensor map for 2D TMA loads of a row-major array of dim1 rows of dim0
 // elements (esize 4: float32, 2: bf16) at a pitch of pitch bytes, in boxes
 // of box0 × box1 elements (box0 · esize = 128 bytes: one swizzle row) with
@@ -391,22 +420,9 @@ inline int tma_map_2d(TmaMap* m, const void* base, int esize, uint64_t dim0,
                       uint64_t dim1, uint64_t pitch, uint32_t box0,
                       uint32_t box1) {
 #ifdef __CUDACC__
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess) return (int)e;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  const TmaEncoder& enc = tma_encoder();
+  if (enc.err != 0) return enc.err;
+  const auto encode = enc.fn;
   const cuuint64_t dims[2] = {dim0, dim1};
   const cuuint64_t strides[1] = {pitch};
   const cuuint32_t box[2] = {box0, box1};

@@ -13,7 +13,9 @@
 //   kBf16x3Rn: the same three passes into one set over each 64-deep k-step
 //            (the cross terms first), which is then added to the second set
 //            with round-to-nearest and cleared: the MLP products' mode
-//            (gemm_mlp: B2's, B3's and B6's MLP products in bf16×3). wgmma's float32 accumulation truncates (−1.1e-5
+//            (gemm_mlp: the MLP products of B2, B3, B6 and, since fault
+//            C8, of B7, B8 and B10a in bf16×3). wgmma's float32
+//            accumulation truncates (−1.1e-5
 //            relative at K = 3072 on one chain over k), and on the MLP
 //            products, whose sums feed the α-β rules' divides, that made
 //            B6's and B3's Rm err up to 30× the plain version's limit at

@@ -157,20 +157,22 @@ int mlp_rev_tp1(const float* x_mid, const float* g_out, const float* ln2s,
     *work_bytes = ws.used;
     return 0;
   }
+  // the separate launches (bf16×3 MLP products, or fused = 0): the MLP
+  // products through gemm_mlp (bf16×3 summed a k-step at a time, fault C8)
   TE_TRY(ln_fwd(x_mid, ln2s, ln2b, xn2, rows, D, eps, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{xn2, w1_hi, w1_lo, D, D, rows, Ml, D},
       EpiStore{fc1_pre, Ml}, stream));
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{g_out, w2_hi, w2_lo, D, Ml, rows, Ml, D},
       EpiGeluGrad{g_h1, hg, fc1_pre, b1, Ml}, stream));
-  TE_TRY(gemm<true, false, false>(
+  TE_TRY(gemm_mlp<true, false, false>(
       mlp, GemmArgs{hg, w2_hi, w2_lo, Ml, Ml, rows, D, Ml},
       EpiStore{fc2_pre, D}, stream));
   TE_TRY(gemm<true, true, false>(
       rule, GemmArgs{hg, w2_ahi, w2_alo, Ml, Ml, rows, D, Ml},
       EpiStore{axw2, D}, stream));
-  TE_TRY(gemm<false, false, false>(
+  TE_TRY(gemm_mlp<false, false, false>(
       mlp, GemmArgs{g_h1, w1_hi, w1_lo, Ml, D, rows, D, Ml},
       EpiStore{gxn2, D}, stream));
   return 0;

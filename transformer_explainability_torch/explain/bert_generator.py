@@ -29,17 +29,24 @@ bf16×3 attention or rule products yet: a ``tensorfloat32`` attention or
 rule mode on them (raw ``tensorfloat32``) raises ``NotImplementedError``
 naming "ROADMAP B, raw tensorfloat32 (BERT)". Any batch size runs as it
 is.
+
+The guarded mode's strict form for BERT (JAX's
+``make_guarded_bert_explain_fn``): the ``production`` program checked per
+sample against the exact-FP32 one on the same device, flagged samples re-run
+on the host CPU (:func:`make_cpu_exact_bert_fn`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Mapping, Optional
 
+import numpy as np
 import torch
 
 from transformer_explainability_torch.explain.generator import (
-    _check_fp32_matmul, _check_names, _one_hot_index, _resolve_device,
-    check_precision)
+    PRECISION_PRESETS, STRICT_AGREEMENT, _check_fp32_matmul, _check_names,
+    _guard_flags, _one_hot_index, _resolve_device, _to_host, check_precision,
+    cpu_exact_cache)
 from transformer_explainability_torch.models import bert as bert_mod
 from transformer_explainability_torch.models.bert import BertConfig
 from transformer_explainability_torch.models.vit import megakernel_base
@@ -313,6 +320,84 @@ class BertExplainer:
         return self.explain(input_ids, attention_mask, index, "attn_gradcam")
 
 
+def make_cpu_exact_bert_fn(cfg: BertConfig, start_layer: int = 11,
+                           matmul_precision: str = "float32",
+                           variant: str = "ours") -> Callable:
+    """One-sample exact BERT ``transformer_attribution`` on the host CPU
+    (JAX ``bert_generator.make_cpu_exact_bert_fn``): ``fn(model, input_ids,
+    attention_mask, index) -> (S,)`` (numpy), on a CPU copy of ``model`` in
+    its dtype, cached as :func:`..generator.make_cpu_exact_fn` caches its
+    copy (``fn.copy.calls`` counts the calls)."""
+    cpu = torch.device("cpu")
+    explain = make_explain_fn(cfg, cpu, start_layer=start_layer,
+                              variant=variant,
+                              matmul_precision=matmul_precision)
+    copy = cpu_exact_cache(lambda dtype: (
+        bert_mod.BertForSequenceClassification(cfg, device=cpu, dtype=dtype)))
+
+    def fn(model: bert_mod.BertForSequenceClassification, input_ids,
+           attention_mask, index) -> np.ndarray:
+        cpu_model = copy(model)
+        host = [torch.as_tensor(a).detach().to(cpu)[None]
+                for a in (input_ids, attention_mask)]
+        idx = torch.as_tensor(index).detach().to(cpu).reshape(1)
+        return explain(cpu_model, *host, idx)[0].numpy()
+
+    fn.copy = copy
+    return fn
+
+
+def make_guarded_bert_explain_fn(cfg: BertConfig, device,
+                                 start_layer: int = 11,
+                                 agreement: Optional[float] = None,
+                                 fallback_precision: str = "float32",
+                                 fallback: str = "sync",
+                                 return_info: bool = False,
+                                 variant: str = "ours",
+                                 **precision_overrides) -> Callable:
+    """The guarded ``production`` mode for BERT, strict only (JAX
+    ``bert_generator.make_guarded_bert_explain_fn``; the envelope's
+    diagnostics are the ViT reverse's): the ``production`` program (with
+    ``precision_overrides``) and the exact-FP32 one on ``device``; a sample
+    whose two rows correlate below ``agreement`` (default
+    :data:`..generator.STRICT_AGREEMENT`) is flagged and, with
+    ``fallback="sync"``, re-run by :func:`make_cpu_exact_bert_fn` in
+    ``fallback_precision`` (``fn.cpu_exact``). Returns ``fn(model,
+    input_ids, attention_mask, indices, n_valid=None) -> (B, S)`` (numpy),
+    with ``return_info`` ``(rows, {"flagged", "score"})``, as the ViT
+    guarded function does."""
+    if fallback not in ("sync", "defer"):
+        raise ValueError(f"unknown fallback policy {fallback!r}")
+    agreement = STRICT_AGREEMENT if agreement is None else agreement
+    kwargs = dict(PRECISION_PRESETS["production"], **precision_overrides)
+    device = _resolve_device(device)
+    fast = make_explain_fn(cfg, device, start_layer=start_layer,
+                           variant=variant, **kwargs)
+    verify = make_explain_fn(cfg, device, start_layer=start_layer,
+                             variant=variant)
+    cpu_exact = make_cpu_exact_bert_fn(cfg, start_layer, fallback_precision,
+                                       variant)
+
+    def guarded(model: bert_mod.BertForSequenceClassification, input_ids,
+                attention_mask, indices, n_valid: Optional[int] = None):
+        heat_d, ver_d = (fast(model, input_ids, attention_mask, indices),
+                         verify(model, input_ids, attention_mask, indices))
+        heat = _to_host(heat_d)
+        flagged, score = _guard_flags("strict", heat, _to_host(ver_d),
+                                      agreement, n_valid=n_valid)
+        if fallback == "sync":
+            for i in np.flatnonzero(flagged):
+                heat[i] = cpu_exact(model, input_ids[i], attention_mask[i],
+                                    indices[i])
+        if return_info:
+            return heat, {"flagged": flagged, "score": score}
+        return heat
+
+    guarded.cpu_exact = cpu_exact
+    return guarded
+
+
 __all__ = ["KERNEL_MAX_SEQ", "METHODS", "PROBS_METHODS", "ACTIVATIONS",
            "check_supported", "eligible", "use_kernel_path", "explain_batch",
-           "make_explain_fn", "BertExplainer"]
+           "make_explain_fn", "BertExplainer", "make_cpu_exact_bert_fn",
+           "make_guarded_bert_explain_fn"]

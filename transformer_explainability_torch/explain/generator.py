@@ -39,12 +39,24 @@ The BERT layer kernels and the tensor-parallel program take no bf16×3
 attention or rule products yet: their entry points raise
 ``NotImplementedError`` for them, naming "ROADMAP B, raw tensorfloat32
 (BERT)" and "(TP)" (:func:`check_precision`).
+
+The guarded mode (JAX's "production-guarded"): :func:`make_guarded_explain_fn`
+runs the ``production`` program and checks each sample, in ``"strict"`` mode
+against the exact-FP32 program on the same device, in ``"envelope"`` mode
+against a trust region of its :data:`DIAG_FIELDS`; flagged samples are re-run
+by :func:`make_cpu_exact_fn`, the exact program on the host CPU. The
+thresholds keep JAX's values (:data:`STRICT_AGREEMENT`,
+:data:`ENVELOPE_BOUNDS`), which were calibrated on a TPU with JAX's seed-0
+weights: defaults to recalibrate per deployment
+(:func:`calibrate_envelope`), not figures of the card.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from transformer_explainability_torch.models import vit as vit_mod
@@ -418,6 +430,257 @@ def make_explain_fn(cfg: ViTConfig, device,
                              start_layer, method, **kw)
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The guarded mode: checked serving with an exact-CPU fallback
+# ---------------------------------------------------------------------------
+
+# Host-side scores over the DIAG_FIELDS vector, larger = more suspicious
+# (JAX generator.CHAOS_STATS; JAX measured that none of them separates the
+# sub-0.999 band within an input class: they serve the envelope detector)
+CHAOS_STATS = {
+    "r_drift": lambda d: np.abs(d[:, 0] - 1.0),
+    "r_l1": lambda d: d[:, 1],
+    "r_cancel": lambda d: d[:, 1] / np.maximum(np.abs(d[:, 0]), 1e-9),
+    "gc_l1max": lambda d: d[:, 2],
+    "gc_max": lambda d: d[:, 3],
+    "heat_l1": lambda d: d[:, 4],
+    "heat_max": lambda d: d[:, 5],
+    "g_growth": lambda d: d[:, 6],
+    "g_l1max": lambda d: d[:, 7],
+    "R_growth": lambda d: d[:, 8],
+    "R_l1max": lambda d: d[:, 9],
+}
+
+# The "envelope" mode's trust region, a [lo, hi] per DIAG_FIELD (JAX
+# generator.ENVELOPE_BOUNDS, the same values so that on the same
+# diagnostics the port flags what JAX flags): calibrated by JAX on a TPU
+# with its seed-0 weights on 160 augments of one image at a x1.3 margin.
+# They are the defaults, not figures of the card; recalibrate on the
+# deployment's known-good traffic with calibrate_envelope.
+ENVELOPE_BOUNDS = {
+    "r_sum": (0.597854, 1.34563),
+    "r_l1": (1.13319, 65.1951),
+    "gc_l1max": (5.45804e-05, 0.0134388),
+    "gc_max": (4.27658e-07, 0.00015762),
+    "heat_l1": (0.000156718, 0.0140936),
+    "heat_max": (1.0612e-06, 0.000160642),
+    "g_growth": (3.49377, 30.044),
+    "g_l1max": (71.3786, 802.741),
+    "R_growth": (1.14703, 129.423),
+    "R_l1max": (1.1677, 351.321),
+}
+
+# The "strict" mode's threshold: a sample whose production and exact-FP32
+# heatmaps correlate below it is flagged (JAX generator.STRICT_AGREEMENT,
+# tuned by JAX on 161 TPU-measured samples; a default here too)
+STRICT_AGREEMENT = 0.9999
+
+
+def calibrate_envelope(diag: np.ndarray, margin: float = 1.3) -> dict:
+    """Trust-region bounds from the ``(N, len(DIAG_FIELDS))`` diagnostics of
+    known-good traffic (the ``with_diagnostics`` program's), each field's
+    [min, max] widened by ``margin`` multiplicatively (JAX
+    ``generator.calibrate_envelope``)."""
+    diag = np.asarray(diag, np.float64)
+    out = {}
+    for k, f in enumerate(DIAG_FIELDS):
+        lo, hi = float(diag[:, k].min()), float(diag[:, k].max())
+        out[f] = (lo - (margin - 1.0) * abs(lo),
+                  hi + (margin - 1.0) * abs(hi))
+    return out
+
+
+def _envelope_flags(diag: np.ndarray, bounds: dict) -> np.ndarray:
+    """A sample is flagged where any field leaves its bounds."""
+    diag = np.asarray(diag, np.float64)
+    flagged = np.zeros(diag.shape[0], bool)
+    for k, f in enumerate(DIAG_FIELDS):
+        lo, hi = bounds[f]
+        flagged |= (diag[:, k] < lo) | (diag[:, k] > hi)
+    return flagged
+
+
+def _batch_corr(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-row Pearson correlation, in float64."""
+    a = a.reshape(a.shape[0], -1).astype(np.float64)
+    b = b.reshape(b.shape[0], -1).astype(np.float64)
+    a = a - a.mean(axis=1, keepdims=True)
+    b = b - b.mean(axis=1, keepdims=True)
+    num = (a * b).sum(axis=1)
+    den = np.sqrt((a * a).sum(axis=1) * (b * b).sum(axis=1))
+    return num / np.maximum(den, 1e-300)
+
+
+def _guard_flags(mode: str, heat: np.ndarray, other: np.ndarray,
+                 agreement: Optional[float] = None,
+                 bounds: Optional[dict] = None,
+                 n_valid: Optional[int] = None) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """The guard's decision on one batch, on the host: ``other`` is the
+    exact-FP32 program's heatmaps (``mode="strict"``: the score is their
+    corr with ``heat``, flagged below ``agreement``) or the diagnostics
+    (``"envelope"``: flagged outside ``bounds``, the score ``g_growth``,
+    column 6). Rows from ``n_valid`` on are padding and never flagged.
+    Returns ``(flagged, score)``."""
+    if mode == "strict":
+        score = _batch_corr(heat, other)
+        flagged = score < agreement
+    else:
+        diag = np.asarray(other, np.float64)
+        flagged = _envelope_flags(diag, bounds)
+        score = diag[:, 6]
+    if n_valid is not None:
+        flagged &= np.arange(len(flagged)) < n_valid
+    return flagged, score
+
+
+def _to_host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array of its own."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
+
+
+def _weights_key(model: torch.nn.Module) -> tuple:
+    """What a CPU copy of ``model`` was made from: each tensor's storage and
+    version (an in-place change, ``load_state_dict`` among them, moves it)."""
+    return tuple((t.data_ptr(), t._version)
+                 for t in model.state_dict().values())
+
+
+def cpu_exact_cache(make_model: Callable) -> Callable:
+    """``copy(model)``: a CPU copy of ``model`` made by ``make_model(dtype)``,
+    kept for the next call with the same model. The cache is filled under a
+    lock (a server calls from two threads) and keyed on the model's identity
+    with a strong reference to it, so that a recycled ``id`` can never give
+    another model's weights, and on :func:`_weights_key`, so that weights
+    changed in place are copied again (JAX's ``make_cpu_exact_fn`` cache)."""
+    state = {}
+    lock = threading.Lock()
+
+    def copy(model):
+        with lock:
+            key = _weights_key(model)
+            if state.get("src") is not model or state.get("key") != key:
+                sd = {k: v.detach().to("cpu")
+                      for k, v in model.state_dict().items()}
+                dtype = next(v.dtype for v in sd.values()
+                             if v.is_floating_point())
+                cpu_model = make_model(dtype)
+                cpu_model.load_state_dict(sd)
+                cpu_model.requires_grad_(False)
+                state.update(model=cpu_model, src=model, key=key)
+            copy.calls += 1
+            return state["model"]
+
+    copy.calls = 0         # the copies asked for: one a call of the caller
+    return copy
+
+
+def make_cpu_exact_fn(cfg: ViTConfig, start_layer: int = 0,
+                      matmul_precision: str = "float32",
+                      preprocess: Optional[str] = None) -> Callable:
+    """One-sample exact ``transformer_attribution`` on the host CPU: the
+    guarded mode's last tier (JAX ``generator.make_cpu_exact_fn``). Returns
+    ``fn(model, img, index) -> heatmap`` (numpy), ``img`` one ``(C, H, W)``
+    image (or one ``(H, W, C)`` uint8 frame with ``preprocess="uint8"``) on
+    any device. It runs the port's plain path on a CPU copy of ``model`` in
+    the model's dtype (no kernel runs on the CPU), pinned to
+    ``torch.device("cpu")`` whatever device the model is on; the copy is
+    cached (:func:`cpu_exact_cache`) and the call runs outside its lock.
+    ``fn.copy.calls`` counts the calls."""
+    cpu = torch.device("cpu")
+    explain = make_explain_fn(cfg, cpu, start_layer=start_layer,
+                              matmul_precision=matmul_precision,
+                              preprocess=preprocess, block_kernel=False)
+    copy = cpu_exact_cache(lambda dtype: vit_mod.VisionTransformer(
+        cfg, device=cpu, dtype=dtype))
+
+    def fn(model: vit_mod.VisionTransformer, img, index) -> np.ndarray:
+        cpu_model = copy(model)
+        img = torch.as_tensor(img).detach().to(cpu)[None]
+        idx = torch.as_tensor(index).detach().to(cpu).reshape(1)
+        return explain(cpu_model, img, idx)[0].numpy()
+
+    fn.copy = copy
+    return fn
+
+
+def make_guarded_explain_fn(cfg: ViTConfig, device, start_layer: int = 0,
+                            mode: str = "strict",
+                            agreement: Optional[float] = None,
+                            envelope_bounds: Optional[dict] = None,
+                            fallback_precision: str = "float32",
+                            fallback: str = "sync",
+                            return_info: bool = False,
+                            preprocess: Optional[str] = None,
+                            **precision_overrides) -> Callable:
+    """The guarded ``production`` mode (JAX
+    ``generator.make_guarded_explain_fn``): the ``production`` program on
+    ``device`` with a per-sample check.
+
+      * ``mode="strict"``: the exact-FP32 program runs beside it on the same
+        device; a sample whose two heatmaps correlate below ``agreement``
+        (default :data:`STRICT_AGREEMENT`) is flagged;
+      * ``mode="envelope"``: ``production`` with ``with_diagnostics``; a
+        sample whose :data:`DIAG_FIELDS` leave ``envelope_bounds`` (default
+        :data:`ENVELOPE_BOUNDS`) is flagged. An anomaly detector, not a
+        per-sample guarantee.
+
+    Returns ``fn(model, images, indices, n_valid=None) -> heatmaps``
+    (numpy), or with ``return_info`` ``(heatmaps, {"flagged": bool (B,),
+    "score": float (B,)})``: the score is the production-vs-FP32 corr in
+    strict mode, the ``g_growth`` field (column 6) in envelope mode.
+    ``n_valid`` marks the first n rows as real and the rest as padding,
+    which is never flagged. ``fallback="sync"`` re-runs flagged rows by
+    :func:`make_cpu_exact_fn` (in ``fallback_precision``, ``fn.cpu_exact``)
+    before returning; ``"defer"`` only marks them (the serving queue's
+    policy, :mod:`.serving`). ``preprocess="uint8"`` (raw ``(B, H, W, C)``
+    frames) reaches all three programs. ``precision_overrides`` are
+    :func:`make_explain_fn` precision arguments over the ``production``
+    preset, for the fast program."""
+    if mode not in ("strict", "envelope"):
+        raise ValueError(f"unknown guarded mode {mode!r}")
+    if fallback not in ("sync", "defer"):
+        raise ValueError(f"unknown fallback policy {fallback!r}")
+    kwargs = dict(PRECISION_PRESETS["production"], **precision_overrides)
+    device = _resolve_device(device)
+    bounds = None
+    if mode == "strict":
+        agreement = STRICT_AGREEMENT if agreement is None else agreement
+        fast = make_explain_fn(cfg, device, start_layer=start_layer,
+                               preprocess=preprocess, **kwargs)
+        verify = make_explain_fn(cfg, device, start_layer=start_layer,
+                                 preprocess=preprocess)
+    else:
+        bounds = dict(envelope_bounds or ENVELOPE_BOUNDS)
+        fast = make_explain_fn(cfg, device, start_layer=start_layer,
+                               with_diagnostics=True, preprocess=preprocess,
+                               **kwargs)
+    cpu_exact = make_cpu_exact_fn(cfg, start_layer, fallback_precision,
+                                  preprocess)
+
+    def guarded(model: vit_mod.VisionTransformer, images, indices,
+                n_valid: Optional[int] = None):
+        if mode == "strict":
+            heat_d, other_d = (fast(model, images, indices),
+                               verify(model, images, indices))
+        else:
+            heat_d, other_d = fast(model, images, indices)
+        heat = _to_host(heat_d)
+        flagged, score = _guard_flags(mode, heat, _to_host(other_d),
+                                      agreement, bounds, n_valid)
+        if fallback == "sync":
+            for i in np.flatnonzero(flagged):
+                heat[i] = cpu_exact(model, images[i], indices[i])
+        if return_info:
+            return heat, {"flagged": flagged, "score": score}
+        return heat
+
+    guarded.cpu_exact = cpu_exact
+    return guarded
 
 
 class Explainer:

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -26,6 +27,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 def sources() -> List[Path]:
@@ -156,8 +158,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library, once per process."""
+    """Build (first use) and load the kernel library, once per process: the
+    first call builds under a lock, so that two threads launching kernels
+    (a server's) never build or load it twice."""
     global _lib
     if _lib is None:
-        _lib = declare(ctypes.CDLL(str(build())))
+        with _lib_lock:
+            if _lib is None:
+                _lib = declare(ctypes.CDLL(str(build())))
     return _lib

@@ -54,6 +54,7 @@ Layouts follow the JAX package, with a leading batch dimension: ``qkv`` is
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -172,6 +173,16 @@ def _stream(t: Tensor):
 def _lib():
     from transformer_explainability_torch.ops._build import load_library
     return load_library()
+
+
+# the wrappers' launch counts: two threads launch on a server (the fast
+# program and the verifier tier), so each count moves under a lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _launch_attn_fwd(lib, qkv: Tensor, num_heads: int, head_dim: int,
@@ -589,7 +600,7 @@ def attn_fwd_core(qkv: Tensor, num_heads: int, head_dim: int,
     with torch.cuda.device(qkv.device):
         out = _launch_attn_fwd(_lib(), qkv, num_heads, head_dim, scale,
                                _stream(qkv), flag)
-    attn_fwd_core.launches += 1
+    _count(attn_fwd_core)
     return out
 
 
@@ -620,7 +631,7 @@ def attn_rev_core(qkv: Tensor, g_o: Tensor, cam_o: Tensor, num_heads: int,
     with torch.cuda.device(qkv.device):
         outs = _launch_attn_rev(_lib(), qkv, g_o, cam_o, num_heads, head_dim,
                                 scale, _stream(qkv), *flags)
-    attn_rev_core.launches += 1
+    _count(attn_rev_core)
     return outs
 
 
@@ -659,7 +670,7 @@ def rollout_from_grad_cam(cams: Tensor, start_layer: int = 0,
     with torch.cuda.device(cams.device):
         out = _launch_rollout(_lib(), cams, start_layer, row_normalize,
                               _stream(cams), grads, rows)
-    rollout_from_grad_cam.launches += 1
+    _count(rollout_from_grad_cam)
     return out
 
 
@@ -689,7 +700,7 @@ def block_fwd_core(x: Tensor, p: BlockParams, num_heads: int,
     with torch.cuda.device(x.device):
         outs = _launch_block_fwd(_lib(), x, p, num_heads, head_dim, eps,
                                  flags, _stream(x))
-    block_fwd_core.launches += 1
+    _count(block_fwd_core)
     return outs[:3 + 4 * save_attn + 2 * save_mlp]
 
 
@@ -743,7 +754,7 @@ def block_rev_core(x_in: Tensor, x_mid: Tensor, out_m: Tensor, g_out: Tensor,
         outs = _launch_block_rev(_lib(), x_in, x_mid, out_m, g_out, R, saved,
                                  p, num_heads, head_dim, eps, flags,
                                  _stream(x_in))
-    block_rev_core.launches += 1
+    _count(block_rev_core)
     return outs
 
 
@@ -785,7 +796,7 @@ def bert_layer_fwd_core(x: Tensor, mask: Tensor, p: BertLayerParams,
     with torch.cuda.device(x.device):
         outs = _launch_bert_fwd(_lib(), x, mask, p, num_heads, head_dim, eps,
                                 flags, _stream(x))
-    bert_layer_fwd_core.launches += 1
+    _count(bert_layer_fwd_core)
     return outs[:5 if save_attn else 2]
 
 
@@ -821,7 +832,7 @@ def bert_out_rev_core(att_ln: Tensor, g_out: Tensor, R: Tensor,
     with torch.cuda.device(att_ln.device):
         outs = _launch_bert_out_rev(_lib(), att_ln, g_out, R, p, eps, flags,
                                     _stream(att_ln))
-    bert_out_rev_core.launches += 1
+    _count(bert_out_rev_core)
     return outs
 
 
@@ -862,7 +873,7 @@ def bert_attn_rev_core(x_in: Tensor, g_attln: Tensor, R_att: Tensor,
         outs = _launch_bert_attn_rev(_lib(), x_in, g_attln, R_att, mask,
                                      saved, p, num_heads, head_dim, eps,
                                      flags, _stream(x_in))
-    bert_attn_rev_core.launches += 1
+    _count(bert_attn_rev_core)
     return outs
 
 
@@ -892,7 +903,7 @@ def mlp_rev_tp_phase1(x_mid: Tensor, g_out: Tensor, ln2s: Tensor,
     with torch.cuda.device(x_mid.device):
         outs = _launch_mlp_rev_tp1(_lib(), x_mid, g_out, ln2s, ln2b, b1_l,
                                    w1_l, w2_l, eps, flags, _stream(x_mid))
-    mlp_rev_tp_phase1.launches += 1
+    _count(mlp_rev_tp_phase1)
     return outs
 
 
@@ -922,7 +933,7 @@ def mlp_rev_tp_phase2(x_mid: Tensor, Sr: Tensor, fc1_pre_l: Tensor,
         outs = _launch_mlp_rev_tp2(_lib(), x_mid, Sr, fc1_pre_l, ln2s, ln2b,
                                    b1_l, w1_l, w2_l, eps, flags,
                                    _stream(x_mid))
-    mlp_rev_tp_phase2.launches += 1
+    _count(mlp_rev_tp_phase2)
     return outs
 
 
@@ -950,7 +961,7 @@ def mlp_rev_core(x_mid: Tensor, g_out: Tensor, R: Tensor, p: BlockParams,
     with torch.cuda.device(x_mid.device):
         outs = _launch_mlp_rev(_lib(), x_mid, g_out, R, p, eps, flags,
                                _stream(x_mid))
-    mlp_rev_core.launches += 1
+    _count(mlp_rev_core)
     return outs
 
 
@@ -1001,7 +1012,7 @@ def gemm_core(a: Tensor, w, mxu: str, wt: bool = True,
     with torch.cuda.device(a.device):
         outs = _launch_gemm(_lib(), a, w, flag, wt, absolute, dual, tile,
                             _stream(a))
-    gemm_core.launches += 1
+    _count(gemm_core)
     return outs
 
 
@@ -1051,7 +1062,7 @@ def gemm_core_fused(kind: str, a0: Tensor, w0, a1: Optional[Tensor] = None,
     with torch.cuda.device(a0.device):
         outs = _launch_gemm_fused(_lib(), kind, flag, a0, w0, a1, w1,
                                   _stream(a0))
-    gemm_core.launches += 1
+    _count(gemm_core)
     return outs
 
 
@@ -1075,12 +1086,14 @@ WRAPPERS = (attn_fwd_core, attn_rev_core, rollout_from_grad_cam,
 
 
 def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+    with _COUNT_LOCK:
+        for w in WRAPPERS:
+            w.launches = 0
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    with _COUNT_LOCK:
+        return {w.__name__: w.launches for w in WRAPPERS}
 
 
 class AttnOps(NamedTuple):
